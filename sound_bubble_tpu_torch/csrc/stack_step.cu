@@ -1,0 +1,250 @@
+// One streaming step (T=1, batch 1) of the whole TF-GridNet block stack.
+//
+// Replaces the Pallas TPU kernel `sound_bubble_tpu/ops/pallas/stack_kernel.py:
+// _kernel` (called from `gridnet_stack_step`), for the non-conv, non-attention
+// configuration. Per block b: FiLM (b > 0) -> LayerNorm -> fused-direction
+// intra BLSTM over the F frequency rows -> projection residual -> LayerNorm ->
+// one inter-LSTM step on all F lanes -> projection residual. Operand layouts are
+// those of `pack_stack_params` (sound_bubble_tpu_torch/ops/kernels/
+// stack_kernel.py): gate g of the fused BLSTM occupies columns [g*2H, g*2H+H)
+// for the forward direction and [g*2H+H, (g+1)*2H) for the backward one.
+//
+// What bounds it on an H100: a dependency chain of B*(F+1) sequential LSTM cell
+// updates (876 at B=6, F=145), each a [2H] x [2H, 8H] product followed by the
+// gate math, not bytes or FLOPs. Counting the compact math (not the zeros the
+// fused packing adds), the step moves 3,053,568 B (weights 1.94 MB fp32, h0/c0
+// in and out 0.89 MB, FiLM 0.19 MB, x in and out), about 0.9 us at 3.35 TB/s,
+// and does 138,977,280 FLOP, about 2.1 us at 67 TFLOP/s fp32.
+// chip_smoke.py computes both from the shapes of the run.
+//
+// Design: ONE thread block does the whole step and loops over the B blocks,
+// the same dependency chain as the TPU kernel, so no inter-block
+// synchronisation of any kind exists (no grid sync, no clusters, no spin
+// flags) and the kernel cannot wait on a block that is not resident. One
+// thread per fused gate column (8H threads). Each intra step computes
+// gates = gx[f] + h . W_hh into shared memory, then the 2H state threads
+// update (h, c). The activation tile x [F, D], the LayerNorm output and the
+// recurrent state live in shared memory; the input projections gx [F, 8H],
+// the BLSTM output y [F, 2H] and the inter gates [F, 4H] live in a global
+// scratch the wrapper allocates (it stays in L2); the weights are read from
+// global memory (the six blocks' packed weights, 3.1 MB with their zeros,
+// sit in the 50 MB L2). This trades speed for certainty: W_hh is re-read from
+// L2 at every step. Clusters, weights in shared memory and tensor-core `mma`
+// are later work.
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+// dst[f, :] = LayerNorm(src[f, :]) * scale + bias, one warp per row.
+// blockDim.x is a multiple of 32, so every warp is full.
+__device__ void layer_norm_rows(const float* src, float* dst,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ bias, int F, int D,
+                                float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  for (int f = warp; f < F; f += n_warps) {
+    const float* row = src + f * D;
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s += row[d];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mu = s / D;
+    float v = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float t = row[d] - mu;
+      v += t * t;
+    }
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    const float inv = 1.0f / sqrtf(v / D + eps);
+    for (int d = lane; d < D; d += 32)
+      dst[f * D + d] = (row[d] - mu) * inv * scale[d] + bias[d];
+  }
+}
+
+__global__ void __launch_bounds__(1024) stack_step_kernel(
+    const float* __restrict__ x, const float* __restrict__ film_w,
+    const float* __restrict__ film_b, const float* __restrict__ i_ln,
+    const float* __restrict__ wih_f, const float* __restrict__ wih_b,
+    const float* __restrict__ whh, const float* __restrict__ b8,
+    const float* __restrict__ proj_w, const float* __restrict__ proj_b,
+    const float* __restrict__ t_ln, const float* __restrict__ wih2,
+    const float* __restrict__ whh2, const float* __restrict__ b2,
+    const float* __restrict__ proj2_w, const float* __restrict__ proj2_b,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
+    float* g2, int n_blocks, int F, int D, int H, int use_film, float eps) {
+  extern __shared__ float smem[];
+  const int G = 8 * H, H2 = 2 * H, G2 = 4 * H, FD = F * D;
+  float* xs = smem;        // [F, D] activation tile
+  float* zs = xs + FD;     // [F, D] LayerNorm output
+  float* gs = zs + FD;     // [8H] gates of the current intra step
+  float* hs = gs + G;      // [2H] fused (fwd | bwd) hidden state
+  float* cs = hs + H2;     // [2H] fused cell state
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int i = tid; i < FD; i += nt) xs[i] = x[i];
+  __syncthreads();
+
+  for (int b = 0; b < n_blocks; ++b) {
+    if (use_film && b > 0) {
+      const float* fw = film_w + (size_t)(b - 1) * FD;
+      const float* fb = film_b + (size_t)(b - 1) * FD;
+      for (int i = tid; i < FD; i += nt) xs[i] = xs[i] * fw[i] + fb[i];
+      __syncthreads();
+    }
+
+    // ---- intra: LayerNorm, then both directions' input projections. The
+    // backward direction reads row F-1-f, so step f needs only gx[f].
+    layer_norm_rows(xs, zs, i_ln + (size_t)b * 2 * D,
+                    i_ln + (size_t)b * 2 * D + D, F, D, eps);
+    __syncthreads();
+    {
+      const float* wf = wih_f + (size_t)b * D * G;
+      const float* wb = wih_b + (size_t)b * D * G;
+      const float* bb = b8 + (size_t)b * G;
+      for (int idx = tid; idx < F * G; idx += nt) {
+        const int f = idx / G, j = idx - f * G;
+        const float* zf = zs + f * D;
+        const float* zr = zs + (F - 1 - f) * D;
+        float af = 0.f, ab = 0.f;
+        for (int d = 0; d < D; ++d) {
+          af += zf[d] * wf[d * G + j];
+          ab += zr[d] * wb[d * G + j];
+        }
+        gx[idx] = (af + bb[j]) + ab;
+      }
+    }
+    if (tid < H2) {
+      hs[tid] = 0.f;
+      cs[tid] = 0.f;
+    }
+    __syncthreads();
+
+    // ---- intra recurrence over F: the sequential chain.
+    {
+      const float* wh = whh + (size_t)b * H2 * G;
+      for (int f = 0; f < F; ++f) {
+        for (int j = tid; j < G; j += nt) {
+          float a = gx[f * G + j];
+#pragma unroll 8
+          for (int k = 0; k < H2; ++k) a += hs[k] * wh[k * G + j];
+          gs[j] = a;
+        }
+        __syncthreads();
+        if (tid < H2) {
+          const float ig = sigmoid(gs[tid]);
+          const float fg = sigmoid(gs[H2 + tid]);
+          const float gg = tanhf(gs[2 * H2 + tid]);
+          const float og = sigmoid(gs[3 * H2 + tid]);
+          const float c = fg * cs[tid] + ig * gg;
+          const float h = og * tanhf(c);
+          cs[tid] = c;
+          hs[tid] = h;
+          // forward h at row f, backward h at the mirrored row
+          y[(tid < H ? f : F - 1 - f) * H2 + tid] = h;
+        }
+        __syncthreads();
+      }
+    }
+
+    // ---- intra projection residual: x += y @ proj_w + proj_b.
+    {
+      const float* pw = proj_w + (size_t)b * H2 * D;
+      const float* pb = proj_b + (size_t)b * D;
+      for (int idx = tid; idx < FD; idx += nt) {
+        const int f = idx / D, d = idx - f * D;
+        const float* yr = y + f * H2;
+        float a = 0.f;
+        for (int k = 0; k < H2; ++k) a += yr[k] * pw[k * D + d];
+        xs[idx] = xs[idx] + a + pb[d];
+      }
+    }
+    __syncthreads();
+
+    // ---- inter: one LSTM step on all F lanes, from the carried (h0, c0).
+    layer_norm_rows(xs, zs, t_ln + (size_t)b * 2 * D,
+                    t_ln + (size_t)b * 2 * D + D, F, D, eps);
+    __syncthreads();
+    const float* hb = h0 + (size_t)b * F * H;
+    const float* cb = c0 + (size_t)b * F * H;
+    float* ho = h0_out + (size_t)b * F * H;
+    float* co = c0_out + (size_t)b * F * H;
+    {
+      const float* w2 = wih2 + (size_t)b * D * G2;
+      const float* u2 = whh2 + (size_t)b * H * G2;
+      const float* bb2 = b2 + (size_t)b * G2;
+      for (int idx = tid; idx < F * G2; idx += nt) {
+        const int f = idx / G2, j = idx - f * G2;
+        float a = 0.f, r = 0.f;
+        for (int d = 0; d < D; ++d) a += zs[f * D + d] * w2[d * G2 + j];
+        for (int k = 0; k < H; ++k) r += hb[f * H + k] * u2[k * G2 + j];
+        g2[idx] = (a + bb2[j]) + r;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < F * H; idx += nt) {
+      const int f = idx / H, k = idx - f * H;
+      const float* g = g2 + f * G2;
+      const float i2 = sigmoid(g[k]);
+      const float f2 = sigmoid(g[H + k]);
+      const float gg2 = tanhf(g[2 * H + k]);
+      const float o2 = sigmoid(g[3 * H + k]);
+      const float c = f2 * cb[idx] + i2 * gg2;
+      co[idx] = c;
+      ho[idx] = o2 * tanhf(c);
+    }
+    __syncthreads();
+
+    // ---- inter projection residual: x += h' @ proj2_w + proj2_b.
+    {
+      const float* pw = proj2_w + (size_t)b * H * D;
+      const float* pb = proj2_b + (size_t)b * D;
+      for (int idx = tid; idx < FD; idx += nt) {
+        const int f = idx / D, d = idx - f * D;
+        float a = 0.f;
+        for (int k = 0; k < H; ++k) a += ho[f * H + k] * pw[k * D + d];
+        xs[idx] = xs[idx] + a + pb[d];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < FD; i += nt) x_out[i] = xs[i];
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. Every pointer is a device pointer to
+// contiguous fp32 memory; the wrapper has checked shapes, types and devices.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int sbt_stack_step(
+    const float* x, const float* film_w, const float* film_b,
+    const float* i_ln, const float* wih_f, const float* wih_b,
+    const float* whh, const float* b8, const float* proj_w,
+    const float* proj_b, const float* t_ln, const float* wih2,
+    const float* whh2, const float* b2, const float* proj2_w,
+    const float* proj2_b, const float* h0, const float* c0, float* x_out,
+    float* h0_out, float* c0_out, float* gx, float* y, float* g2,
+    int n_blocks, int f_len, int d, int hidden, int use_film, float eps,
+    void* stream) {
+  const int threads = 8 * hidden;
+  const size_t smem =
+      (size_t)(2 * f_len * d + 12 * hidden) * sizeof(float);
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stack_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  stack_step_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      x, film_w, film_b, i_ln, wih_f, wih_b, whh, b8, proj_w, proj_b, t_ln,
+      wih2, whh2, b2, proj2_w, proj2_b, h0, c0, x_out, h0_out, c0_out, gx, y,
+      g2, n_blocks, f_len, d, hidden, use_film, eps);
+  return (int)cudaGetLastError();
+}
+

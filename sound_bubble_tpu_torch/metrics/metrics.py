@@ -1,0 +1,87 @@
+"""Evaluation metrics with torchmetrics conventions (port of
+`sound_bubble_tpu/metrics/metrics.py`: snr, si_sdr, si_snr, compute_decay and
+the `Metrics` improvement wrappers). STOI and PESQ are not ported yet
+(ROADMAP Queue 1 item 9).
+
+- snr and si_sdr use zero_mean=False; si_snr is si_sdr with zero mean;
+- `*_i` variants are the improvement over the mixture: metric(est) -
+  metric(mix);
+- `compute_decay` = 10log10(P_mix) - 10log10(P_est), the empty-bubble
+  suppression measure.
+
+Inputs are numpy arrays or tensors; the math runs in float32 torch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_EPS = float(np.finfo(np.float32).eps)
+
+
+def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32)
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def snr(preds, target, zero_mean: bool = False):
+    """[..., T] -> [...] in dB."""
+    preds, target = _t(preds), _t(target)
+    if zero_mean:
+        preds = preds - preds.mean(dim=-1, keepdim=True)
+        target = target - target.mean(dim=-1, keepdim=True)
+    noise = target - preds
+    val = ((target.square().sum(dim=-1) + _EPS)
+           / (noise.square().sum(dim=-1) + _EPS))
+    return 10.0 * torch.log10(val)
+
+
+def si_sdr(preds, target, zero_mean: bool = False):
+    """Scale-invariant SDR, torchmetrics convention. [..., T] -> [...]."""
+    preds, target = _t(preds), _t(target)
+    if zero_mean:
+        preds = preds - preds.mean(dim=-1, keepdim=True)
+        target = target - target.mean(dim=-1, keepdim=True)
+    alpha = (((preds * target).sum(dim=-1, keepdim=True) + _EPS)
+             / (target.square().sum(dim=-1, keepdim=True) + _EPS))
+    scaled = alpha * target
+    noise = scaled - preds
+    val = ((scaled.square().sum(dim=-1) + _EPS)
+           / (noise.square().sum(dim=-1) + _EPS))
+    return 10.0 * torch.log10(val)
+
+
+def si_snr(preds, target):
+    return si_sdr(preds, target, zero_mean=True)
+
+
+def compute_decay(est, mix):
+    """[*, C, T] -> [*]: how strongly the model mutes an empty bubble."""
+    est, mix = _t(est), _t(mix)
+    p_est = 10.0 * torch.log10(est.square().sum(dim=-1))
+    p_mix = 10.0 * torch.log10(mix.square().sum(dim=-1))
+    return (p_mix - p_est).mean(dim=-1)
+
+
+_METRICS = {
+    "snr": lambda est, gt, mix: snr(est, gt),
+    "snr_i": lambda est, gt, mix: snr(est, gt) - snr(mix, gt),
+    "si_snr": lambda est, gt, mix: si_snr(est, gt),
+    "si_snr_i": lambda est, gt, mix: si_snr(est, gt) - si_snr(mix, gt),
+    "si_sdr": lambda est, gt, mix: si_sdr(est, gt),
+    "si_sdr_i": lambda est, gt, mix: si_sdr(est, gt) - si_sdr(mix, gt),
+}
+
+
+class Metrics:
+    """Name-dispatched metric: __call__(est, gt, mix) with [*, C, T] inputs,
+    returns channel-averaged [*] values (reference `Metrics`)."""
+
+    def __init__(self, name: str):
+        if name not in _METRICS:
+            raise NotImplementedError(f"Metric {name} not implemented!")
+        self.name = name
+
+    def __call__(self, est, gt, mix):
+        return _METRICS[self.name](est, gt, mix).mean(dim=-1)

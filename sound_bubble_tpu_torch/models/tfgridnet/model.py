@@ -1,0 +1,385 @@
+"""Causal TF-GridNet with FiLM distance conditioning (port of
+`sound_bubble_tpu/models/tfgridnet/model.py`, production subset).
+
+Covers the production configuration (`syn_experiments/finetune_stage.json`,
+`runs/finetune_r5/config.json`): no attention, no conv_lstm, no STFT
+look-back, `dis_type` conv1-4. The other variants raise NotImplementedError
+(ROADMAP Queue 1 item 11).
+
+Layouts follow the JAX package so the two compare array for array:
+activations are channel-minor `[B, T, F, C]`; parameters keep the JAX names
+and layouts (Linear `kernel` [in, out], conv `kernel` [kt, kf, in, out],
+LSTM `w_ih` [C, 4H] / `w_hh` [H, 4H] / folded `b` [4H]), so a module's
+`state_dict()` keys are the dotted paths of the JAX parameter tree
+(`sound_bubble_tpu_torch/weights.py`). Weights start at zero; load them with
+`net.load_state_dict(from_jax_params(tree))`.
+
+The streaming state is an explicit dict threaded through `forward`, with the
+reference `init_buffers` key names (conv_buf / deconv_buf / istft_buf /
+gridnet_bufs.bufN.{h0,c0}); offline and streaming share one forward
+(streaming = the same call with T=1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as TF
+from torch import nn
+
+from sound_bubble_tpu_torch.constants import BUBBLE_RADII
+from sound_bubble_tpu_torch.ops.features import spatial_features
+from sound_bubble_tpu_torch.ops.rnn import blstm, lstm
+from sound_bubble_tpu_torch.ops.stft import (
+    STFT, istft, make_stft, mod_pad, stft)
+
+_VARIANTS_LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """Mirrors the JAX `NetConfig` (reference `Net.__init__` kwargs)."""
+
+    stft_chunk_size: int = 192
+    stft_pad_size: int = 96
+    stft_back_pad: int = 0
+    num_ch: int = 6
+    D: int = 32           # embedding dim
+    B: int = 6            # number of GridNet blocks
+    I: int = 1            # unused (kept for config parity)
+    J: int = 1            # unused (kept for config parity)
+    L: int = 4            # attention heads
+    H: int = 64           # LSTM hidden
+    E: int = 2            # per-head attention emb dim
+    use_attn: bool = False
+    lookahead: bool = True
+    local_atten_len: int = 100
+    chunk_causal: bool = True
+    num_src: int = 1
+    spectral_masking: bool = False
+    use_first_ln: bool = False
+    merge_method: str = "None"
+    directional: bool = False
+    conv_lstm: bool = True
+    lstm_down: int = 4
+    fb_type: str = "stft"
+    dis_type: str = "conv3"
+    conditional: bool = True
+    eps: float = 1e-5
+
+    @property
+    def n_fft(self) -> int:
+        return self.stft_back_pad + self.stft_chunk_size + self.stft_pad_size
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+    @property
+    def n_feat(self) -> int:
+        n = 3 * (self.num_ch - 1)
+        return n - 1 if self.directional else n
+
+    @property
+    def conv_in(self) -> int:
+        if self.merge_method == "early_cat":
+            return 2 * self.num_ch + self.n_feat
+        return 2 * self.num_ch
+
+    @property
+    def istft_lookback(self) -> int:
+        pad = self.n_fft - self.stft_chunk_size
+        return 1 + (pad - 1) // pad
+
+    @property
+    def embed_width(self) -> int:
+        return {"linear1": 1, "linear2": self.D, "conv1": 1, "conv2": 2,
+                "conv3": 4, "conv4": 8}[self.dis_type]
+
+
+def check_supported(cfg: NetConfig) -> None:
+    """Raise NotImplementedError for the variants this port does not cover."""
+    if cfg.use_attn:
+        raise NotImplementedError(f"use_attn=True {_VARIANTS_LATER}")
+    if cfg.conv_lstm:
+        raise NotImplementedError(f"conv_lstm=True {_VARIANTS_LATER}")
+    if cfg.stft_back_pad > 0:
+        raise NotImplementedError(f"stft_back_pad>0 {_VARIANTS_LATER}")
+    if cfg.conditional and not cfg.dis_type.startswith("conv"):
+        raise NotImplementedError(f"dis_type={cfg.dis_type} {_VARIANTS_LATER}")
+
+
+def make_config(model_params: dict, conditional: bool = True) -> NetConfig:
+    """NetConfig from a reference-style `model_params` JSON dict."""
+    known = {f.name for f in dataclasses.fields(NetConfig)}
+    kwargs = {k: v for k, v in model_params.items() if k in known}
+    kwargs["conditional"] = conditional
+    return NetConfig(**kwargs)
+
+
+def init_state(cfg: NetConfig, batch_size: int, device="cpu",
+               dtype=torch.float32) -> dict[str, Any]:
+    """Zero streaming state (reference `init_buffers`, same key names)."""
+    F, D = cfg.n_freqs, cfg.D
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "conv_buf": zeros(batch_size, 2, F, cfg.conv_in),
+        "deconv_buf": zeros(batch_size, 2, F, D),
+        "istft_buf": zeros(batch_size, cfg.num_src, cfg.istft_lookback, 2 * F),
+        "gridnet_bufs": {
+            f"buf{i}": {"h0": zeros(batch_size, F, cfg.H),
+                        "c0": zeros(batch_size, F, cfg.H)}
+            for i in range(cfg.B)},
+    }
+
+
+# ---------------------------------------------------------------- layers ----
+
+def _zeros(*shape):
+    return nn.Parameter(torch.zeros(shape))
+
+
+def _lstm_params(c, h):
+    return nn.ParameterDict({"w_ih": _zeros(c, 4 * h), "w_hh": _zeros(h, 4 * h),
+                             "b": _zeros(4 * h)})
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm over the trailing `dim` features."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.dim, self.eps = dim, eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = _zeros(dim)
+
+    def forward(self, x):
+        return TF.layer_norm(x, (self.dim,), self.scale, self.bias, self.eps)
+
+
+class Linear(nn.Module):
+    """`x @ kernel + bias` with the JAX layout kernel [in, out]."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.kernel = _zeros(in_features, out_features)
+        self.bias = _zeros(out_features) if use_bias else None
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class PReLU(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(0.25))
+
+    def forward(self, x):
+        return torch.clamp(x, min=0) + self.alpha * torch.clamp(x, max=0)
+
+
+class CausalConv2d(nn.Module):
+    """3x3 conv: valid over time (input pre-padded by the 2-frame state
+    buffer), 'same' over frequency. x: [B, T+2, F, Cin] -> [B, T, F, Cout]."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = _zeros(3, 3, in_features, features)
+        self.bias = _zeros(features)
+
+    def _conv(self, x, kernel):
+        y = TF.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                      self.bias, padding=(0, 1))
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        return self._conv(x, self.kernel)
+
+
+class CausalDeconv2d(CausalConv2d):
+    """ConvTranspose2d(k=3, padding=(2,1)) equivalent: a correlation with the
+    double-flipped kernel, valid over (pre-buffered) time, same over freq."""
+
+    def forward(self, x):
+        return self._conv(x, torch.flip(self.kernel, (0, 1)))
+
+
+class DisEmbed(nn.Module):
+    """Distance embedding, conv dis_types: one-hot [B, 3] -> [B, F, D_in]."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        self.F, self.d_in = cfg.n_freqs, cfg.embed_width
+        self.proj = Linear(len(BUBBLE_RADII), self.F * self.d_in,
+                           use_bias=False)
+        self.norm = LayerNorm(self.d_in)
+
+    def forward(self, e):
+        e = self.proj(e).reshape(e.shape[0], self.F, self.d_in)
+        return self.norm(e)
+
+
+class FiLM(nn.Module):
+    """Per-(freq, channel) scale+bias from the distance embedding."""
+
+    def __init__(self, d_in: int, features: int):
+        super().__init__()
+        self.weight = Linear(d_in, features)
+        self.bias = Linear(d_in, features)
+
+    def affine(self, emb):
+        """emb [B, F, D_in] -> (scale, bias) [B, F, C]."""
+        return self.weight(emb), self.bias(emb)
+
+    def forward(self, x, emb):
+        w, b = self.affine(emb)
+        return x * w[:, None] + b[:, None]
+
+
+class IntraBand(nn.Module):
+    """Sub-band module, conv_lstm=False: LN -> BLSTM over F -> Linear.
+    x: [B, T, F, C] -> [B, T, F, C] (residual added by the caller)."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        C, H = cfg.D, cfg.H
+        self.norm = LayerNorm(C, eps=cfg.eps)
+        self.blstm = nn.ModuleDict({"fwd": _lstm_params(C, H),
+                                    "bwd": _lstm_params(C, H)})
+        self.proj = Linear(2 * H, C)
+
+    def forward(self, x):
+        B, T, F, C = x.shape
+        z = self.norm(x).reshape(B * T, F, C)
+        z = self.proj(blstm(self.blstm, z))
+        return z.reshape(B, T, F, C)
+
+
+class GridNetBlock(nn.Module):
+    """One TF-GridNet block: intra-frequency BLSTM + stateful inter-time LSTM."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        C = cfg.D
+        self.intra = IntraBand(cfg)
+        self.inter_norm = LayerNorm(C, eps=cfg.eps)
+        self.inter_lstm = _lstm_params(C, cfg.H)
+        self.inter_proj = Linear(cfg.H, C)
+
+    def forward(self, x, state):
+        x = x + self.intra(x)
+        z = self.inter_norm(x).transpose(1, 2)            # [B, F, T, C]
+        z, (hT, cT) = lstm(self.inter_lstm, z, state["h0"], state["c0"])
+        x = x + self.inter_proj(z).transpose(1, 2)
+        return x, {"h0": hT, "c0": cT}
+
+
+class Net(nn.Module):
+    """Reference `Net` wrapper: mod-pad + TFGridNet core.
+
+    forward(inputs, input_state=None, pad=True) -> {'output', 'next_state'}
+    with inputs = {'mixture': [B, M, N], 'dis_embed': [B, 3]} (dis_embed
+    ignored when cfg.conditional is False)."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        if cfg.conditional:
+            self.dis_embed = DisEmbed(cfg)
+        self.conv = CausalConv2d(cfg.conv_in, cfg.D)
+        if cfg.use_first_ln:
+            self.first_ln = LayerNorm(cfg.D)
+        for i in range(cfg.B):
+            self.add_module(f"block{i}", GridNetBlock(cfg))
+            if i > 0 and cfg.conditional:
+                self.add_module(f"film{i - 1}",
+                                FiLM(cfg.embed_width, cfg.D))
+        self.deconv = CausalDeconv2d(cfg.D, cfg.num_src * 2)
+        # the STFT filterbank moves with the module (not part of its weights)
+        fb = make_stft(cfg.n_fft, cfg.stft_chunk_size)
+        self.register_buffer("stft_filters", fb.filters, persistent=False)
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.cfg.B)]
+
+    def films(self):
+        return [getattr(self, f"film{i}") for i in range(self.cfg.B - 1)]
+
+    def filterbank(self) -> STFT:
+        cfg = self.cfg
+        return STFT(cfg.n_fft, cfg.n_fft, cfg.stft_chunk_size,
+                    self.stft_filters)
+
+    def init_buffers(self, batch_size):
+        p = next(self.parameters())
+        return init_state(self.cfg, batch_size, p.device)
+
+    def forward(self, inputs, input_state=None, pad=True):
+        cfg = self.cfg
+        x = inputs["mixture"]
+        if input_state is None:
+            input_state = init_state(cfg, x.shape[0], x.device)
+        mod = 0
+        if pad:
+            psz = ((cfg.stft_back_pad, cfg.stft_pad_size)
+                   if cfg.lookahead else (0, 0))
+            x, mod = mod_pad(x, cfg.stft_chunk_size, psz)
+        emb = self.dis_embed(inputs["dis_embed"]) if cfg.conditional else None
+        y, next_state = self.core(x, emb, input_state)
+        if mod:
+            y = y[..., :-mod]
+        return {"output": y, "next_state": next_state}
+
+    def encode(self, x, state, next_state):
+        """STFT -> features -> causal conv. x: [B, M, N] ->
+        (h [B, T, F, D], spec [B, M, T, 2F])."""
+        cfg = self.cfg
+        F = cfg.n_freqs
+        spec = stft(self.filterbank(), x)                 # [B, M, T, 2F]
+        real, imag = spec[..., :F], spec[..., F:]
+        feat = torch.movedim(torch.cat([real, imag], dim=1), 1, -1)
+        if cfg.merge_method == "early_cat":
+            feat = torch.cat(
+                [feat, spatial_features(real, imag, cfg.directional)], dim=-1)
+        full = torch.cat([state["conv_buf"], feat], dim=1)
+        next_state["conv_buf"] = full[:, -2:]
+        h = self.conv(full)                               # [B, T, F, D]
+        if cfg.use_first_ln:
+            h = self.first_ln(h)
+        return h, spec
+
+    def decode(self, h, spec, state, next_state):
+        """Causal deconv -> overlap-add iSTFT. h: [B, T, F, D] ->
+        [B, num_src, T*chunk]."""
+        cfg = self.cfg
+        B, T, F, _ = h.shape
+        full = torch.cat([state["deconv_buf"], h], dim=1)
+        next_state["deconv_buf"] = full[:, -2:]
+        out = self.deconv(full).reshape(B, T, F, cfg.num_src, 2)
+        est = torch.cat([out[..., 0].permute(0, 3, 1, 2),
+                         out[..., 1].permute(0, 3, 1, 2)], dim=-1)
+        if cfg.spectral_masking:
+            est = est * spec[:, :cfg.num_src]
+        full_spec = torch.cat([state["istft_buf"], est], dim=2)
+        next_state["istft_buf"] = full_spec[:, :, -cfg.istft_lookback:]
+        y = istft(self.filterbank(), full_spec)
+        y = y[..., :-(cfg.n_fft - cfg.stft_chunk_size)]
+        return y[..., cfg.istft_lookback * cfg.stft_chunk_size:]
+
+    def core(self, x, emb, state):
+        next_state = dict(state)
+        h, spec = self.encode(x, state, next_state)
+        bufs = {}
+        for i, block in enumerate(self.blocks()):
+            if i > 0 and emb is not None:
+                h = self.films()[i - 1](h, emb)
+            h, bufs[f"buf{i}"] = block(h, state["gridnet_bufs"][f"buf{i}"])
+        next_state["gridnet_bufs"] = bufs
+        return self.decode(h, spec, state, next_state), next_state

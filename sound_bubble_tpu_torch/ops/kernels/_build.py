@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels: plain `nvcc` into a shared library
+with a C interface, loaded with `ctypes`.
+
+No PyTorch headers and no `torch.utils.cpp_extension`: the whole build is one
+`nvcc` call over `sound_bubble_tpu_torch/csrc/*.cu` that takes seconds, leaves
+no lock file behind and cannot wait on one. The library goes to
+`sound_bubble_tpu_torch/_build/libsbt_kernels.so` (listed in `.gitignore`). It
+is built at first use, once per process, and never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+LIB_NAME = "libsbt_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_TIMEOUT_S = 600
+
+_lock = threading.Lock()
+_lib = None
+_build_log = ""
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def build() -> tuple[Path, str]:
+    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME. Returns (path, compiler
+    output incl. the -Xptxas -v register/shared-memory/spill lines)."""
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / LIB_NAME
+    # build beside the target and rename, so another process never loads a
+    # half-written library
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *sources]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=NVCC_TIMEOUT_S)
+    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+           f"[nvcc rc={proc.returncode} in {time.perf_counter() - t0:.2f} s]")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(tmp, out)
+    return out, log
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call in this process) and load the kernel library."""
+    global _lib, _build_log
+    with _lock:
+        if _lib is None:
+            path, _build_log = build()
+            lib = ctypes.CDLL(str(path))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.sbt_stack_step.argtypes = (
+                [ptr] * 24 + [i32] * 5 + [ctypes.c_float, ptr])
+            lib.sbt_stack_step.restype = i32
+            _lib = lib
+        return _lib
+
+
+def build_log() -> str:
+    """The compiler output of this process's build ('' before it)."""
+    return _build_log

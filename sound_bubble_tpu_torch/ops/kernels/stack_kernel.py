@@ -1,0 +1,261 @@
+"""The whole GridNet block stack in ONE kernel for a streaming step (T=1,
+batch 1): port of `sound_bubble_tpu/ops/pallas/stack_kernel.py`
+(`pack_stack_params`, `gridnet_stack_step`, non-conv non-attention branch).
+
+`gridnet_stack_step` launches the hand-written CUDA kernel
+`sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the card and runs
+`gridnet_stack_step_ref`, its plain PyTorch version, for tensors on the CPU.
+There is no fallback between the two: a CUDA tensor goes to the kernel or the
+call raises. The design notes and the bound of the kernel are in its source.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sound_bubble_tpu_torch.ops.kernels import _build
+
+SMEM_LIMIT_BYTES = 232448    # dynamic shared memory one H100 block can use
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def pack_stack_params(cfg, params) -> dict[str, torch.Tensor]:
+    """Model params (block{i} subtrees, nested dicts of arrays or tensors) ->
+    stacked [B, ...] float32 kernel operands on the CPU.
+
+    Fused BLSTM packing: gate g occupies columns [g*2H, g*2H+H) forward and
+    [g*2H+H, (g+1)*2H) backward; the recurrent matrix is block-diagonal so the
+    forward state only drives forward columns and vice versa."""
+    if cfg.conv_lstm:
+        raise NotImplementedError(
+            "conv_lstm=True is not ported yet (ROADMAP Queue 1 item 11)")
+    B, D, H = cfg.B, cfg.D, cfg.H
+
+    def gather(*path):
+        out = []
+        for i in range(B):
+            node = params[f"block{i}"]
+            for k in path:
+                node = node[k]
+            out.append(_np(node))
+        return np.stack(out)
+
+    wih_f = np.zeros((B, D, 8 * H), np.float32)
+    wih_b = np.zeros((B, D, 8 * H), np.float32)
+    whh = np.zeros((B, 2 * H, 8 * H), np.float32)
+    b8 = np.zeros((B, 8 * H), np.float32)
+    for i in range(B):
+        bl = params[f"block{i}"]["intra"]["blstm"]
+        fwd = {k: _np(v) for k, v in bl["fwd"].items()}
+        bwd = {k: _np(v) for k, v in bl["bwd"].items()}
+        for g in range(4):
+            lo = g * 2 * H
+            sl = slice(g * H, (g + 1) * H)
+            wih_f[i, :, lo:lo + H] = fwd["w_ih"][:, sl]
+            wih_b[i, :, lo + H:lo + 2 * H] = bwd["w_ih"][:, sl]
+            whh[i, :H, lo:lo + H] = fwd["w_hh"][:, sl]
+            whh[i, H:, lo + H:lo + 2 * H] = bwd["w_hh"][:, sl]
+            b8[i, lo:lo + H] = fwd["b"][sl]
+            b8[i, lo + H:lo + 2 * H] = bwd["b"][sl]
+
+    packed = {
+        "i_ln": np.stack([gather("intra", "norm", "scale"),
+                          gather("intra", "norm", "bias")], axis=1),
+        "wih_f": wih_f, "wih_b": wih_b, "whh": whh, "b8": b8,
+        "proj_w": gather("intra", "proj", "kernel"),
+        "proj_b": gather("intra", "proj", "bias"),
+        "t_ln": np.stack([gather("inter_norm", "scale"),
+                          gather("inter_norm", "bias")], axis=1),
+        "wih2": gather("inter_lstm", "w_ih"),
+        "whh2": gather("inter_lstm", "w_hh"),
+        "b2": gather("inter_lstm", "b"),
+        "proj2_w": gather("inter_proj", "kernel"),
+        "proj2_b": gather("inter_proj", "bias"),
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in packed.items()}
+
+
+# operand order of the kernel's C entry point (after x, film_w, film_b)
+_WEIGHTS = ("i_ln", "wih_f", "wih_b", "whh", "b8", "proj_w", "proj_b",
+            "t_ln", "wih2", "whh2", "b2", "proj2_w", "proj2_b")
+
+
+# ------------------------------------------------------ plain PyTorch ----
+
+def _ln(x, s, b, eps):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * s + b
+
+
+def _intra_blstm(p, b, x, hidden, eps):
+    """Fused-direction intra BLSTM over frequency + residual proj (one
+    block). x: [F, D]; returns the updated x."""
+    H, h2 = hidden, 2 * hidden
+    F = x.shape[0]
+    z = _ln(x, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
+    gxf = z @ p["wih_f"][b] + p["b8"][b]               # [F, 8H]
+    gxb = z @ p["wih_b"][b]
+    h1 = x.new_zeros(1, h2)
+    c1 = x.new_zeros(1, h2)
+    yf, yb = [None] * F, [None] * F
+    for f in range(F):
+        rev = F - 1 - f
+        gates = gxf[f] + gxb[rev] + h1 @ p["whh"][b]
+        ig = torch.sigmoid(gates[:, 0:h2])
+        fg = torch.sigmoid(gates[:, h2:2 * h2])
+        gg = torch.tanh(gates[:, 2 * h2:3 * h2])
+        og = torch.sigmoid(gates[:, 3 * h2:])
+        c1 = fg * c1 + ig * gg
+        h1 = og * torch.tanh(c1)
+        yf[f] = h1[0, :H]                              # fwd h at row f
+        yb[rev] = h1[0, H:]                            # bwd h at mirrored row
+    y2h = torch.cat([torch.stack(yf), torch.stack(yb)], dim=-1)
+    return x + y2h @ p["proj_w"][b] + p["proj_b"][b]
+
+
+def _inter_step(p, b, x, h0, c0, hidden, eps):
+    """ONE stateful inter-LSTM step, all F frequency lanes in parallel."""
+    H = hidden
+    z2 = _ln(x, p["t_ln"][b, 0], p["t_ln"][b, 1], eps)
+    g2 = z2 @ p["wih2"][b] + p["b2"][b] + h0[b] @ p["whh2"][b]
+    i2 = torch.sigmoid(g2[:, 0:H])
+    f2 = torch.sigmoid(g2[:, H:2 * H])
+    gg2 = torch.tanh(g2[:, 2 * H:3 * H])
+    o2 = torch.sigmoid(g2[:, 3 * H:])
+    c_new = f2 * c0[b] + i2 * gg2
+    h_new = o2 * torch.tanh(c_new)
+    return x + h_new @ p["proj2_w"][b] + p["proj2_b"][b], h_new, c_new
+
+
+def gridnet_stack_step_ref(packed, x, h0, c0, film_w=None, film_b=None,
+                           eps: float = 1e-5):
+    """Plain PyTorch version of the kernel, the same math step by step.
+
+    x: [F, D]; h0/c0: [B, F, H]; film_w/film_b: [B-1, F, D] or None.
+    Returns (x_out [F, D], h0' [B, F, H], c0' [B, F, H])."""
+    n_blocks, _, hidden4 = packed["wih2"].shape
+    hidden = hidden4 // 4
+    hs, cs = [], []
+    for b in range(n_blocks):
+        if film_w is not None and b > 0:
+            x = x * film_w[b - 1] + film_b[b - 1]
+        x = _intra_blstm(packed, b, x, hidden, eps)
+        x, h_new, c_new = _inter_step(packed, b, x, h0, c0, hidden, eps)
+        hs.append(h_new)
+        cs.append(c_new)
+    return x, torch.stack(hs), torch.stack(cs)
+
+
+# --------------------------------------------------------- CUDA kernel ----
+
+def _check(name, t, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check_packed(packed, device):
+    """Check the kernel's weight operands once: on `device`, float32,
+    contiguous, of the shapes `pack_stack_params` gives. `gridnet_stack_step`
+    runs this at every call unless the caller passes `checked=True`."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    n_blocks, d, hidden4 = packed["wih2"].shape
+    hidden = hidden4 // 4
+    G, H2 = 8 * hidden, 2 * hidden
+    shapes = {"i_ln": (n_blocks, 2, d), "wih_f": (n_blocks, d, G),
+              "wih_b": (n_blocks, d, G), "whh": (n_blocks, H2, G),
+              "b8": (n_blocks, G), "proj_w": (n_blocks, H2, d),
+              "proj_b": (n_blocks, d), "t_ln": (n_blocks, 2, d),
+              "wih2": (n_blocks, d, hidden4),
+              "whh2": (n_blocks, hidden, hidden4),
+              "b2": (n_blocks, hidden4), "proj2_w": (n_blocks, hidden, d),
+              "proj2_b": (n_blocks, d)}
+    for k in _WEIGHTS:
+        _check(k, packed[k], shapes[k], device)
+
+
+def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
+    dev = x.device
+    n_blocks, d, hidden4 = packed["wih2"].shape
+    hidden = hidden4 // 4
+    f_len = x.shape[0]
+    threads = 8 * hidden
+    if threads % 32 or threads > 1024:
+        raise ValueError(f"H={hidden}: the kernel needs 8H threads, a "
+                         "multiple of 32 and at most 1024")
+    smem = (2 * f_len * d + 12 * hidden) * 4
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
+                         f"memory, more than {SMEM_LIMIT_BYTES}")
+    G, H2 = 8 * hidden, 2 * hidden
+    _check("x", x, (f_len, d), dev)
+    _check("h0", h0, (n_blocks, f_len, hidden), dev)
+    _check("c0", c0, (n_blocks, f_len, hidden), dev)
+    if not checked:
+        check_packed(packed, dev)
+    use_film = film_w is not None
+    if use_film:
+        film_shape = (n_blocks - 1, f_len, d)
+        _check("film_w", film_w, film_shape, dev)
+        _check("film_b", film_b, film_shape, dev)
+
+    lib = _build.load_library()
+    x_out = torch.empty_like(x)
+    h0_out = torch.empty_like(h0)
+    c0_out = torch.empty_like(c0)
+    gx = torch.empty((f_len, G), dtype=torch.float32, device=dev)
+    y = torch.empty((f_len, H2), dtype=torch.float32, device=dev)
+    g2 = torch.empty((f_len, 4 * hidden), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sbt_stack_step(
+            x.data_ptr(),
+            film_w.data_ptr() if use_film else None,
+            film_b.data_ptr() if use_film else None,
+            *[packed[k].data_ptr() for k in _WEIGHTS],
+            h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
+            h0_out.data_ptr(), c0_out.data_ptr(), gx.data_ptr(),
+            y.data_ptr(), g2.data_ptr(), n_blocks, f_len, d, hidden,
+            int(use_film), float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"stack_step kernel launch failed: CUDA error {rc}")
+    gridnet_stack_step.launches += 1
+    return x_out, h0_out, c0_out
+
+
+def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
+                       eps: float = 1e-5, checked: bool = False):
+    """One streaming step of the full block stack.
+
+    x: [F, D] post-conv features for the current chunk; h0/c0: [B, F, H]
+    inter-LSTM state; film_w/film_b: [B-1, F, D] precomputed FiLM affines
+    (None for unconditional models). Returns (x_out [F, D], h0', c0').
+
+    CUDA tensors launch the kernel (`gridnet_stack_step.launches` counts the
+    launches); CPU tensors run `gridnet_stack_step_ref`. `checked=True`
+    skips the weight checks for a `packed` that already passed
+    `check_packed` on this device."""
+    if x.device.type == "cuda":
+        return _launch(packed, x, h0, c0, film_w, film_b, eps, checked)
+    if x.device.type == "cpu":
+        return gridnet_stack_step_ref(packed, x, h0, c0, film_w, film_b, eps)
+    raise ValueError(f"gridnet_stack_step: unsupported device {x.device}")
+
+
+gridnet_stack_step.launches = 0

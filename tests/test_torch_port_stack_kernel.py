@@ -1,0 +1,116 @@
+"""Port parity, whole-stack step: `pack_stack_params` and the plain PyTorch
+`gridnet_stack_step_ref` (and the CPU route of the `gridnet_stack_step`
+wrapper) against the JAX Pallas kernel `gridnet_stack_step` run in interpret
+mode on the CPU, at a small size (F=17, D=8, H=8, B=3).
+
+Tolerance 1e-5 absolute: both sides run the same fp32 math."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sound_bubble_tpu.models.tfgridnet.model import NetConfig as JaxConfig
+from sound_bubble_tpu.ops.pallas import stack_kernel as jsk
+from sound_bubble_tpu_torch.models.tfgridnet.model import Net, NetConfig
+from sound_bubble_tpu_torch.ops.kernels import stack_kernel as tsk
+from sound_bubble_tpu_torch.weights import param_tree
+
+TOL = 1e-5
+SIZE = dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=3,
+            conv_lstm=False, merge_method="early_cat", use_first_ln=True)
+
+
+def _random_tree(rng, cfg):
+    """The port Net's parameter tree filled with seeded normals."""
+    net = Net(cfg)
+    sd = {k: torch.from_numpy(
+              rng.standard_normal(v.shape).astype(np.float32) * 0.4)
+          for k, v in net.state_dict().items()}
+    net.load_state_dict(sd)
+    return param_tree(net)
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
+@pytest.fixture
+def case(rng):
+    cfg = NetConfig(**SIZE)
+    tree = _random_tree(rng, cfg)
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    assert F == 17
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    arrays = {"x": draw(F, D), "h0": draw(B, F, H) * 0.5,
+              "c0": draw(B, F, H) * 0.5, "film_w": draw(B - 1, F, D),
+              "film_b": draw(B - 1, F, D)}
+    return cfg, tree, arrays
+
+
+def test_pack_matches_jax(case):
+    cfg, tree, _ = case
+    got = tsk.pack_stack_params(cfg, tree)
+    want = jsk.pack_stack_params(JaxConfig(**SIZE), _np_tree(tree))
+    assert set(got) == set(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("fn", ["ref", "wrapper"])
+@pytest.mark.parametrize("use_film", [True, False])
+def test_stack_step_matches_pallas_interpret(case, use_film, fn):
+    cfg, tree, a = case
+    packed_t = tsk.pack_stack_params(cfg, tree)
+    packed_j = jsk.pack_stack_params(JaxConfig(**SIZE), _np_tree(tree))
+    fw = a["film_w"] if use_film else None
+    fb = a["film_b"] if use_film else None
+    want = jsk.gridnet_stack_step(
+        packed_j, jnp.asarray(a["x"]), jnp.asarray(a["h0"]),
+        jnp.asarray(a["c0"]), None if fw is None else jnp.asarray(fw),
+        None if fb is None else jnp.asarray(fb), eps=cfg.eps, interpret=True)
+    step = (tsk.gridnet_stack_step_ref if fn == "ref"
+            else tsk.gridnet_stack_step)
+    launches = tsk.gridnet_stack_step.launches
+    got = step(packed_t, torch.from_numpy(a["x"]), torch.from_numpy(a["h0"]),
+               torch.from_numpy(a["c0"]),
+               None if fw is None else torch.from_numpy(fw),
+               None if fb is None else torch.from_numpy(fb), eps=cfg.eps)
+    # the CPU route never counts as a kernel launch
+    assert tsk.gridnet_stack_step.launches == launches
+    for g, w, name in zip(got, want, ("x", "h0", "c0")):
+        assert tuple(g.shape) == tuple(w.shape), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=0, err_msg=name)
+
+
+def test_wrapper_rejects_other_devices(case):
+    cfg, tree, a = case
+    packed = tsk.pack_stack_params(cfg, tree)
+    x = torch.from_numpy(a["x"]).to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsk.gridnet_stack_step(packed, x, x, x)
+
+
+def test_pack_rejects_conv_lstm(case):
+    _, tree, _ = case
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tsk.pack_stack_params(NetConfig(conv_lstm=True), tree)
+
+
+def test_check_packed(case):
+    """`check_packed` accepts what `pack_stack_params` gives and names the
+    operand that is off in dtype, shape or device."""
+    cfg, tree, _ = case
+    packed = tsk.pack_stack_params(cfg, tree)
+    tsk.check_packed(packed, "cpu")
+    with pytest.raises(TypeError, match="whh: dtype"):
+        tsk.check_packed({**packed, "whh": packed["whh"].double()}, "cpu")
+    with pytest.raises(ValueError, match="b8: shape"):
+        tsk.check_packed({**packed, "b8": packed["b8"][:, :-1]}, "cpu")
+    with pytest.raises(ValueError, match="i_ln: on cpu"):
+        tsk.check_packed(packed, "meta")
