@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (`sound_bubble_tpu_torch`) at the full width
-of the flagship TF-GridNet (`runs/finetune_r5`: F=145, D=32, B=6, H=64):
+Drives the port's serving and training paths (`sound_bubble_tpu_torch`) at
+the full width of the flagship TF-GridNet (`runs/finetune_r5`: F=145, D=32,
+B=6, H=64):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
@@ -16,17 +17,33 @@ of the flagship TF-GridNet (`runs/finetune_r5`: F=145, D=32, B=6, H=64):
    `runs/goldens_baseline.json` (the reference's own golden set, other
    audio) printed once for information; then the kernel path held against
    the plain `ModelWrapper` path;
-5. times of the kernel, its plain version and one 8 ms chunk.
+5. times of the kernel, its plain version and one 8 ms chunk;
+6. slab kernels vs plain: the CUDA LSTM scans `lstm_slab_fwd` /
+   `lstm_slab_bwd` against their plain versions at the training path's
+   shapes (intra [145, 1252, 32] both directions, inter [313, 580, 32]) and a
+   ragged one ([13, 37, 32]);
+7. training: seeded sample dirs, then `sound_bubble_tpu_torch.train_pt` on
+   `syn_experiments/pretrain_stage.json` (dataset paths, epochs and
+   num_workers changed) for 2 epochs and a resumed third; the slab launches
+   per step; one train step on the kernel path against the plain path; one
+   step from the flagship checkpoint against the JAX package's numbers
+   (`runs/train_step_golden_jax.json`);
+8. times of the slab kernels, their plain versions, cuDNN's LSTM as the
+   library yardstick, and ms per train step.
 
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
 power limit, and the device line.
 """
+import contextlib
 import faulthandler
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +66,23 @@ STREAM_REL_TOL = 1e-4      # kernel path vs ModelWrapper path, / output peak
 PARITY_TOL_DB = 0.01
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+# slab kernels vs plain (fp32 vs fp32, other summation order): forward
+# outputs max-abs; backward outputs max-abs over the output's peak (the dW
+# sums run over T*R = 181,540 rows in another order)
+SLAB_FWD_TOL = 1e-4
+SLAB_BWD_REL_TOL = 1e-4
+# train step, kernel path vs plain path on the card: only the LSTM scans
+# differ (summation order), through 6 blocks
+STEP_LOSS_REL_TOL = 1e-5
+STEP_NORM_REL_TOL = 1e-4
+# train step on the card vs the JAX package in fp32 on the CPU (another
+# device, convolution and matmul libraries): on the CPU the port agrees to
+# 1.1e-5 (loss), 2.8e-6 (global norm), 1.2e-4 (worst leaf)
+GOLDEN_LOSS_REL_TOL = 1e-4
+GOLDEN_NORM_REL_TOL = 1e-4
+GOLDEN_LEAF_REL_TOL = 1e-3
+TRAIN_STEP_GOLDEN = os.path.join(REPO, "runs", "train_step_golden_jax.json")
+TRAIN_CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")
 T0 = time.perf_counter()
 
 
@@ -112,6 +146,375 @@ def stack_step_bound_ms(n_blocks, f, d, h, film):
         f"{flops} FLOP -> {t_ops:.6f} ms at 67 TFLOP/s fp32; dependency "
         f"chain {n_blocks * (f + 1)} sequential cell updates")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# (name, T, R, reverse): the intra BLSTM directions and the inter LSTM of the
+# training path (batch 4 x 2.5 s: T*R = 181,540 rows), and a ragged case
+SLAB_SHAPES = (("intra", 145, 1252, False), ("intra_rev", 145, 1252, True),
+               ("inter", 313, 580, False), ("ragged", 13, 37, False),
+               ("ragged_rev", 13, 37, True))
+SLAB_C, SLAB_H = 32, 64
+# slab launches per train step: 6 blocks x (2 intra directions + 1 inter),
+# 12 at the intra shape and 6 at the inter shape
+SLAB_MIX = (("intra", 12), ("inter", 6))
+
+
+def slab_bound_ms(t_len, r, c, h, kind):
+    """Least time for one slab scan on an H100: the larger of the bytes it
+    must move (each input read once, each output written once) over 3.35
+    TB/s and its matrix-product FLOPs over the fp32 rate (the gate
+    nonlinearities, ~2 % more, are not counted)."""
+    nb = -(-t_len // min(8, t_len))
+    n, g = t_len * r, 4 * h
+    w = (c + h) * g + g                             # w_ih, w_hh, b
+    state = 2 * r * h                               # (h, c) or their grads
+    if kind == "fwd":
+        flops = 2 * n * (c + h) * g
+        n_bytes = 4 * (n * c + w + state                      # in
+                       + n * h + nb * r * h + state)          # ys, c_ckpt, out
+    else:
+        flops = (2 * n * (c + h) * g          # gate recompute
+                 + 2 * n * g * h              # dh chain: dgates @ w_hh^T
+                 + 2 * n * g * c              # dx = dgates @ w_ih^T
+                 + 2 * n * (c + h + 1) * g)   # dW_ih, dW_hh, db
+        n_bytes = 4 * (n * c + 2 * n * h + nb * r * h + w + state  # in
+                       + n * c + w + state)                        # out
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), flops, n_bytes
+
+
+def slab_case(dev, t_len, r, seed):
+    """Operands of one slab scan, weights from the LSTM's initial
+    distribution U(-1/sqrt(H), 1/sqrt(H)), activations N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    c, h = SLAB_C, SLAB_H
+
+    def draw(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(
+            -h ** -0.5, h ** -0.5, shape).astype(np.float32)).to(dev)
+
+    return dict(w_ih=uniform(c, 4 * h), w_hh=uniform(h, 4 * h),
+                b=uniform(4 * h), x=draw(t_len, r, c), h0=draw(r, h) * 0.5,
+                c0=draw(r, h) * 0.5, dy=draw(t_len, r, h), dhT=draw(r, h),
+                dcT=draw(r, h))
+
+
+def slab_args(a, ls, reverse, ys=None):
+    fwd = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"], reverse)
+    if ys is None:
+        return fwd
+    return (a["w_ih"], a["w_hh"], a["b"], a["x"],
+            ls.shift_prev(ys[0], a["h0"], reverse), ys[3], a["dy"],
+            a["dhT"], a["dcT"], reverse)
+
+
+@contextlib.contextmanager
+def plain_slab(ls):
+    """Route the LSTM scans to the slab kernels' plain versions, on the
+    card: the reference the kernel path is held against."""
+    saved = ls.lstm_slab_fwd, ls.lstm_slab_bwd
+    ls.lstm_slab_fwd, ls.lstm_slab_bwd = (ls.lstm_slab_fwd_ref,
+                                          ls.lstm_slab_bwd_ref)
+    try:
+        yield
+    finally:
+        ls.lstm_slab_fwd, ls.lstm_slab_bwd = saved
+
+
+def phase6_slab(dev, ls):
+    """Both slab kernels against their plain versions. Returns the max-abs
+    errors (forward, backward)."""
+    fwd_err = bwd_err = 0.0
+    for i, (name, t_len, r, reverse) in enumerate(SLAB_SHAPES):
+        a = slab_case(dev, t_len, r, SEED + i)
+        f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
+        with torch.no_grad():
+            got = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
+            torch.cuda.synchronize()
+            want = ls.lstm_slab_fwd_ref(*slab_args(a, ls, reverse))
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            got_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
+            torch.cuda.synchronize()
+            want_b = ls.lstm_slab_bwd_ref(*slab_args(a, ls, reverse, want))
+            abs_b = [float((g - w).abs().max()) for g, w in zip(got_b, want_b)]
+            rel_b = [e / float(w.abs().max()) for e, w in zip(abs_b, want_b)]
+        launched = (ls.lstm_slab_fwd.launches - f0,
+                    ls.lstm_slab_bwd.launches - b0)
+        log(f"  {name} [T={t_len}, R={r}, C={SLAB_C}], H={SLAB_H}: forward "
+            f"max-abs (ys, hT, cT, c_ckpt) {['%.2e' % e for e in errs]}; "
+            f"backward max-abs / peak (dx, dw_ih, dw_hh, db, dh0, dc0) "
+            f"{['%.2e' % e for e in rel_b]}; launches {launched}")
+        if not max(errs) <= SLAB_FWD_TOL:
+            fail(f"slab forward kernel disagrees at {name}: {errs}")
+        if not max(rel_b) <= SLAB_BWD_REL_TOL:
+            fail(f"slab backward kernel disagrees at {name}: {rel_b}")
+        if launched != (1, 1):
+            fail(f"slab kernel launches grew by {launched}, expected (1, 1)")
+        fwd_err, bwd_err = max(fwd_err, *errs), max(bwd_err, *abs_b)
+    log(f"phase 6 slab kernels vs plain: forward max-abs {fwd_err:.3e} "
+        f"(tol {SLAB_FWD_TOL}), backward max-abs {bwd_err:.3e} (each output "
+        f"within {SLAB_BWD_REL_TOL} of its peak)")
+    return fwd_err, bwd_err
+
+
+def check_adam_step(name, got, want, grad, lr):
+    """The first Adam step moves a weight by lr * g / (|g| + eps): +-lr
+    whatever |g| once |g| >> eps. Where |g| > 1e-3 of the leaf's peak the
+    two updated weights agree to 1e-6; where g is that close to 0 the two
+    paths' last digits can give another fraction of lr: 2 lr there."""
+    big = np.abs(grad) > 1e-3 * np.abs(grad).max()
+    err_big = float(np.abs(got - want)[big].max()) if big.any() else 0.0
+    err_all = float(np.abs(got - want).max())
+    if not (err_big <= 1e-6 and err_all <= 2 * lr + 1e-6):
+        fail(f"updated {name}: kernel vs plain {err_big} (|g| large), "
+             f"{err_all} (all)")
+    return err_big
+
+
+def phase7_train(dev):
+    """Train through train_pt (2 epochs, then a resumed third); the kernel
+    path against the plain path for one step; one step against the JAX
+    package's golden. Returns the main path's launch counts and the module
+    used for the step, on the card."""
+    from sound_bubble_tpu_torch import train_pt
+    from sound_bubble_tpu_torch.data.synth import (
+        golden_batch, write_sample_dirs)
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+    from sound_bubble_tpu_torch.train.module import PLModule
+    from sound_bubble_tpu_torch.utils import seed_all
+    from sound_bubble_tpu_torch.weights import from_jax_params
+
+    with open(TRAIN_CONFIG) as fh:
+        cfg = json.load(fh)
+    args = cfg["pl_module_args"]
+    n_scans = 3 * args["model_params"]["B"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        n_train, n_val = 4, 2
+        dirs = write_sample_dirs(os.path.join(tmp, "data"), SEED, n_train,
+                                 n_val)
+        for split, key in (("train", "train_data_args"),
+                           ("val", "val_data_args")):
+            cfg[key]["dataset_dirs"] = [
+                {"path": p, "max_samples": 10000} for p in dirs[split]]
+        cfg["num_workers"] = 2
+        steps = math.ceil(3 * n_train / cfg["batch_size"])
+        val_batches = math.ceil(3 * n_val / cfg["eval_batch_size"])
+        cfg_path, run_dir = (os.path.join(tmp, "config.json"),
+                             os.path.join(tmp, "run"))
+        last_path = os.path.join(run_dir, "checkpoints", "last.pt")
+        best_path = os.path.join(run_dir, "checkpoints", "best.pt")
+
+        # train_pt seeds every generator, then builds the module: the same
+        # construction gives the weights it starts from
+        seed_all(SEED)
+        init = {k: v.numpy().copy() for k, v in
+                PLModule(**args, device="cpu").net.state_dict().items()}
+
+        def run(epochs):
+            cfg["epochs"] = epochs
+            with open(cfg_path, "w") as fh:
+                json.dump(cfg, fh)
+            ls.lstm_slab_fwd.launches = ls.lstm_slab_bwd.launches = 0
+            t = time.perf_counter()
+            hl = train_pt.train(train_pt.parse_args(
+                ["--config", cfg_path, "--run_dir", run_dir, "--seed",
+                 str(SEED)]))
+            torch.cuda.synchronize()
+            return (hl, time.perf_counter() - t, ls.lstm_slab_fwd.launches,
+                    ls.lstm_slab_bwd.launches)
+
+        def moved(before, after, what):
+            still = [k for k, v in before.items()
+                     if not np.abs(np.asarray(after[k]) - v).max() > 0]
+            if still:
+                fail(f"{what}: weights did not move: {still}")
+
+        def flat(tree):
+            return {k: v.numpy() for k, v in from_jax_params(tree).items()}
+
+        # ---- the main path: 2 epochs
+        hl, train_s, fwd_n, bwd_n = run(2)
+        want = (2 * (steps + val_batches) * n_scans, 2 * steps * n_scans)
+        log(f"phase 7 training: train_pt, 2 epochs x {steps} steps + "
+            f"{val_batches} val batch(es) in {train_s:.2f} s; slab launches "
+            f"fwd {fwd_n}, bwd {bwd_n} (expected {want[0]}, {want[1]}: "
+            f"{n_scans} per step, {n_scans} fwd per val batch)")
+        if (fwd_n, bwd_n) != want:
+            fail(f"slab launches {(fwd_n, bwd_n)}, expected {want}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        losses = [e[k] for e in logged for k in ("train/loss", "val/loss")]
+        log(f"  epoch losses (train, val): {losses}")
+        if len(logged) != 2 or not np.isfinite(losses).all():
+            fail(f"run log: {logged}")
+        last, best = load_checkpoint(last_path), load_checkpoint(best_path)
+        if last["current_epoch"] != 2 or hl.epoch != 2:
+            fail(f"last.pt at epoch {last['current_epoch']}")
+        moved(init, flat(last["model"]), "2 epochs")
+        if set(flat(best["model"])) != set(init):
+            fail("best.pt does not hold the model's weights")
+        launches = (fwd_n, bwd_n)
+
+        # ---- resume: a third epoch from last.pt
+        hl, resume_s, fwd_n, bwd_n = run(3)
+        want = ((steps + val_batches) * n_scans, steps * n_scans)
+        last3 = load_checkpoint(last_path)
+        log(f"  resumed from last.pt at epoch 2: 1 epoch in {resume_s:.2f} "
+            f"s, slab launches fwd {fwd_n}, bwd {bwd_n} (expected "
+            f"{want[0]}, {want[1]}), last.pt now at epoch "
+            f"{last3['current_epoch']}")
+        if (fwd_n, bwd_n) != want or last3["current_epoch"] != 3:
+            fail("the resumed run did not take exactly one more epoch")
+        moved(flat(last["model"]), flat(last3["model"]), "resumed epoch")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- one step from the flagship on the golden batch: kernel path,
+    # plain path, JAX golden
+    inputs, targets = golden_batch(SEED)
+    flagship = os.path.join(RUN_DIR, "checkpoints", "best.pt")
+
+    def one_step(plain):
+        mod = PLModule(**args, init_ckpt=flagship, device=dev)
+        f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
+        with plain_slab(ls) if plain else contextlib.nullcontext():
+            loss, _ = mod.training_step((inputs, targets))
+        torch.cuda.synchronize()
+        grads = {k: p.grad.cpu().numpy() for k, p in
+                 mod.net.named_parameters()}
+        weights = {k: v.cpu().numpy() for k, v in
+                   mod.net.state_dict().items()}
+        return (mod, loss, float(mod.last_grad_norm), grads, weights,
+                (ls.lstm_slab_fwd.launches - f0,
+                 ls.lstm_slab_bwd.launches - b0))
+
+    mod, loss_k, norm_k, grads_k, w_k, per_step = one_step(False)
+    _, loss_p, norm_p, grads_p, w_p, plain_step = one_step(True)
+    if per_step != (n_scans, n_scans) or plain_step != (0, 0):
+        fail(f"slab launches in one step: kernel path {per_step}, plain "
+             f"path {plain_step}; expected ({n_scans}, {n_scans}) and (0, 0)")
+    lr = mod.get_current_lr()
+    w_err = max(check_adam_step(k, w_k[k], w_p[k], grads_p[k], lr)
+                for k in w_k)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_norm = abs(norm_k - norm_p) / norm_p
+    log(f"  one step, kernel path vs plain path on the card: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tol "
+        f"{STEP_LOSS_REL_TOL}); pre-clip grad norm {norm_k:.6f} vs "
+        f"{norm_p:.6f} (rel {rel_norm:.2e}, tol {STEP_NORM_REL_TOL}); updated "
+        f"weights max-abs {w_err:.2e} where |g| > 1e-3 of the leaf's peak; "
+        f"slab launches per step {per_step}")
+    if not (rel_loss <= STEP_LOSS_REL_TOL and rel_norm <= STEP_NORM_REL_TOL):
+        fail("kernel path and plain path disagree on one train step")
+
+    with open(TRAIN_STEP_GOLDEN) as fh:
+        golden = json.load(fh)
+    # the step clipped the gradients in place by min(1, max_norm / norm)
+    scale = min(1.0, args["grad_clip"] / norm_k)
+    leaf_rel = {k: abs(float(np.sqrt(np.sum(np.square(g, dtype=np.float64))))
+                       / scale - golden["grad_norms"][k])
+                / golden["grad_norms"][k] for k, g in grads_k.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    g_loss = abs(loss_k - golden["loss"]) / abs(golden["loss"])
+    g_norm = abs(norm_k - golden["grad_norm"]) / golden["grad_norm"]
+    log(f"  one step vs the JAX package (fp32, CPU; "
+        f"{os.path.basename(TRAIN_STEP_GOLDEN)}): loss {loss_k:.6f} vs "
+        f"{golden['loss']:.6f} (rel {g_loss:.2e}, tol {GOLDEN_LOSS_REL_TOL}); "
+        f"grad norm {norm_k:.6f} vs {golden['grad_norm']:.6f} (rel "
+        f"{g_norm:.2e}, tol {GOLDEN_NORM_REL_TOL}); per-leaf grad norms, "
+        f"worst {worst} rel {leaf_rel[worst]:.2e} (tol "
+        f"{GOLDEN_LEAF_REL_TOL}), {len(leaf_rel)} leaves")
+    if set(leaf_rel) != set(golden["grad_norms"]):
+        fail("the golden names other parameters than the port's model")
+    if not (g_loss <= GOLDEN_LOSS_REL_TOL and g_norm <= GOLDEN_NORM_REL_TOL
+            and leaf_rel[worst] <= GOLDEN_LEAF_REL_TOL):
+        fail("the first train step disagrees with the JAX golden")
+    return launches, mod, (inputs, targets)
+
+
+def cudnn_lstm_ms(dev, a, n):
+    """cuDNN's LSTM on the same shapes, fp32, TF32 off (the library
+    yardstick; the port never calls it): (forward, backward) ms, the
+    backward as forward+backward minus forward, both in training mode."""
+    t_len, r, c = a["x"].shape
+    lstm = torch.nn.LSTM(c, SLAB_H).to(dev)
+    x = a["x"].clone().requires_grad_()
+    hc = (a["h0"][None], a["c0"][None])
+
+    def fwd():
+        return lstm(x, hc)[0]
+
+    def fwd_bwd():
+        fwd().backward(a["dy"])
+
+    fwd_bwd()
+    fwd_ms = cuda_ms(fwd, n)
+    both_ms = cuda_ms(fwd_bwd, n)
+    return fwd_ms, both_ms - fwd_ms
+
+
+def phase8_times(dev, ls, mod, batch):
+    """Per-launch times at the two training shapes; ms per train step."""
+    rows = {}
+    shapes = {name: (t_len, r, rev) for name, t_len, r, rev in SLAB_SHAPES}
+    for name, _ in SLAB_MIX:
+        t_len, r, reverse = shapes[name]
+        a = slab_case(dev, t_len, r, SEED)
+        with torch.no_grad():
+            ys = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
+            bargs = slab_args(a, ls, reverse, ys)
+            fwd_ms = cuda_ms(lambda: ls.lstm_slab_fwd(
+                *slab_args(a, ls, reverse)), 20)
+            bwd_ms = cuda_ms(lambda: ls.lstm_slab_bwd(*bargs), 20)
+            fwd_plain = cuda_ms(lambda: ls.lstm_slab_fwd_ref(
+                *slab_args(a, ls, reverse)), 2)
+            bwd_plain = cuda_ms(lambda: ls.lstm_slab_bwd_ref(*bargs), 2)
+        lib_fwd, lib_bwd = cudnn_lstm_ms(dev, a, 10)
+        (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, SLAB_C, SLAB_H, "fwd")
+        (bb, bby), bf, bbytes = slab_bound_ms(t_len, r, SLAB_C, SLAB_H, "bwd")
+        rows[name] = {"fwd": (fwd_ms, fwd_plain, fb, fby, lib_fwd),
+                      "bwd": (bwd_ms, bwd_plain, bb, bby, lib_bwd)}
+        log(f"  {name} [T={t_len}, R={r}]: fwd {fwd_ms:.4f} ms (plain "
+            f"{fwd_plain:.2f}, cuDNN LSTM fwd {lib_fwd:.4f}, bound {fb:.6f} "
+            f"{fby}: {ff} FLOP, {fbytes} B); bwd {bwd_ms:.4f} ms (plain "
+            f"{bwd_plain:.2f}, cuDNN LSTM bwd {lib_bwd:.4f}, bound {bb:.6f} "
+            f"{bby}: {bf} FLOP, {bbytes} B)")
+
+    # ms per train step: PLModule.train_step on the golden batch, host clock
+    model_inputs = mod._model_inputs(batch[0])
+    target = torch.from_numpy(batch[1]["target"]).to(dev)
+    mod.train_step(model_inputs, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(5):
+        mod.train_step(model_inputs, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / 5 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    total = sum(k for _, k in SLAB_MIX)
+    mixed = {}
+    for kind in ("fwd", "bwd"):
+        vals = [sum(rows[name][kind][i] * k for name, k in SLAB_MIX) / total
+                for i in (0, 1, 2, 4)]
+        by = rows["intra"][kind][3]
+        mixed[kind] = dict(zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                               vals), bound_by=by)
+    log(f"phase 8 times: train step {step_ms:.2f} ms (PLModule.train_step, "
+        f"batch 4 x 2.5 s, host clock, 5 steps), peak device memory "
+        f"{peak_gb:.2f} GB; per slab launch on the path (12 intra : 6 "
+        f"inter): fwd {mixed['fwd']['ms']:.4f} ms, bwd "
+        f"{mixed['bwd']['ms']:.4f} ms")
+    return mixed, step_ms
 
 
 def main():
@@ -286,13 +689,32 @@ def main():
         f"(host clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
         f"library_ms: none (no single PyTorch call computes the stack step)")
 
+    # ---- 6. slab kernels vs plain
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
+    fwd_err, bwd_err = phase6_slab(dev, ls)
+
+    # ---- 7. training (the main path of this phase: train_pt)
+    (fwd_n, bwd_n), mod, batch = phase7_train(dev)
+
+    # ---- 8. times
+    slab_times, step_ms = phase8_times(dev, ls, mod, batch)
+    log(f"phase 8 on {card}: ms per train step {step_ms:.2f}")
+
+    slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
+    slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
         "name": "gridnet_stack_step", "route": "cuda",
         "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:243",
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "lstm_slab_fwd", "route": "cuda", "source": slab_src,
+        "replaces": f"{slab_tpu}:94", "launches": fwd_n,
+        "max_abs_err": fwd_err, **slab_times["fwd"]}, {
+        "name": "lstm_slab_bwd", "route": "cuda", "source": slab_src,
+        "replaces": f"{slab_tpu}:229", "launches": bwd_n,
+        "max_abs_err": bwd_err, **slab_times["bwd"]}]}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ activations are channel-minor `[B, T, F, C]`; parameters keep the JAX names
 and layouts (Linear `kernel` [in, out], conv `kernel` [kt, kf, in, out],
 LSTM `w_ih` [C, 4H] / `w_hh` [H, 4H] / folded `b` [4H]), so a module's
 `state_dict()` keys are the dotted paths of the JAX parameter tree
-(`sound_bubble_tpu_torch/weights.py`). Weights start at zero; load them with
-`net.load_state_dict(from_jax_params(tree))`.
+(`sound_bubble_tpu_torch/weights.py`). Weights start at zero: load them with
+`net.load_state_dict(from_jax_params(tree))`, or draw them from a seed with
+`net.init_weights(generator)` (the JAX package's initial distributions,
+`ops/init.py`). `net_from_params` is the config system's model factory.
 
 The streaming state is an explicit dict threaded through `forward`, with the
 reference `init_buffers` key names (conv_buf / deconv_buf / istft_buf /
@@ -30,6 +32,7 @@ from torch import nn
 
 from sound_bubble_tpu_torch.constants import BUBBLE_RADII
 from sound_bubble_tpu_torch.ops.features import spatial_features
+from sound_bubble_tpu_torch.ops.init import lstm_init, uniform_fan
 from sound_bubble_tpu_torch.ops.rnn import blstm, lstm
 from sound_bubble_tpu_torch.ops.stft import (
     STFT, istft, make_stft, mod_pad, stft)
@@ -148,6 +151,23 @@ def _lstm_params(c, h):
                              "b": _zeros(4 * h)})
 
 
+@torch.no_grad()
+def _init_lstm(p, generator):
+    """JAX `init_lstm_params`: the two torch biases folded into one (the sum
+    of two U(-1/sqrt(H), 1/sqrt(H)) draws)."""
+    init = lstm_init(p["w_hh"].shape[0])
+    p["w_ih"].copy_(init(p["w_ih"].shape, generator))
+    p["w_hh"].copy_(init(p["w_hh"].shape, generator))
+    p["b"].copy_(init(p["b"].shape, generator) + init(p["b"].shape, generator))
+
+
+@torch.no_grad()
+def _init_uniform(generator, fan_in, *params):
+    for p in params:
+        if p is not None:
+            p.copy_(uniform_fan(p.shape, fan_in, generator))
+
+
 class LayerNorm(nn.Module):
     """Affine LayerNorm over the trailing `dim` features."""
 
@@ -156,6 +176,11 @@ class LayerNorm(nn.Module):
         self.dim, self.eps = dim, eps
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = _zeros(dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        self.scale.fill_(1.0)
+        self.bias.zero_()
 
     def forward(self, x):
         return TF.layer_norm(x, (self.dim,), self.scale, self.bias, self.eps)
@@ -170,6 +195,9 @@ class Linear(nn.Module):
         self.kernel = _zeros(in_features, out_features)
         self.bias = _zeros(out_features) if use_bias else None
 
+    def reset_parameters(self, generator):
+        _init_uniform(generator, self.kernel.shape[0], self.kernel, self.bias)
+
     def forward(self, x):
         y = x @ self.kernel
         return y if self.bias is None else y + self.bias
@@ -179,6 +207,10 @@ class PReLU(nn.Module):
     def __init__(self):
         super().__init__()
         self.alpha = nn.Parameter(torch.tensor(0.25))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        self.alpha.fill_(0.25)
 
     def forward(self, x):
         return torch.clamp(x, min=0) + self.alpha * torch.clamp(x, max=0)
@@ -193,6 +225,10 @@ class CausalConv2d(nn.Module):
         self.kernel = _zeros(3, 3, in_features, features)
         self.bias = _zeros(features)
 
+    def reset_parameters(self, generator):
+        kt, kf, cin, _ = self.kernel.shape
+        _init_uniform(generator, kt * kf * cin, self.kernel, self.bias)
+
     def _conv(self, x, kernel):
         y = TF.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
                       self.bias, padding=(0, 1))
@@ -205,6 +241,11 @@ class CausalConv2d(nn.Module):
 class CausalDeconv2d(CausalConv2d):
     """ConvTranspose2d(k=3, padding=(2,1)) equivalent: a correlation with the
     double-flipped kernel, valid over (pre-buffered) time, same over freq."""
+
+    def reset_parameters(self, generator):
+        # torch ConvTranspose fan_in = out_ch * k * k
+        kt, kf, _, cout = self.kernel.shape
+        _init_uniform(generator, kt * kf * cout, self.kernel, self.bias)
 
     def forward(self, x):
         return self._conv(x, torch.flip(self.kernel, (0, 1)))
@@ -254,6 +295,10 @@ class IntraBand(nn.Module):
                                     "bwd": _lstm_params(C, H)})
         self.proj = Linear(2 * H, C)
 
+    def reset_parameters(self, generator):
+        _init_lstm(self.blstm["fwd"], generator)
+        _init_lstm(self.blstm["bwd"], generator)
+
     def forward(self, x):
         B, T, F, C = x.shape
         z = self.norm(x).reshape(B * T, F, C)
@@ -271,6 +316,9 @@ class GridNetBlock(nn.Module):
         self.inter_norm = LayerNorm(C, eps=cfg.eps)
         self.inter_lstm = _lstm_params(C, cfg.H)
         self.inter_proj = Linear(cfg.H, C)
+
+    def reset_parameters(self, generator):
+        _init_lstm(self.inter_lstm, generator)
 
     def forward(self, x, state):
         x = x + self.intra(x)
@@ -305,6 +353,14 @@ class Net(nn.Module):
         # the STFT filterbank moves with the module (not part of its weights)
         fb = make_stft(cfg.n_fft, cfg.stft_chunk_size)
         self.register_buffer("stft_filters", fb.filters, persistent=False)
+
+    def init_weights(self, generator: torch.Generator):
+        """Draw every weight from `generator` with the JAX package's initial
+        distributions (PyTorch's defaults, `ops/init.py`)."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+        return self
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.B)]
@@ -383,3 +439,15 @@ class Net(nn.Module):
             h, bufs[f"buf{i}"] = block(h, state["gridnet_bufs"][f"buf{i}"])
         next_state["gridnet_bufs"] = bufs
         return self.decode(h, spec, state, next_state), next_state
+
+
+def net_from_params(**model_params) -> Net:
+    """Config-system entry point: the distance-conditioned production model
+    (JAX `net_from_params`). Its weights are zeros until
+    `init_weights` or `load_state_dict`."""
+    return Net(make_config(model_params, conditional=True))
+
+
+def net_optim_from_params(**model_params) -> Net:
+    """Config-system entry point: the unconditioned edge variant."""
+    return Net(make_config(model_params, conditional=False))

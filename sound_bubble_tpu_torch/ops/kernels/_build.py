@@ -75,6 +75,13 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step.argtypes = (
                 [ptr] * 24 + [i32] * 5 + [ctypes.c_float, ptr])
             lib.sbt_stack_step.restype = i32
+            lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.sbt_lstm_slab_fwd.restype = i32
+            lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
+            lib.sbt_lstm_slab_bwd.restype = i32
+            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_slab_bwd_smem):
+                fn.argtypes = [i32, i32]
+                fn.restype = ctypes.c_size_t
             _lib = lib
         return _lib
 

@@ -1,9 +1,11 @@
 """LSTM primitives with PyTorch cell semantics (port of `sound_bubble_tpu/ops/rnn.py`).
 
-fp32 only: plain torch loops over time, used by the offline and streaming
-`Net` forward and as the readable statement of the cell math that the CUDA
-stack kernel is held against. The bf16/mixed modes and the training scans
-of the JAX package are not ported yet.
+fp32. A scan with T >= 2 goes through `ops/kernels/lstm_slab.py:lstm_slab`,
+as the JAX package's `_run_fused` routes it to the slab kernels: x moves to
+scan-major [T, R, C] with the lead dims folded into R, the reverse direction
+runs `reverse=True` on the same x (no flips), and hT, cT come back. On the
+card that is the CUDA slab kernels, forward and backward; on the CPU their
+plain PyTorch versions. T == 1 (the streaming step) is a single `_cell`.
 
 Params per direction: {"w_ih": [C, 4H], "w_hh": [H, 4H], "b": [4H]} (JAX
 layout: weights stored transposed for right-matmuls, the two torch biases
@@ -11,7 +13,11 @@ folded into one), gate order `[i, f, g, o]`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from sound_bubble_tpu_torch.ops.kernels.lstm_slab import lstm_slab
 
 
 def _cell(h, c, gates_x, w_hh, hidden):
@@ -31,17 +37,21 @@ def lstm(params, x, h0=None, c0=None, reverse: bool = False):
 
     Returns (y [..., T, H], (hT, cT) [..., H])."""
     hidden = params["w_hh"].shape[0]
-    gates_x = x @ params["w_ih"] + params["b"]        # [..., T, 4H]
     lead = x.shape[:-2]
+    t_len = x.shape[-2]
     h = x.new_zeros(lead + (hidden,)) if h0 is None else h0
     c = x.new_zeros(lead + (hidden,)) if c0 is None else c0
-    t_len = x.shape[-2]
-    ys = [None] * t_len
-    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
-    for t in steps:
-        h, c = _cell(h, c, gates_x[..., t, :], params["w_hh"], hidden)
-        ys[t] = h
-    return torch.stack(ys, dim=-2), (h, c)
+    if t_len == 1:
+        gates_x = x[..., 0, :] @ params["w_ih"] + params["b"]
+        h, c = _cell(h, c, gates_x, params["w_hh"], hidden)
+        return h[..., None, :], (h, c)
+    r = math.prod(lead)
+    x_t = x.movedim(-2, 0).reshape(t_len, r, x.shape[-1])
+    ys, hT, cT = lstm_slab(reverse, params["w_ih"], params["w_hh"],
+                           params["b"], x_t, h.reshape(r, hidden),
+                           c.reshape(r, hidden))
+    y = ys.reshape((t_len,) + lead + (hidden,)).movedim(0, -2)
+    return y, (hT.reshape(lead + (hidden,)), cT.reshape(lead + (hidden,)))
 
 
 def blstm(params, x):

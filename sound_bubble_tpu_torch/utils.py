@@ -1,24 +1,96 @@
-"""Small helpers: devices, JSON, WAV reading and the run-dir loader.
+"""Config plumbing, devices, seeding, JSON, WAV reading and the run-dir
+loader (port of `sound_bubble_tpu/utils.py`).
 
-Port of the parts of `sound_bubble_tpu/utils.py` and
-`sound_bubble_tpu/data/audio_io.py` that serving needs. A run dir holds
-`config.json` (its `pl_module_args.model_params` is the model configuration)
-and `checkpoints/best.pt` (a pickled numpy tree, see `train/checkpoint.py`).
+The reference JSON configs name classes by dotted path: the JAX package's
+(`sound_bubble_tpu.train.module.PLModule`), the reference's own (`src.*`)
+and PyTorch's (`torch.optim.Adam`). `import_attr` maps every one of them that
+is ported to the port's class through `ALIASES`, and raises for the others:
+it never imports the JAX package. A run dir holds `config.json` (its
+`pl_module_args.model_params` is the model configuration) and
+`checkpoints/best.pt` (a pickled numpy tree, see `train/checkpoint.py`).
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
+import random
 
 import numpy as np
 import torch
 
-# config `model` entries of the JAX package -> conditional or not
-_CONDITIONAL_MODELS = {
-    "sound_bubble_tpu.models.tfgridnet.model.net_from_params": True,
-    "sound_bubble_tpu.models.tfgridnet.model.net_optim_from_params": False,
+_PORT = "sound_bubble_tpu_torch"
+# JAX package's dotted path -> the port's
+_PORTED = {
+    "sound_bubble_tpu.models.tfgridnet.model.net_from_params":
+        f"{_PORT}.models.tfgridnet.model.net_from_params",
+    "sound_bubble_tpu.models.tfgridnet.model.net_optim_from_params":
+        f"{_PORT}.models.tfgridnet.model.net_optim_from_params",
+    "sound_bubble_tpu.train.module.PLModule": f"{_PORT}.train.module.PLModule",
+    "sound_bubble_tpu.losses.snrlp.SNRLPLoss":
+        f"{_PORT}.losses.snrlp.SNRLPLoss",
+    "sound_bubble_tpu.losses.sdr.SNRLosses": f"{_PORT}.losses.sdr.SNRLosses",
+    "sound_bubble_tpu.data.dataset.DistanceEmbedDataset":
+        f"{_PORT}.data.dataset.DistanceEmbedDataset",
+    "sound_bubble_tpu.data.dataset.FixedThresholdDataset":
+        f"{_PORT}.data.dataset.FixedThresholdDataset",
+    **{f"sound_bubble_tpu.data.perturbations.{n}":
+       f"{_PORT}.data.perturbations.{n}" for n in (
+           "SpeedPerturbation", "SampleShiftPerturbation",
+           "FrequencyMaskingPerturbation", "ChannelGainPerturbation",
+           "ChannelDropPerturbation", "PeakNormPerturbation",
+           "WhitePinkBrownPerturbation")},
+    **{f"sound_bubble_tpu.train.optim.{n}": f"{_PORT}.train.optim.{n}"
+       for n in ("Adam", "AdamW", "ReduceLROnPlateau", "StepLR",
+                 "ExponentialLR", "ConstantLR", "LinearLR")},
 }
+# reference and PyTorch dotted paths -> the JAX package's
+_REFERENCE = {
+    "src.models.tfgridnet_realtime_clean_dis_embd3.net.Net":
+        "sound_bubble_tpu.models.tfgridnet.model.net_from_params",
+    "src.models.tfgridnet_realtime_clean_optim.net.Net":
+        "sound_bubble_tpu.models.tfgridnet.model.net_optim_from_params",
+    "src.hl_modules.distance_based_hl_module.PLModule":
+        "sound_bubble_tpu.train.module.PLModule",
+    "src.losses.SNRLP.SNRLPLoss": "sound_bubble_tpu.losses.snrlp.SNRLPLoss",
+    "src.losses.SNRLosses.SNRLosses": "sound_bubble_tpu.losses.sdr.SNRLosses",
+    "src.datasets.general_multisrc_dataset_dis_embed.Dataset":
+        "sound_bubble_tpu.data.dataset.DistanceEmbedDataset",
+    "src.datasets.multisrc_dataset_with_perturbations.Dataset":
+        "sound_bubble_tpu.data.dataset.FixedThresholdDataset",
+    **{f"src.datasets.perturbations.{n}.{n}":
+       f"sound_bubble_tpu.data.perturbations.{n}" for n in (
+           "SpeedPerturbation", "SampleShiftPerturbation",
+           "FrequencyMaskingPerturbation", "ChannelGainPerturbation",
+           "ChannelDropPerturbation", "PeakNormPerturbation",
+           "WhitePinkBrownPerturbation")},
+    "torch.optim.Adam": "sound_bubble_tpu.train.optim.Adam",
+    "torch.optim.AdamW": "sound_bubble_tpu.train.optim.AdamW",
+    **{f"torch.optim.lr_scheduler.{n}": f"sound_bubble_tpu.train.optim.{n}"
+       for n in ("ReduceLROnPlateau", "StepLR", "ExponentialLR",
+                 "ConstantLR", "LinearLR")},
+}
+ALIASES = {**_PORTED, **{k: _PORTED[v] for k, v in _REFERENCE.items()
+                         if v in _PORTED}}
 
+
+def import_attr(import_path: str):
+    """The port's object for a config's dotted path (see `ALIASES`). A path
+    into the JAX package, the reference or `torch.optim` that is not ported
+    raises NotImplementedError."""
+    path = ALIASES.get(import_path, import_path)
+    root = path.split(".")[0]
+    if root in ("sound_bubble_tpu", "src") or path.startswith("torch.optim"):
+        raise NotImplementedError(f"{import_path} is not ported yet")
+    module, attr = path.rsplit(".", 1)
+    return getattr(importlib.import_module(module), attr)
+
+
+def seed_all(seed: int):
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 def resolve_device(device) -> torch.device:
     """torch.device for an entry point. A CUDA device with no card raises:
@@ -66,22 +138,16 @@ def read_audio_file(file_path, sr):
 def load_pretrained(run_dir, device="cuda"):
     """run_dir/config.json + checkpoints/best.pt -> the port's `Net`, in
     eval mode, on `device`."""
-    from sound_bubble_tpu_torch.models.tfgridnet.model import Net, make_config
     from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
     from sound_bubble_tpu_torch.weights import from_jax_params
 
     device = resolve_device(device)
     module_args = read_json(os.path.join(run_dir, "config.json"))[
         "pl_module_args"]
-    model_name = module_args["model"]
-    if model_name not in _CONDITIONAL_MODELS:
-        raise NotImplementedError(f"model {model_name} is not ported yet")
-    cfg = make_config(module_args["model_params"],
-                      conditional=_CONDITIONAL_MODELS[model_name])
+    net = import_attr(module_args["model"])(**module_args["model_params"])
     ckpt_path = os.path.join(run_dir, "checkpoints", "best.pt")
     if not os.path.exists(ckpt_path):
         raise FileNotFoundError(
             f"Given run ({run_dir}) doesn't have any pretrained checkpoints!")
-    net = Net(cfg)
     net.load_state_dict(from_jax_params(load_checkpoint(ckpt_path)["model"]))
     return net.to(device).eval()

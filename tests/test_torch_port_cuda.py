@@ -1,4 +1,5 @@
-"""The CUDA stack-step kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+stack-step kernel, and the slab LSTM scans (forward and backward).
 
 Marked `gpu`: each test decides inside itself whether a card is present and
 skips here with a reason. This file imports neither JAX nor the JAX package,
@@ -8,7 +9,9 @@ repo's conftest, which imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
 Tolerance 1e-4 absolute: fp32 kernel vs fp32 plain version, which differ only
-in summation order over D and 2H terms."""
+in summation order over D and 2H terms. The slab backward is held to 1e-4
+of each output's peak: its weight gradients sum over all T*R rows, in
+another order than the plain version's matrix products."""
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +19,8 @@ import pytest
 import torch
 
 from sound_bubble_tpu_torch.models.tfgridnet.model import Net, NetConfig
+from sound_bubble_tpu_torch.ops import rnn
+from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
 from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
 from sound_bubble_tpu_torch.weights import param_tree
 
@@ -120,3 +125,89 @@ def test_fused_streamer_on_card_matches_cpu():
         torch.backends.cudnn.allow_tf32 = tf32
     want, got = outs["cpu"], outs[str(dev)]
     assert float((got - want).abs().max() / want.abs().max()) <= TOL
+
+
+# (T, R, C, H): ragged T (K = 8 does not divide it) and R (not a multiple of
+# the row tile, 8); T < K; the training widths; a narrow C and H
+SLAB_SHAPES = {"ragged": (13, 37, 32, 64), "short": (5, 9, 32, 64),
+               "even": (16, 16, 32, 64), "narrow": (11, 5, 8, 8)}
+
+
+def _slab_case(shape, dev, seed=0):
+    t_len, r, c, h = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(s) * scale).astype(np.float32)).to(dev)
+
+    return dict(w_ih=draw(c, 4 * h, scale=0.3), w_hh=draw(h, 4 * h, scale=0.3),
+                b=draw(4 * h, scale=0.1), x=draw(t_len, r, c),
+                h0=draw(r, h, scale=0.5), c0=draw(r, h, scale=0.5),
+                dy=draw(t_len, r, h), dhT=draw(r, h), dcT=draw(r, h))
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", list(SLAB_SHAPES))
+def test_slab_kernels_match_plain(shape, reverse):
+    dev = _card()
+    a = _slab_case(SLAB_SHAPES[shape], dev)
+    args = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"], reverse)
+    f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
+    got = ls.lstm_slab_fwd(*args)
+    torch.cuda.synchronize()
+    want = ls.lstm_slab_fwd_ref(*args)
+    for g, w, name in zip(got, want, ("ys", "hT", "cT", "c_ckpt")):
+        assert g.shape == w.shape, name
+        assert float((g - w).abs().max()) <= TOL, name
+    hp = ls.shift_prev(want[0], a["h0"], reverse)
+    bargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], hp, want[3], a["dy"],
+             a["dhT"], a["dcT"], reverse)
+    got_b = ls.lstm_slab_bwd(*bargs)
+    torch.cuda.synchronize()
+    want_b = ls.lstm_slab_bwd_ref(*bargs)
+    for g, w, name in zip(got_b, want_b,
+                          ("dx", "dw_ih", "dw_hh", "db", "dh0", "dc0")):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) <= TOL, (name, _rel(g, w))
+    assert ls.lstm_slab_fwd.launches == f0 + 1
+    assert ls.lstm_slab_bwd.launches == b0 + 1
+
+
+def test_lstm_on_card_goes_through_the_slab_kernels():
+    """ops.rnn.lstm with T >= 2 launches one forward kernel, and its
+    backward one backward kernel; T == 1 launches none."""
+    dev = _card()
+    a = _slab_case(SLAB_SHAPES["ragged"], dev)
+    p = {k: a[k].clone().requires_grad_() for k in ("w_ih", "w_hh", "b")}
+    x = a["x"].permute(1, 0, 2).contiguous()          # [R, T, C]
+    f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
+    y, _ = rnn.lstm(p, x)
+    y.square().sum().backward()
+    assert (ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    rnn.lstm(p, x[:, :1])
+    assert ls.lstm_slab_fwd.launches == f0 + 1
+
+
+def test_slab_kernels_reject_bad_operands():
+    dev = _card()
+    a = _slab_case(SLAB_SHAPES["ragged"], dev)
+    args = [a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"], False]
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ls.lstm_slab_fwd(*args[:3], a["x"].bfloat16(), *args[4:])
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ls.lstm_slab_fwd(a["w_ih"].bfloat16(), *args[1:])
+    with pytest.raises(TypeError, match="dtype"):
+        ls.lstm_slab_fwd(*args[:3], a["x"].double(), *args[4:])
+    with pytest.raises(ValueError, match="w_hh: on cpu"):
+        ls.lstm_slab_fwd(args[0], a["w_hh"].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="h0: shape"):
+        ls.lstm_slab_fwd(*args[:4], a["h0"][:-1], *args[5:])
+    with pytest.raises(ValueError, match="not contiguous"):
+        ls.lstm_slab_fwd(*args[:3], a["x"].transpose(0, 1).contiguous()
+                         .transpose(0, 1), *args[4:])

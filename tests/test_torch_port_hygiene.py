@@ -46,7 +46,10 @@ def test_port_sources_exist():
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     assert "chip_smoke.py" in names
     assert "sound_bubble_tpu_torch/ops/kernels/stack_kernel.py" in names
+    assert "sound_bubble_tpu_torch/ops/kernels/lstm_slab.py" in names
+    assert "sound_bubble_tpu_torch/train_pt.py" in names
     assert (PORT / "csrc" / "stack_step.cu").exists()
+    assert (PORT / "csrc" / "lstm_slab.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -132,6 +135,18 @@ def test_default_device_without_card_raises(entry, no_card):
             ModelWrapper(net)
         else:
             load_pretrained(str(REPO / "runs" / "finetune_r5"))
+
+
+def test_trainer_default_device_without_card_raises(no_card):
+    from sound_bubble_tpu_torch import train_pt
+
+    args = train_pt.parse_args(["--config", str(
+        REPO / "syn_experiments" / "pretrain_stage.json"), "--run_dir",
+        str(REPO / "runs" / "never_written")])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pt.train(args)
+    assert not (REPO / "runs" / "never_written").exists()
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,0 +1,130 @@
+"""The port's slab LSTM scans against the JAX package's.
+
+- `lstm_slab_fwd_ref` / `lstm_slab_bwd_ref` (the plain versions of the CUDA
+  kernels) against the Pallas `lstm_slab_fwd` / `lstm_slab_bwd` run with
+  `interpret=True`, both directions, T in {16, 13, 5} (K | T, K does not
+  divide T, T < K for K = 8), R = 11 (not a multiple of the CUDA row tile,
+  8), fp32: tolerance 1e-5 absolute (the same math in another summation
+  order);
+- the `torch.autograd.Function` `lstm_slab` through `ops.rnn.lstm` / `blstm`
+  against `jax.grad` of `sound_bubble_tpu.ops.rnn.lstm` / `blstm`, as
+  `tests/test_lstm_slab.py` holds the JAX slab kernels: 2e-5.
+Inputs are drawn with numpy from a seed and handed to both."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import sound_bubble_tpu.ops.rnn as jrnn
+from sound_bubble_tpu.ops.pallas import lstm_train_slab as jslab
+from sound_bubble_tpu_torch.ops import rnn as trnn
+from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+
+TOL = 1e-5
+C, H, R = 5, 4, 11
+
+
+def _draw(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _case(t_len, seed=3):
+    rng = np.random.default_rng(seed)
+    return dict(w_ih=_draw(rng, C, 4 * H, scale=0.3),
+                w_hh=_draw(rng, H, 4 * H, scale=0.3),
+                b=_draw(rng, 4 * H, scale=0.1), x=_draw(rng, t_len, R, C),
+                h0=_draw(rng, R, H, scale=0.5), c0=_draw(rng, R, H, scale=0.5),
+                dy=_draw(rng, t_len, R, H), dhT=_draw(rng, R, H),
+                dcT=_draw(rng, R, H))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, name, tol=TOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t_len", [16, 13, 5])
+def test_fwd_and_bwd_plain_match_pallas(t_len, reverse):
+    a = _case(t_len)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    want = jslab.lstm_slab_fwd(j["w_ih"], j["w_hh"], j["b"], j["x"], j["h0"],
+                               j["c0"], reverse, interpret=True)
+    got = tslab.lstm_slab_fwd_ref(_t(a["w_ih"]), _t(a["w_hh"]), _t(a["b"]),
+                                  _t(a["x"]), _t(a["h0"]), _t(a["c0"]),
+                                  reverse)
+    for g, w, name in zip(got, want, ("ys", "hT", "cT", "c_ckpt")):
+        _close(g, w, name)
+
+    ys = want[0]
+    hp = jslab._shift_prev(ys, j["h0"], reverse, jnp.float32)
+    want_b = jslab.lstm_slab_bwd(j["w_ih"], j["w_hh"], j["b"], j["x"], hp,
+                                 want[3], j["dy"], j["dhT"], j["dcT"],
+                                 reverse, interpret=True)
+    got_b = tslab.lstm_slab_bwd_ref(
+        _t(a["w_ih"]), _t(a["w_hh"]), _t(a["b"]), _t(a["x"]),
+        tslab.shift_prev(_t(np.asarray(ys)), _t(a["h0"]), reverse),
+        _t(np.asarray(want[3])), _t(a["dy"]), _t(a["dhT"]), _t(a["dcT"]),
+        reverse)
+    for g, w, name in zip(got_b, want_b,
+                          ("dx", "dw_ih", "dw_hh", "db", "dh0", "dc0")):
+        _close(g, w, name)
+
+
+def test_slab_shape_helpers():
+    assert tslab.n_slabs(145) == (8, 19)
+    assert tslab.n_slabs(313) == (8, 40)
+    assert tslab.n_slabs(5) == (5, 1)
+
+
+def _params(rng, c, h):
+    return {"w_ih": _draw(rng, c, 4 * h, scale=0.3),
+            "w_hh": _draw(rng, h, 4 * h, scale=0.3),
+            "b": _draw(rng, 4 * h, scale=0.1)}
+
+
+@pytest.mark.parametrize("t_len", [16, 13])
+def test_autograd_through_lstm_and_blstm_matches_jax_grad(t_len):
+    """ops.rnn.lstm (with carried state) and blstm through the autograd
+    Function, against jax.grad of the JAX package's lstm / blstm."""
+    rng = np.random.default_rng(11)
+    bp = {"fwd": _params(rng, C, H), "bwd": _params(rng, C, H)}
+    lp = _params(rng, C, H)
+    x = _draw(rng, 2, 3, t_len, C)
+    h0, c0 = _draw(rng, 2, 3, H, scale=0.5), _draw(rng, 2, 3, H, scale=0.5)
+    wy = _draw(rng, 2, 3, t_len, 2 * H)
+    wl = _draw(rng, 2, 3, t_len, H)
+    ws = _draw(rng, 2, 3, H)
+
+    def jloss(bp, lp, x, h0, c0):
+        y = jrnn.blstm(bp, x)
+        yl, (hT, cT) = jrnn.lstm(lp, x, h0, c0)
+        return (jnp.sum(y * wy) + jnp.sum(yl * wl) + jnp.sum(hT * ws)
+                + 0.5 * jnp.sum(cT * ws))
+
+    jargs = jax.tree_util.tree_map(jnp.asarray, (bp, lp, x, h0, c0))
+    want_loss = jloss(*jargs)
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*jargs)
+
+    tb = {d: {k: _t(v).requires_grad_() for k, v in p.items()}
+          for d, p in bp.items()}
+    tl = {k: _t(v).requires_grad_() for k, v in lp.items()}
+    tx, th, tc = (_t(v).requires_grad_() for v in (x, h0, c0))
+    y = trnn.blstm(tb, tx)
+    yl, (hT, cT) = trnn.lstm(tl, tx, th, tc)
+    loss = ((y * _t(wy)).sum() + (yl * _t(wl)).sum() + (hT * _t(ws)).sum()
+            + 0.5 * (cT * _t(ws)).sum())
+    loss.backward()
+    _close(loss.detach().numpy(), want_loss, "loss")
+    got = ({d: {k: v.grad for k, v in p.items()} for d, p in tb.items()},
+           {k: v.grad for k, v in tl.items()}, tx.grad, th.grad, tc.grad)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        _close(g.numpy(), w, "grad", tol=2e-5)
