@@ -4,7 +4,9 @@
 
 Drives the port's serving and training paths (`sound_bubble_tpu_torch`) at
 the full width of the flagship TF-GridNet (`runs/finetune_r5`: F=145, D=32,
-B=6, H=64):
+B=6, H=64, phases 3-8) and of the edge model (`real_experiments/
+orangpi_model_*.json`: conv_lstm, unconditioned, F=145, D=24, B=3, H=64,
+lstm_down=5, phases 9-12):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
@@ -19,9 +21,11 @@ B=6, H=64):
    the plain `ModelWrapper` path;
 5. times of the kernel, its plain version and one 8 ms chunk;
 6. slab kernels vs plain: the CUDA LSTM scans `lstm_slab_fwd` /
-   `lstm_slab_bwd` against their plain versions at the training path's
-   shapes (intra [145, 1252, 32] both directions, inter [313, 580, 32]) and a
-   ragged one ([13, 37, 32]);
+   `lstm_slab_bwd` against their plain versions at the flagship training
+   path's shapes (intra [145, 1252, 32] both directions, inter
+   [313, 580, 32]), the edge training path's (intra [29, 1252, 24] both
+   directions, inter [313, 580, 24]; the Raspberry Pi intra
+   [29, 1252, 16]) and a ragged one ([13, 37, 32]);
 7. training: seeded sample dirs, then `sound_bubble_tpu_torch.train_pt` on
    `syn_experiments/pretrain_stage.json` (dataset paths, epochs and
    num_workers changed) for 2 epochs and a resumed third; the slab launches
@@ -29,7 +33,26 @@ B=6, H=64):
    step from the flagship checkpoint against the JAX package's numbers
    (`runs/train_step_golden_jax.json`);
 8. times of the slab kernels, their plain versions, cuDNN's LSTM as the
-   library yardstick, and ms per train step.
+   library yardstick, and ms per train step;
+9. conv kernel vs plain: `gridnet_stack_step` on conv_lstm packs (the
+   `stack_step_kernel_t<true>`) against `gridnet_stack_step_ref`, 5 chained
+   steps, at the Orange Pi width with the committed seeded weights
+   (`runs/edge_orangpi_seeded`), the Raspberry Pi width (D=16) with seeded
+   weights, and a ragged F (25 rows, lstm_down 4, with FiLM);
+10. edge serving: the 9 goldens of `test_samples/` through `FusedStreamer` on
+   `runs/edge_orangpi_seeded`, through the serving CLI's `evaluate_dir`,
+   per sample against the JAX package's numbers for the same weights
+   (`runs/goldens_edge_jax.json`, `tools/jax_goldens_edge.py`), and the first
+   20 chunks of `syn_1m/00002` against the JAX output there; then the kernel
+   path against the plain `ModelWrapper` path;
+11. edge training: `train_pt` on the Orange Pi pretrain config, then on the
+   finetune config warm-started from its `last.pt` (dataset paths, epochs,
+   num_workers and init_ckpt changed), the slab launches per step; one
+   finetune step from the seeded weights on the kernel path against the
+   plain path and against the JAX package's numbers
+   (`runs/train_step_golden_edge_jax.json`);
+12. times of the conv kernel, its plain version, one edge 8 ms chunk, one
+   edge train step and the slab kernels at the edge step's shapes.
 
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
@@ -83,6 +106,17 @@ GOLDEN_NORM_REL_TOL = 1e-4
 GOLDEN_LEAF_REL_TOL = 1e-3
 TRAIN_STEP_GOLDEN = os.path.join(REPO, "runs", "train_step_golden_jax.json")
 TRAIN_CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")
+# the edge model: seeded weights and the JAX package's numbers for them
+# (tools/jax_goldens_edge.py, tools/jax_train_step_golden.py --edge)
+EDGE_RUN_DIR = os.path.join(REPO, "runs", "edge_orangpi_seeded")
+EDGE_GOLDENS = os.path.join(REPO, "runs", "goldens_edge_jax.json")
+EDGE_STEP_GOLDEN = os.path.join(REPO, "runs",
+                                "train_step_golden_edge_jax.json")
+EDGE_CONFIG = os.path.join(REPO, "real_experiments",
+                           "{}_model_{}.json")   # (orangpi|raspberrypi, stage)
+# the first 20 streamed chunks vs the JAX output, max-abs / peak (fp32 on the
+# card vs fp32 on the CPU: the port's CPU path agrees to 8.3e-6)
+EDGE_HEAD_REL_TOL = 1e-4
 T0 = time.perf_counter()
 
 
@@ -115,45 +149,63 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def stack_step_bound_ms(n_blocks, f, d, h, film):
+def stack_step_bound_ms(n_blocks, f, d, h, film, s=None):
     """Least time for one stack step on an H100: the larger of the bytes the
     step must move and its fp32 arithmetic over the fp32 rate. Both count the
     compact math, not the packed operands: the fused BLSTM packing pads each
     direction's input weights [D, 4H] to [D, 8H] and the recurrent weights
     into a block-diagonal [2H, 8H], and those zeros are no work the step
-    needs. Bytes: weights read once, x/h0/c0 (and FiLM) read once, x/h0/c0
-    written once."""
-    weights = (2 * d                       # intra LayerNorm scale, bias
-               + 2 * d * 4 * h             # fwd + bwd input weights
-               + 2 * h * 4 * h             # fwd + bwd recurrent weights
-               + 8 * h                     # fwd + bwd biases
-               + 2 * h * d + d             # intra projection
-               + 2 * d                     # inter LayerNorm
+    needs; the conv branch (lstm_down s) counts each row's own phase of the
+    down conv, not the s phases the phase-split form computes. Bytes: weights
+    read once, x/h0/c0 (and FiLM) read once, x/h0/c0 written once."""
+    lstm_w = (2 * d * 4 * h                # fwd + bwd input weights
+              + 2 * h * 4 * h              # fwd + bwd recurrent weights
+              + 8 * h)                     # fwd + bwd biases
+    inter_w = (2 * d                       # inter LayerNorm
                + (d + h) * 4 * h + 4 * h   # inter LSTM
                + h * d + d)                # inter projection
+    inter_ops = (2 * f * (d + h) * 4 * h   # inter gates
+                 + 2 * f * h * d)          # inter projection
+    if s is None:
+        n = f                              # intra rows
+        weights = (2 * d                   # intra LayerNorm scale, bias
+                   + lstm_w + 2 * h * d + d + inter_w)  # + intra projection
+        intra_ops = 2 * f * 2 * h * d      # intra projection
+    else:
+        n = f // s                         # conv frames
+        weights = (s * d * d + d + 1       # down conv, PReLU slope
+                   + 2 * d                 # intra LayerNorm
+                   + lstm_w + 2 * h * s * d + d + inter_w)  # + up conv
+        intra_ops = (2 * n * s * d * d     # down conv
+                     + 2 * n * 2 * h * s * d)  # up conv
     acts = 2 * (f * d + 2 * n_blocks * f * h)   # x, h0, c0 in and out
     film_floats = 2 * (n_blocks - 1) * f * d if film else 0
     n_bytes = 4 * (n_blocks * weights + acts + film_floats)
-    per_block = (2 * 2 * f * d * 4 * h      # fwd + bwd input projections
-                 + 2 * 2 * f * h * 4 * h    # fwd + bwd recurrence
-                 + 2 * f * 2 * h * d        # intra projection
-                 + 2 * f * (d + h) * 4 * h  # inter gates
-                 + 2 * f * h * d)           # inter projection
+    per_block = (2 * 2 * n * d * 4 * h      # fwd + bwd input projections
+                 + 2 * 2 * n * h * 4 * h    # fwd + bwd recurrence
+                 + intra_ops + inter_ops)
     flops = n_blocks * per_block
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     log(f"bound: {n_bytes} B -> {t_bytes:.6f} ms at 3.35 TB/s; "
         f"{flops} FLOP -> {t_ops:.6f} ms at 67 TFLOP/s fp32; dependency "
-        f"chain {n_blocks * (f + 1)} sequential cell updates")
+        f"chain {n_blocks * (n + 1)} sequential cell updates")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# (name, T, R, reverse): the intra BLSTM directions and the inter LSTM of the
-# training path (batch 4 x 2.5 s: T*R = 181,540 rows), and a ragged case
-SLAB_SHAPES = (("intra", 145, 1252, False), ("intra_rev", 145, 1252, True),
-               ("inter", 313, 580, False), ("ragged", 13, 37, False),
-               ("ragged_rev", 13, 37, True))
-SLAB_C, SLAB_H = 32, 64
+# (name, T, R, C, reverse): the intra BLSTM directions and the inter LSTM of
+# the flagship training path (batch 4 x 2.5 s: T*R = 181,540 rows), of the
+# edge training path (Orange Pi C=24: k = 145 // 5 = 29 conv frames; one
+# Raspberry Pi C=16 case), and a ragged case
+SLAB_SHAPES = (("intra", 145, 1252, 32, False),
+               ("intra_rev", 145, 1252, 32, True),
+               ("inter", 313, 580, 32, False),
+               ("edge_intra", 29, 1252, 24, False),
+               ("edge_intra_rev", 29, 1252, 24, True),
+               ("edge_inter", 313, 580, 24, False),
+               ("rpi_intra", 29, 1252, 16, False),
+               ("ragged", 13, 37, 32, False), ("ragged_rev", 13, 37, 32, True))
+SLAB_H = 64
 # slab launches per train step: 6 blocks x (2 intra directions + 1 inter),
 # 12 at the intra shape and 6 at the inter shape
 SLAB_MIX = (("intra", 12), ("inter", 6))
@@ -185,11 +237,11 @@ def slab_bound_ms(t_len, r, c, h, kind):
             else (t_ops, "operations")), flops, n_bytes
 
 
-def slab_case(dev, t_len, r, seed):
+def slab_case(dev, t_len, r, c, seed):
     """Operands of one slab scan, weights from the LSTM's initial
     distribution U(-1/sqrt(H), 1/sqrt(H)), activations N(0, 1)."""
     rng = np.random.default_rng(seed)
-    c, h = SLAB_C, SLAB_H
+    h = SLAB_H
 
     def draw(*shape):
         return torch.from_numpy(
@@ -231,8 +283,8 @@ def phase6_slab(dev, ls):
     """Both slab kernels against their plain versions. Returns the max-abs
     errors (forward, backward)."""
     fwd_err = bwd_err = 0.0
-    for i, (name, t_len, r, reverse) in enumerate(SLAB_SHAPES):
-        a = slab_case(dev, t_len, r, SEED + i)
+    for i, (name, t_len, r, c, reverse) in enumerate(SLAB_SHAPES):
+        a = slab_case(dev, t_len, r, c, SEED + i)
         f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
         with torch.no_grad():
             got = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
@@ -246,7 +298,7 @@ def phase6_slab(dev, ls):
             rel_b = [e / float(w.abs().max()) for e, w in zip(abs_b, want_b)]
         launched = (ls.lstm_slab_fwd.launches - f0,
                     ls.lstm_slab_bwd.launches - b0)
-        log(f"  {name} [T={t_len}, R={r}, C={SLAB_C}], H={SLAB_H}: forward "
+        log(f"  {name} [T={t_len}, R={r}, C={c}], H={SLAB_H}: forward "
             f"max-abs (ys, hT, cT, c_ckpt) {['%.2e' % e for e in errs]}; "
             f"backward max-abs / peak (dx, dw_ih, dw_hh, db, dh0, dc0) "
             f"{['%.2e' % e for e in rel_b]}; launches {launched}")
@@ -277,12 +329,82 @@ def check_adam_step(name, got, want, grad, lr):
     return err_big
 
 
+def run_train_pt(cfg, cfg_path, run_dir, epochs, ls):
+    """`train_pt` for `epochs` on the config dict `cfg` (written to
+    cfg_path); the slab launch counts are set to 0 just before. Returns (the
+    PLModule, seconds, forward launches, backward launches)."""
+    from sound_bubble_tpu_torch import train_pt
+
+    cfg["epochs"] = epochs
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    ls.lstm_slab_fwd.launches = ls.lstm_slab_bwd.launches = 0
+    t = time.perf_counter()
+    hl = train_pt.train(train_pt.parse_args(
+        ["--config", cfg_path, "--run_dir", run_dir, "--seed", str(SEED)]))
+    torch.cuda.synchronize()
+    return (hl, time.perf_counter() - t, ls.lstm_slab_fwd.launches,
+            ls.lstm_slab_bwd.launches)
+
+
+def point_at_scenes(cfg, dirs):
+    """The config's dataset paths -> the seeded synthetic sample dirs."""
+    for split, key in (("train", "train_data_args"),
+                       ("val", "val_data_args")):
+        cfg[key]["dataset_dirs"] = [
+            {"path": p, "max_samples": 10000} for p in dirs[split]]
+
+
+def check_step_golden(loss_k, norm_k, grads_k, grad_clip, golden_path):
+    """One train step on the card against the JAX package's numbers for the
+    same step (fp32 on the CPU): loss, pre-clip global grad norm, per-leaf
+    grad norms (grads_k were clipped in place by the step)."""
+    with open(golden_path) as fh:
+        golden = json.load(fh)
+    # the step clipped the gradients in place by min(1, max_norm / norm)
+    scale = min(1.0, grad_clip / norm_k)
+    leaf_rel = {k: abs(float(np.sqrt(np.sum(np.square(g, dtype=np.float64))))
+                       / scale - golden["grad_norms"][k])
+                / golden["grad_norms"][k] for k, g in grads_k.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    g_loss = abs(loss_k - golden["loss"]) / abs(golden["loss"])
+    g_norm = abs(norm_k - golden["grad_norm"]) / golden["grad_norm"]
+    log(f"  one step vs the JAX package (fp32, CPU; "
+        f"{os.path.basename(golden_path)}): loss {loss_k:.6f} vs "
+        f"{golden['loss']:.6f} (rel {g_loss:.2e}, tol {GOLDEN_LOSS_REL_TOL}); "
+        f"grad norm {norm_k:.6f} vs {golden['grad_norm']:.6f} (rel "
+        f"{g_norm:.2e}, tol {GOLDEN_NORM_REL_TOL}); per-leaf grad norms, "
+        f"worst {worst} rel {leaf_rel[worst]:.2e} (tol "
+        f"{GOLDEN_LEAF_REL_TOL}), {len(leaf_rel)} leaves")
+    if set(leaf_rel) != set(golden["grad_norms"]):
+        fail("the golden names other parameters than the port's model")
+    if not (g_loss <= GOLDEN_LOSS_REL_TOL and g_norm <= GOLDEN_NORM_REL_TOL
+            and leaf_rel[worst] <= GOLDEN_LEAF_REL_TOL):
+        fail(f"the first train step disagrees with "
+             f"{os.path.basename(golden_path)}")
+
+
+def train_step_ms(mod, batch, dev):
+    """ms per PLModule.train_step on the batch, host clock, 5 steps after
+    one warm-up; and the peak device memory in GB."""
+    model_inputs = mod._model_inputs(batch[0])
+    target = torch.from_numpy(batch[1]["target"]).to(dev)
+    mod.train_step(model_inputs, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(5):
+        mod.train_step(model_inputs, target)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t) / 5 * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
 def phase7_train(dev):
     """Train through train_pt (2 epochs, then a resumed third); the kernel
     path against the plain path for one step; one step against the JAX
     package's golden. Returns the main path's launch counts and the module
     used for the step, on the card."""
-    from sound_bubble_tpu_torch import train_pt
     from sound_bubble_tpu_torch.data.synth import (
         golden_batch, write_sample_dirs)
     from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
@@ -300,10 +422,7 @@ def phase7_train(dev):
         n_train, n_val = 4, 2
         dirs = write_sample_dirs(os.path.join(tmp, "data"), SEED, n_train,
                                  n_val)
-        for split, key in (("train", "train_data_args"),
-                           ("val", "val_data_args")):
-            cfg[key]["dataset_dirs"] = [
-                {"path": p, "max_samples": 10000} for p in dirs[split]]
+        point_at_scenes(cfg, dirs)
         cfg["num_workers"] = 2
         steps = math.ceil(3 * n_train / cfg["batch_size"])
         val_batches = math.ceil(3 * n_val / cfg["eval_batch_size"])
@@ -319,17 +438,7 @@ def phase7_train(dev):
                 PLModule(**args, device="cpu").net.state_dict().items()}
 
         def run(epochs):
-            cfg["epochs"] = epochs
-            with open(cfg_path, "w") as fh:
-                json.dump(cfg, fh)
-            ls.lstm_slab_fwd.launches = ls.lstm_slab_bwd.launches = 0
-            t = time.perf_counter()
-            hl = train_pt.train(train_pt.parse_args(
-                ["--config", cfg_path, "--run_dir", run_dir, "--seed",
-                 str(SEED)]))
-            torch.cuda.synchronize()
-            return (hl, time.perf_counter() - t, ls.lstm_slab_fwd.launches,
-                    ls.lstm_slab_bwd.launches)
+            return run_train_pt(cfg, cfg_path, run_dir, epochs, ls)
 
         def moved(before, after, what):
             still = [k for k, v in before.items()
@@ -379,14 +488,28 @@ def phase7_train(dev):
 
     # ---- one step from the flagship on the golden batch: kernel path,
     # plain path, JAX golden
-    inputs, targets = golden_batch(SEED)
+    batch = golden_batch(SEED)
     flagship = os.path.join(RUN_DIR, "checkpoints", "best.pt")
+    mod, loss_k, norm_k, grads_k = kernel_vs_plain_step(
+        args, flagship, batch, n_scans, dev, ls)
+    check_step_golden(loss_k, norm_k, grads_k, args["grad_clip"],
+                      TRAIN_STEP_GOLDEN)
+    return launches, mod, batch
+
+
+def kernel_vs_plain_step(args, init_ckpt, batch, n_scans, dev, ls):
+    """One train step from `init_ckpt` on `batch` on the kernel path and on
+    the plain path (the slab kernels' plain versions), on the card: loss,
+    pre-clip grad norm and updated weights agree, and the kernel path
+    launched each slab kernel n_scans times. Returns the kernel path's
+    (module, loss, pre-clip grad norm, clipped grads)."""
+    from sound_bubble_tpu_torch.train.module import PLModule
 
     def one_step(plain):
-        mod = PLModule(**args, init_ckpt=flagship, device=dev)
+        mod = PLModule(**{**args, "init_ckpt": init_ckpt}, device=dev)
         f0, b0 = ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches
         with plain_slab(ls) if plain else contextlib.nullcontext():
-            loss, _ = mod.training_step((inputs, targets))
+            loss, _ = mod.training_step(batch)
         torch.cuda.synchronize()
         grads = {k: p.grad.cpu().numpy() for k, p in
                  mod.net.named_parameters()}
@@ -406,38 +529,15 @@ def phase7_train(dev):
                 for k in w_k)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     rel_norm = abs(norm_k - norm_p) / norm_p
-    log(f"  one step, kernel path vs plain path on the card: loss "
-        f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tol "
-        f"{STEP_LOSS_REL_TOL}); pre-clip grad norm {norm_k:.6f} vs "
-        f"{norm_p:.6f} (rel {rel_norm:.2e}, tol {STEP_NORM_REL_TOL}); updated "
-        f"weights max-abs {w_err:.2e} where |g| > 1e-3 of the leaf's peak; "
-        f"slab launches per step {per_step}")
+    log(f"  one step from {os.path.relpath(init_ckpt, REPO)}, kernel path "
+        f"vs plain path on the card: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+        f"{rel_loss:.2e}, tol {STEP_LOSS_REL_TOL}); pre-clip grad norm "
+        f"{norm_k:.6f} vs {norm_p:.6f} (rel {rel_norm:.2e}, tol "
+        f"{STEP_NORM_REL_TOL}); updated weights max-abs {w_err:.2e} where "
+        f"|g| > 1e-3 of the leaf's peak; slab launches per step {per_step}")
     if not (rel_loss <= STEP_LOSS_REL_TOL and rel_norm <= STEP_NORM_REL_TOL):
         fail("kernel path and plain path disagree on one train step")
-
-    with open(TRAIN_STEP_GOLDEN) as fh:
-        golden = json.load(fh)
-    # the step clipped the gradients in place by min(1, max_norm / norm)
-    scale = min(1.0, args["grad_clip"] / norm_k)
-    leaf_rel = {k: abs(float(np.sqrt(np.sum(np.square(g, dtype=np.float64))))
-                       / scale - golden["grad_norms"][k])
-                / golden["grad_norms"][k] for k, g in grads_k.items()}
-    worst = max(leaf_rel, key=leaf_rel.get)
-    g_loss = abs(loss_k - golden["loss"]) / abs(golden["loss"])
-    g_norm = abs(norm_k - golden["grad_norm"]) / golden["grad_norm"]
-    log(f"  one step vs the JAX package (fp32, CPU; "
-        f"{os.path.basename(TRAIN_STEP_GOLDEN)}): loss {loss_k:.6f} vs "
-        f"{golden['loss']:.6f} (rel {g_loss:.2e}, tol {GOLDEN_LOSS_REL_TOL}); "
-        f"grad norm {norm_k:.6f} vs {golden['grad_norm']:.6f} (rel "
-        f"{g_norm:.2e}, tol {GOLDEN_NORM_REL_TOL}); per-leaf grad norms, "
-        f"worst {worst} rel {leaf_rel[worst]:.2e} (tol "
-        f"{GOLDEN_LEAF_REL_TOL}), {len(leaf_rel)} leaves")
-    if set(leaf_rel) != set(golden["grad_norms"]):
-        fail("the golden names other parameters than the port's model")
-    if not (g_loss <= GOLDEN_LOSS_REL_TOL and g_norm <= GOLDEN_NORM_REL_TOL
-            and leaf_rel[worst] <= GOLDEN_LEAF_REL_TOL):
-        fail("the first train step disagrees with the JAX golden")
-    return launches, mod, (inputs, targets)
+    return mod, loss_k, norm_k, grads_k
 
 
 def cudnn_lstm_ms(dev, a, n):
@@ -464,10 +564,10 @@ def cudnn_lstm_ms(dev, a, n):
 def phase8_times(dev, ls, mod, batch):
     """Per-launch times at the two training shapes; ms per train step."""
     rows = {}
-    shapes = {name: (t_len, r, rev) for name, t_len, r, rev in SLAB_SHAPES}
+    shapes = {name: rest for name, *rest in SLAB_SHAPES}
     for name, _ in SLAB_MIX:
-        t_len, r, reverse = shapes[name]
-        a = slab_case(dev, t_len, r, SEED)
+        t_len, r, c, reverse = shapes[name]
+        a = slab_case(dev, t_len, r, c, SEED)
         with torch.no_grad():
             ys = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
             bargs = slab_args(a, ls, reverse, ys)
@@ -478,8 +578,8 @@ def phase8_times(dev, ls, mod, batch):
                 *slab_args(a, ls, reverse)), 2)
             bwd_plain = cuda_ms(lambda: ls.lstm_slab_bwd_ref(*bargs), 2)
         lib_fwd, lib_bwd = cudnn_lstm_ms(dev, a, 10)
-        (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, SLAB_C, SLAB_H, "fwd")
-        (bb, bby), bf, bbytes = slab_bound_ms(t_len, r, SLAB_C, SLAB_H, "bwd")
+        (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, c, SLAB_H, "fwd")
+        (bb, bby), bf, bbytes = slab_bound_ms(t_len, r, c, SLAB_H, "bwd")
         rows[name] = {"fwd": (fwd_ms, fwd_plain, fb, fby, lib_fwd),
                       "bwd": (bwd_ms, bwd_plain, bb, bby, lib_bwd)}
         log(f"  {name} [T={t_len}, R={r}]: fwd {fwd_ms:.4f} ms (plain "
@@ -489,17 +589,7 @@ def phase8_times(dev, ls, mod, batch):
             f"{bby}: {bf} FLOP, {bbytes} B)")
 
     # ms per train step: PLModule.train_step on the golden batch, host clock
-    model_inputs = mod._model_inputs(batch[0])
-    target = torch.from_numpy(batch[1]["target"]).to(dev)
-    mod.train_step(model_inputs, target)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    for _ in range(5):
-        mod.train_step(model_inputs, target)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) / 5 * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms, peak_gb = train_step_ms(mod, batch, dev)
 
     total = sum(k for _, k in SLAB_MIX)
     mixed = {}
@@ -515,6 +605,287 @@ def phase8_times(dev, ls, mod, batch):
         f"inter): fwd {mixed['fwd']['ms']:.4f} ms, bwd "
         f"{mixed['bwd']['ms']:.4f} ms")
     return mixed, step_ms
+
+
+def seeded_net(model_params, conditional, seed):
+    """The port's Net with weights drawn from `seed` (the JAX package's
+    initial distributions)."""
+    from sound_bubble_tpu_torch.models.tfgridnet.model import Net, make_config
+
+    net = Net(make_config(model_params, conditional=conditional))
+    return net.init_weights(torch.Generator().manual_seed(seed))
+
+
+def phase9_conv_kernel(dev, edge_net):
+    """The conv kernel against its plain version, 5 chained steps, at the
+    Orange Pi width (committed seeded weights), the Raspberry Pi width and a
+    ragged F with FiLM. Returns the max-abs error."""
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.weights import param_tree
+
+    with open(EDGE_CONFIG.format("raspberrypi", "finetune")) as fh:
+        rpi = json.load(fh)["pl_module_args"]["model_params"]
+    ragged = dict(stft_chunk_size=32, stft_pad_size=16, D=8, B=3, H=8,
+                  conv_lstm=True, lstm_down=4)       # F = 25, k*s = 24
+    cases = (("orangepi", edge_net, False),
+             ("raspberrypi", seeded_net(rpi, False, SEED), False),
+             ("ragged", seeded_net(ragged, True, SEED), True))
+    rng = np.random.default_rng(SEED + 9)
+    worst = 0.0
+    for name, net, film in cases:
+        cfg = net.cfg
+        F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+        packed = {k: v.to(dev) for k, v in sk.pack_stack_params(
+            cfg, param_tree(net)).items()}
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        fw, fb = ((draw(B - 1, F, D), draw(B - 1, F, D)) if film
+                  else (None, None))
+        hk, ck = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+        hr, cr = hk, ck
+        before = sk.gridnet_stack_step.conv_launches
+        err = 0.0
+        with torch.no_grad():
+            for _ in range(5):
+                x = draw(F, D)
+                xk, hk, ck = sk.gridnet_stack_step(packed, x, hk, ck, fw, fb,
+                                                   eps=cfg.eps)
+                xr, hr, cr = sk.gridnet_stack_step_ref(packed, x, hr, cr, fw,
+                                                       fb, eps=cfg.eps)
+                torch.cuda.synchronize()
+                err = max(err, *[float((a - b).abs().max())
+                                 for a, b in ((xk, xr), (hk, hr), (ck, cr))])
+        grew = sk.gridnet_stack_step.conv_launches - before
+        log(f"  {name}: F={F} D={D} H={H} B={B} s={cfg.lstm_down} (k*s = "
+            f"{F // cfg.lstm_down * cfg.lstm_down}), FiLM {film}, 5 chained "
+            f"steps, max-abs err {err:.3e} (tol {KERNEL_TOL}), conv kernel "
+            f"launches +{grew}")
+        if not err <= KERNEL_TOL:
+            fail(f"conv kernel disagrees with its plain version at {name}: "
+                 f"{err} > {KERNEL_TOL}")
+        if grew != 5:
+            fail(f"conv kernel launches grew by {grew} at {name}, expected 5")
+        worst = max(worst, err)
+    log(f"phase 9 conv kernel vs plain: max-abs err {worst:.3e}")
+    return worst
+
+
+def phase10_edge_serving(dev, streamer):
+    """The 9 goldens through FusedStreamer on the seeded edge weights, by the
+    serving CLI's code path, against the JAX package's numbers; the first 20
+    chunks against the JAX output; kernel path vs ModelWrapper. Returns the
+    conv kernel's launches on the main path and the chunk count."""
+    from sound_bubble_tpu_torch import test_samples
+    from sound_bubble_tpu_torch.evaluation import load_testcase, run_testcase
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.ops.stft import mod_pad
+    from sound_bubble_tpu_torch.runtime.streaming import (
+        ModelWrapper, streaming_inference)
+
+    cfg = streamer.cfg
+    with open(EDGE_GOLDENS) as fh:
+        golden = json.load(fh)
+    n_chunks, failures, results = 0, [], {}
+    sk.gridnet_stack_step.conv_launches = 0
+    t = time.perf_counter()
+    for radius, threshold in RADII:
+        rdir = os.path.join(GOLDENS, f"syn_{radius}")
+        sisdris, _, decays = test_samples.evaluate_dir(
+            streamer, rdir, threshold, verbose=False)
+        want = {"sisdri": [], "decay": []}
+        for name in sorted(os.listdir(rdir)):
+            (key, v), = golden["samples"][f"{radius}/{name}"].items()
+            want[key].append(v)
+            _, mixture, _, _, _ = load_testcase(os.path.join(rdir, name),
+                                                24000, threshold)
+            n_chunks += -(-mixture.shape[-1] // cfg.stft_chunk_size)
+        for key, got in (("sisdri", sisdris), ("decay", decays)):
+            if len(got) != len(want[key]) or not np.isfinite(got).all():
+                fail(f"edge {radius}: {key} {got} vs JAX {want[key]}")
+            for g, w in zip(got, want[key]):
+                if not abs(g - w) <= PARITY_TOL_DB:
+                    failures.append(f"edge {radius} {key} {g:.5f} vs JAX "
+                                    f"{w:.5f} (tol {PARITY_TOL_DB} dB)")
+        results[radius] = (sisdris, decays)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches = sk.gridnet_stack_step.conv_launches
+    log(f"phase 10 edge serving: 9 goldens, {n_chunks} chunks in "
+        f"{serve_s:.2f} s ({serve_s / n_chunks * 1e3:.3f} ms/chunk incl. "
+        f"metrics), conv kernel launches {launches}")
+    for radius, (sisdris, decays) in results.items():
+        log(f"  edge goldens {radius}: SI-SDRi {np.round(sisdris, 4)} (JAX "
+            f"mean {golden['sisdri'][radius]:+.4f}), decay "
+            f"{np.round(decays, 4)} (JAX mean {golden['decay'][radius]:.4f})")
+    if failures:
+        fail("edge goldens: " + "; ".join(failures))
+    if launches != n_chunks:
+        fail(f"conv kernel launched {launches} times for {n_chunks} chunks")
+
+    head = golden["head"]
+    _, mixture, _, _, _ = load_testcase(
+        os.path.join(GOLDENS, head["sample"]), 24000, 1.0)
+    # the head chunks and their lookahead: the streamed output's first
+    # n_head samples are those of the whole clip
+    n_head = head["chunks"] * cfg.stft_chunk_size
+    clip = mixture[:, :n_head + cfg.stft_pad_size]
+    fused = run_testcase(streamer, clip)
+    want = np.asarray(head["output"], np.float32)
+    rel_jax = float(np.abs(fused[0, :n_head] - want).max()
+                    / np.abs(want).max())
+    xp, mod = mod_pad(torch.from_numpy(clip)[None], cfg.stft_chunk_size,
+                      (cfg.stft_back_pad, cfg.stft_pad_size))
+    plain = streaming_inference(ModelWrapper(streamer.net, device=dev), xp,
+                                cfg.stft_chunk_size,
+                                cfg.stft_pad_size)[0].cpu().numpy()
+    plain = plain[..., :-mod] if mod else plain
+    rel = float(np.abs(fused - plain).max() / np.abs(plain).max())
+    log(f"  first {head['chunks']} chunks of {head['sample']}: vs the JAX "
+        f"output max-abs / peak {rel_jax:.3e} (tol {EDGE_HEAD_REL_TOL}); "
+        f"kernel path vs ModelWrapper {rel:.3e} (tol {STREAM_REL_TOL})")
+    if not rel_jax <= EDGE_HEAD_REL_TOL:
+        fail(f"edge stream disagrees with the JAX output: {rel_jax}")
+    if not rel <= STREAM_REL_TOL:
+        fail(f"edge streaming paths disagree: {rel} > {STREAM_REL_TOL}")
+    return launches, n_chunks
+
+
+def phase11_edge_train(dev, ls):
+    """train_pt on the Orange Pi pretrain config, then on the finetune config
+    from the pretrain's last.pt; one finetune step from the seeded weights,
+    kernel path against plain path and against the JAX golden. Returns the
+    module of that step and its batch."""
+    from sound_bubble_tpu_torch.data.synth import (
+        golden_batch, write_sample_dirs)
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_edge_")
+    try:
+        n_train, n_val = 4, 2
+        dirs = write_sample_dirs(os.path.join(tmp, "data"), SEED + 1,
+                                 n_train, n_val)
+        last = None
+        for stage in ("pretrain", "finetune"):
+            with open(EDGE_CONFIG.format("orangpi", stage)) as fh:
+                cfg = json.load(fh)
+            args = cfg["pl_module_args"]
+            n_scans = 3 * args["model_params"]["B"]
+            point_at_scenes(cfg, dirs)
+            cfg["num_workers"] = 2
+            if stage == "finetune":
+                args["init_ckpt"] = last       # the recipe's chain
+            run_dir = os.path.join(tmp, stage)
+            hl, secs, fwd_n, bwd_n = run_train_pt(
+                cfg, os.path.join(tmp, f"{stage}.json"), run_dir, 1, ls)
+            steps = math.ceil(3 * n_train / cfg["batch_size"])
+            val_batches = math.ceil(3 * n_val / cfg["eval_batch_size"])
+            want = ((steps + val_batches) * n_scans, steps * n_scans)
+            last = os.path.join(run_dir, "checkpoints", "last.pt")
+            state = load_checkpoint(last)
+            losses = [state["metric_values"][0][k]["epoch"]
+                      / state["metric_values"][0][k]["num_elements"]
+                      for k in ("train/loss", "val/loss")]
+            log(f"phase 11 edge training, {stage} "
+                f"({os.path.basename(EDGE_CONFIG.format('orangpi', stage))}"
+                f", {args['loss'].rsplit('.', 1)[1]}): 1 epoch x {steps} "
+                f"steps + {val_batches} val batch(es) in {secs:.2f} s; slab "
+                f"launches fwd {fwd_n}, bwd {bwd_n} (expected {want[0]}, "
+                f"{want[1]}: {n_scans} per step); epoch losses (train, val) "
+                f"{losses}")
+            if (fwd_n, bwd_n) != want:
+                fail(f"edge {stage}: slab launches {(fwd_n, bwd_n)}, "
+                     f"expected {want}")
+            if state["current_epoch"] != 1 or not np.isfinite(losses).all():
+                fail(f"edge {stage}: last.pt {state['current_epoch']}, "
+                     f"losses {losses}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one finetune step from the seeded weights on the golden batch: kernel
+    # path, plain path, JAX golden
+    with open(EDGE_CONFIG.format("orangpi", "finetune")) as fh:
+        args = json.load(fh)["pl_module_args"]
+    batch = golden_batch(SEED)
+    mod, loss, norm, grads = kernel_vs_plain_step(
+        args, os.path.join(EDGE_RUN_DIR, "checkpoints", "best.pt"), batch,
+        3 * args["model_params"]["B"], dev, ls)
+    check_step_golden(loss, norm, grads, args["grad_clip"], EDGE_STEP_GOLDEN)
+    return mod, batch
+
+
+def phase12_edge_times(dev, streamer, mod, batch, card, ls):
+    """Times of the conv kernel, its plain version, one edge chunk, one
+    edge train step and the slab kernels at the edge step's shapes."""
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+
+    cfg = streamer.cfg
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    rng = np.random.default_rng(SEED + 12)
+
+    def draw(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    packed = streamer.packed
+    with torch.no_grad():
+        def kernel():
+            sk.gridnet_stack_step(packed, x, h0, c0, eps=cfg.eps,
+                                  checked=True)
+
+        def plain_step():
+            sk.gridnet_stack_step_ref(packed, x, h0, c0, eps=cfg.eps)
+
+        for _ in range(10):
+            kernel()
+        kernel_ms = cuda_ms(kernel, 200)
+        plain_step()
+        plain_ms = cuda_ms(plain_step, 3)
+        streamer.reset()
+        win = torch.from_numpy(rng.standard_normal(
+            (1, cfg.num_ch, cfg.n_fft)).astype(np.float32))
+        for _ in range(10):
+            streamer.feed(win)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(250):
+            streamer.feed(win)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t) / 250 * 1e3
+    bound_ms, bound_by = stack_step_bound_ms(B, F, D, H, False,
+                                             s=cfg.lstm_down)
+    step_ms, peak_gb = train_step_ms(mod, batch, dev)
+    # the slab kernels at the edge step's shapes: 6 intra and 3 inter
+    # launches of each a step
+    shapes = {name: rest for name, *rest in SLAB_SHAPES}
+    slab = {}
+    for name in ("edge_intra", "edge_inter"):
+        t_len, r, c, reverse = shapes[name]
+        a = slab_case(dev, t_len, r, c, SEED)
+        with torch.no_grad():
+            ys = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
+            bargs = slab_args(a, ls, reverse, ys)
+            slab[name] = (cuda_ms(lambda: ls.lstm_slab_fwd(
+                *slab_args(a, ls, reverse)), 20),
+                cuda_ms(lambda: ls.lstm_slab_bwd(*bargs), 20))
+    in_step = sum(n * sum(slab[name]) for name, n in (("edge_intra", 6),
+                                                      ("edge_inter", 3)))
+    log("  edge slab launches (CUDA events, 20 launches): " + "; ".join(
+        f"{name} {list(shapes[name][:3])} fwd {slab[name][0]:.4f} ms, bwd "
+        f"{slab[name][1]:.4f} ms" for name in slab)
+        + f"; 6 intra + 3 inter of each a step: {in_step:.2f} ms")
+    log(f"phase 12 edge times on {card}: conv kernel {kernel_ms:.4f} ms "
+        f"(CUDA events, 200 launches); plain version {plain_ms:.3f} ms (3 "
+        f"calls); FusedStreamer.feed {chunk_ms:.4f} ms per 8 ms chunk (host "
+        f"clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
+        f"library_ms: none (no single PyTorch call computes the stack "
+        f"step); edge train step {step_ms:.2f} ms (finetune, batch 4 x "
+        f"2.5 s, host clock, 5 steps), peak device memory {peak_gb:.2f} GB")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def main():
@@ -700,6 +1071,21 @@ def main():
     slab_times, step_ms = phase8_times(dev, ls, mod, batch)
     log(f"phase 8 on {card}: ms per train step {step_ms:.2f}")
 
+    # ---- 9. conv kernel vs plain (edge widths, ragged F)
+    edge_net = load_pretrained(EDGE_RUN_DIR, device=dev)
+    conv_err = phase9_conv_kernel(dev, edge_net)
+
+    # ---- 10. edge serving (the main path of this phase: FusedStreamer)
+    edge_streamer = FusedStreamer(edge_net, device=dev)
+    conv_launches, _ = phase10_edge_serving(dev, edge_streamer)
+
+    # ---- 11. edge training (train_pt, both stages)
+    edge_mod, edge_batch = phase11_edge_train(dev, ls)
+
+    # ---- 12. times
+    conv_times = phase12_edge_times(dev, edge_streamer, edge_mod, edge_batch,
+                                    card, ls)
+
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
@@ -709,6 +1095,11 @@ def main():
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
+        "name": "gridnet_stack_step_conv", "route": "cuda",
+        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:393",
+        "launches": conv_launches, "max_abs_err": conv_err,
+        **conv_times}, {
         "name": "lstm_slab_fwd", "route": "cuda", "source": slab_src,
         "replaces": f"{slab_tpu}:94", "launches": fwd_n,
         "max_abs_err": fwd_err, **slab_times["fwd"]}, {

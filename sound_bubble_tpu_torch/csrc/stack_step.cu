@@ -1,21 +1,30 @@
 // One streaming step (T=1, batch 1) of the whole TF-GridNet block stack.
 //
-// Replaces the Pallas TPU kernel `sound_bubble_tpu/ops/pallas/stack_kernel.py:
-// _kernel` (called from `gridnet_stack_step`), for the non-conv, non-attention
-// configuration. Per block b: FiLM (b > 0) -> LayerNorm -> fused-direction
-// intra BLSTM over the F frequency rows -> projection residual -> LayerNorm ->
-// one inter-LSTM step on all F lanes -> projection residual. Operand layouts are
-// those of `pack_stack_params` (sound_bubble_tpu_torch/ops/kernels/
-// stack_kernel.py): gate g of the fused BLSTM occupies columns [g*2H, g*2H+H)
-// for the forward direction and [g*2H+H, (g+1)*2H) for the backward one.
+// Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
+// stack_kernel.py` (called from `gridnet_stack_step`) for the non-attention
+// configurations: `stack_step_kernel_t<false>` replaces `_kernel` (plain intra
+// BLSTM), `stack_step_kernel_t<true>` replaces `_kernel_conv` / `_intra_conv`
+// (conv_lstm). Per block b: FiLM (b > 0) -> the intra part -> LayerNorm ->
+// one inter-LSTM step on all F lanes -> projection residual. The plain intra
+// part is LayerNorm -> fused-direction BLSTM over the F frequency rows ->
+// projection residual; the conv intra part is the strided down conv ->
+// PReLU -> LayerNorm -> fused-direction BLSTM over the k = F // s conv frames
+// -> up conv residual on rows < k*s. Operand layouts are those of
+// `pack_stack_params` (sound_bubble_tpu_torch/ops/kernels/stack_kernel.py):
+// gate g of the fused BLSTM occupies columns [g*2H, g*2H+H) for the forward
+// direction and [g*2H+H, (g+1)*2H) for the backward one.
 //
-// What bounds it on an H100: a dependency chain of B*(F+1) sequential LSTM cell
-// updates (876 at B=6, F=145), each a [2H] x [2H, 8H] product followed by the
-// gate math, not bytes or FLOPs. Counting the compact math (not the zeros the
-// fused packing adds), the step moves 3,053,568 B (weights 1.94 MB fp32, h0/c0
-// in and out 0.89 MB, FiLM 0.19 MB, x in and out), about 0.9 us at 3.35 TB/s,
-// and does 138,977,280 FLOP, about 2.1 us at 67 TFLOP/s fp32.
-// chip_smoke.py computes both from the shapes of the run.
+// What bounds them on an H100: a dependency chain of sequential LSTM cell
+// updates, B*(F+1) for the plain kernel (876 at B=6, F=145) and B*(k+1) for
+// the conv kernel (90 at B=3, k=29), each a [2H] x [2H, 8H] product followed
+// by the gate math, not bytes or FLOPs. Counting the compact math (not the
+// zeros the fused packing adds), the flagship step moves 3,053,568 B (weights
+// 1.94 MB fp32, h0/c0 in and out 0.89 MB, FiLM 0.19 MB, x in and out), about
+// 0.9 us at 3.35 TB/s, and does 138,977,280 FLOP, about 2.1 us at 67 TFLOP/s
+// fp32; the edge conv step (F=145, D=24, B=3, H=64, s=5, no FiLM) moves
+// 1,532,844 B (weights 1.06 MB, h0/c0 in and out 0.45 MB), about 0.46 us,
+// and does 31,949,184 FLOP, about 0.48 us. chip_smoke.py computes both from
+// the shapes of the run.
 //
 // Design: ONE thread block does the whole step and loops over the B blocks,
 // the same dependency chain as the TPU kernel, so no inter-block
@@ -24,13 +33,22 @@
 // thread per fused gate column (8H threads). Each intra step computes
 // gates = gx[f] + h . W_hh into shared memory, then the 2H state threads
 // update (h, c). The activation tile x [F, D], the LayerNorm output and the
-// recurrent state live in shared memory; the input projections gx [F, 8H],
-// the BLSTM output y [F, 2H] and the inter gates [F, 4H] live in a global
-// scratch the wrapper allocates (it stays in L2); the weights are read from
-// global memory (the six blocks' packed weights, 3.1 MB with their zeros,
-// sit in the 50 MB L2). This trades speed for certainty: W_hh is re-read from
-// L2 at every step. Clusters, weights in shared memory and tensor-core `mma`
-// are later work.
+// recurrent state live in shared memory; the input projections gx [n, 8H],
+// the BLSTM output y [n, 2H] (n = F, or k) and the inter gates [F, 4H] live
+// in a global scratch the wrapper allocates (it stays in L2); the weights are
+// read from global memory (the six flagship blocks' packed weights, 3.1 MB
+// with their zeros, sit in the 50 MB L2). This trades speed for certainty:
+// W_hh is re-read from L2 at every step. Clusters, weights in shared memory
+// and tensor-core `mma` are later work.
+//
+// Both kernels are the instantiations of ONE kernel template,
+// `stack_step_kernel_t<kConv>`: FiLM, the input projections, the fused
+// recurrence and the inter step are written once, and `if constexpr`
+// selects the intra part's head (LayerNorm, or down conv + PReLU +
+// LayerNorm) and tail (projection, or up conv). The plain instantiation is
+// the code of the earlier plain kernel, and runs at its speed: the same
+// steps split into __device__ helpers made it 10 % slower
+// (tools/time_stack_kernels.py, PERF.md).
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,7 +58,8 @@ __device__ __forceinline__ float sigmoid(float v) {
 }
 
 // dst[f, :] = LayerNorm(src[f, :]) * scale + bias, one warp per row.
-// blockDim.x is a multiple of 32, so every warp is full.
+// blockDim.x is a multiple of 32, so every warp is full. dst may be src: each
+// lane writes only the elements it read, after the row's statistics.
 __device__ void layer_norm_rows(const float* src, float* dst,
                                 const float* __restrict__ scale,
                                 const float* __restrict__ bias, int F, int D,
@@ -65,22 +84,42 @@ __device__ void layer_norm_rows(const float* src, float* dst,
   }
 }
 
-__global__ void __launch_bounds__(1024) stack_step_kernel(
+// kConv = false: the plain intra BLSTM over the n = F frequency rows;
+// proj_w [B, 2H, D] / proj_b [B, D] are the intra projection.
+// kConv = true: the conv_lstm intra over the n = k = F / s conv frames
+// (replaces `_kernel_conv` / `_intra_conv`):
+//   zs[f, co] = PReLU(down_b[co] + sum_j sum_ci x[f*s+j, ci] *
+//                     down_cat[ci, j*C+co]) for f < k,
+// then LayerNorm in place, the recurrence over k steps, and
+//   x[f*s+j, c] += y[f] . up[:, j*C+c] + up_b[c] for f*s+j < k*s,
+// with proj_w / proj_b holding up_flat [B, 2H, s*C] / up_b [B, C]; rows from
+// k*s on keep x (the reference zero-pads the up conv's output). The Pallas
+// kernel forms all s phases of every row (taps = x @ down_cat [F, s*C]) and
+// sums phase j of row f*s+j; here each row computes only the phase it
+// contributes: the same sum, without the (s-1)/s of taps that is never read
+// and without a taps buffer. Each thread updates the xs elements it reads,
+// from y and the weights only, so no element of xs is read by one thread
+// while another writes it.
+template <bool kConv>
+__global__ void __launch_bounds__(1024) stack_step_kernel_t(
     const float* __restrict__ x, const float* __restrict__ film_w,
-    const float* __restrict__ film_b, const float* __restrict__ i_ln,
-    const float* __restrict__ wih_f, const float* __restrict__ wih_b,
-    const float* __restrict__ whh, const float* __restrict__ b8,
-    const float* __restrict__ proj_w, const float* __restrict__ proj_b,
-    const float* __restrict__ t_ln, const float* __restrict__ wih2,
-    const float* __restrict__ whh2, const float* __restrict__ b2,
-    const float* __restrict__ proj2_w, const float* __restrict__ proj2_b,
-    const float* __restrict__ h0, const float* __restrict__ c0,
-    float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
-    float* g2, int n_blocks, int F, int D, int H, int use_film, float eps) {
+    const float* __restrict__ film_b, const float* __restrict__ down_cat,
+    const float* __restrict__ down_b, const float* __restrict__ alpha,
+    const float* __restrict__ i_ln, const float* __restrict__ wih_f,
+    const float* __restrict__ wih_b, const float* __restrict__ whh,
+    const float* __restrict__ b8, const float* __restrict__ proj_w,
+    const float* __restrict__ proj_b, const float* __restrict__ t_ln,
+    const float* __restrict__ wih2, const float* __restrict__ whh2,
+    const float* __restrict__ b2, const float* __restrict__ proj2_w,
+    const float* __restrict__ proj2_b, const float* __restrict__ h0,
+    const float* __restrict__ c0, float* x_out, float* h0_out,
+    float* c0_out, float* gx, float* y, float* g2, int n_blocks, int F,
+    int D, int H, int s, int use_film, float eps) {
   extern __shared__ float smem[];
   const int G = 8 * H, H2 = 2 * H, G2 = 4 * H, FD = F * D;
+  const int n = kConv ? F / s : F;   // rows of the intra recurrence
   float* xs = smem;        // [F, D] activation tile
-  float* zs = xs + FD;     // [F, D] LayerNorm output
+  float* zs = xs + FD;     // [F, D] LayerNorm output (conv: [k, D] frames)
   float* gs = zs + FD;     // [8H] gates of the current intra step
   float* hs = gs + G;      // [2H] fused (fwd | bwd) hidden state
   float* cs = hs + H2;     // [2H] fused cell state
@@ -97,19 +136,42 @@ __global__ void __launch_bounds__(1024) stack_step_kernel(
       __syncthreads();
     }
 
-    // ---- intra: LayerNorm, then both directions' input projections. The
-    // backward direction reads row F-1-f, so step f needs only gx[f].
-    layer_norm_rows(xs, zs, i_ln + (size_t)b * 2 * D,
-                    i_ln + (size_t)b * 2 * D + D, F, D, eps);
+    // ---- intra head: the n rows the recurrence reads, LayerNorm-ed, in zs.
+    if constexpr (kConv) {
+      const int sD = s * D;
+      const float* w = down_cat + (size_t)b * D * sD;
+      const float* bd = down_b + (size_t)b * D;
+      const float a = alpha[b];
+      for (int idx = tid; idx < n * D; idx += nt) {
+        const int f = idx / D, co = idx - f * D;
+        float z = bd[co];
+        for (int j = 0; j < s; ++j) {
+          const float* xr = xs + (f * s + j) * D;
+          float t = 0.f;
+          for (int ci = 0; ci < D; ++ci) t += xr[ci] * w[ci * sD + j * D + co];
+          z += t;
+        }
+        zs[idx] = fmaxf(z, 0.f) + a * fminf(z, 0.f);
+      }
+      __syncthreads();
+      layer_norm_rows(zs, zs, i_ln + (size_t)b * 2 * D,
+                      i_ln + (size_t)b * 2 * D + D, n, D, eps);
+    } else {
+      layer_norm_rows(xs, zs, i_ln + (size_t)b * 2 * D,
+                      i_ln + (size_t)b * 2 * D + D, F, D, eps);
+    }
     __syncthreads();
+
+    // ---- both directions' input projections. The backward direction reads
+    // row n-1-f, so step f needs only gx[f].
     {
       const float* wf = wih_f + (size_t)b * D * G;
       const float* wb = wih_b + (size_t)b * D * G;
       const float* bb = b8 + (size_t)b * G;
-      for (int idx = tid; idx < F * G; idx += nt) {
+      for (int idx = tid; idx < n * G; idx += nt) {
         const int f = idx / G, j = idx - f * G;
         const float* zf = zs + f * D;
-        const float* zr = zs + (F - 1 - f) * D;
+        const float* zr = zs + (n - 1 - f) * D;
         float af = 0.f, ab = 0.f;
         for (int d = 0; d < D; ++d) {
           af += zf[d] * wf[d * G + j];
@@ -124,10 +186,10 @@ __global__ void __launch_bounds__(1024) stack_step_kernel(
     }
     __syncthreads();
 
-    // ---- intra recurrence over F: the sequential chain.
+    // ---- intra recurrence over the n rows: the sequential chain.
     {
       const float* wh = whh + (size_t)b * H2 * G;
-      for (int f = 0; f < F; ++f) {
+      for (int f = 0; f < n; ++f) {
         for (int j = tid; j < G; j += nt) {
           float a = gx[f * G + j];
 #pragma unroll 8
@@ -145,14 +207,27 @@ __global__ void __launch_bounds__(1024) stack_step_kernel(
           cs[tid] = c;
           hs[tid] = h;
           // forward h at row f, backward h at the mirrored row
-          y[(tid < H ? f : F - 1 - f) * H2 + tid] = h;
+          y[(tid < H ? f : n - 1 - f) * H2 + tid] = h;
         }
         __syncthreads();
       }
     }
 
-    // ---- intra projection residual: x += y @ proj_w + proj_b.
-    {
+    // ---- intra tail, a residual: x += y @ proj_w + proj_b, or the up conv
+    // on rows < k*s.
+    if constexpr (kConv) {
+      const int sD = s * D;
+      const float* w = proj_w + (size_t)b * H2 * sD;
+      const float* bu = proj_b + (size_t)b * D;
+      for (int idx = tid; idx < n * s * D; idx += nt) {
+        const int r = idx / D, c = idx - r * D;
+        const int f = r / s, j = r - f * s;
+        const float* yr = y + f * H2;
+        float a = 0.f;
+        for (int m = 0; m < H2; ++m) a += yr[m] * w[m * sD + j * D + c];
+        xs[idx] = xs[idx] + a + bu[c];
+      }
+    } else {
       const float* pw = proj_w + (size_t)b * H2 * D;
       const float* pb = proj_b + (size_t)b * D;
       for (int idx = tid; idx < FD; idx += nt) {
@@ -216,11 +291,42 @@ __global__ void __launch_bounds__(1024) stack_step_kernel(
   for (int i = tid; i < FD; i += nt) x_out[i] = xs[i];
 }
 
+template <bool kConv>
+int launch(const float* x, const float* film_w, const float* film_b,
+           const float* down_cat, const float* down_b, const float* alpha,
+           const float* i_ln, const float* wih_f, const float* wih_b,
+           const float* whh, const float* b8, const float* proj_w,
+           const float* proj_b, const float* t_ln, const float* wih2,
+           const float* whh2, const float* b2, const float* proj2_w,
+           const float* proj2_b, const float* h0, const float* c0,
+           float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
+           float* g2, int n_blocks, int f_len, int d, int hidden, int s,
+           int use_film, float eps, void* stream) {
+  const int threads = 8 * hidden;
+  const size_t smem =
+      (size_t)(2 * f_len * d + 12 * hidden) * sizeof(float);
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stack_step_kernel_t<kConv>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  stack_step_kernel_t<kConv><<<1, threads, smem, (cudaStream_t)stream>>>(
+      x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
+      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
+      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, s,
+      use_film, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes. Every pointer is a device pointer to
+// Plain C entry points for ctypes. Every pointer is a device pointer to
 // contiguous fp32 memory; the wrapper has checked shapes, types and devices.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Each launches on `stream` and returns cudaGetLastError() (0 on success).
+// gx [n, 8H], y [n, 2H] and g2 [F, 4H] are scratch (n = f_len, or
+// f_len / lstm_down for the conv branch).
 extern "C" int sbt_stack_step(
     const float* x, const float* film_w, const float* film_b,
     const float* i_ln, const float* wih_f, const float* wih_b,
@@ -231,20 +337,29 @@ extern "C" int sbt_stack_step(
     float* h0_out, float* c0_out, float* gx, float* y, float* g2,
     int n_blocks, int f_len, int d, int hidden, int use_film, float eps,
     void* stream) {
-  const int threads = 8 * hidden;
-  const size_t smem =
-      (size_t)(2 * f_len * d + 12 * hidden) * sizeof(float);
-  cudaGetLastError();  // clear an error left by an earlier call
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stack_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  stack_step_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      x, film_w, film_b, i_ln, wih_f, wih_b, whh, b8, proj_w, proj_b, t_ln,
-      wih2, whh2, b2, proj2_w, proj2_b, h0, c0, x_out, h0_out, c0_out, gx, y,
-      g2, n_blocks, f_len, d, hidden, use_film, eps);
-  return (int)cudaGetLastError();
+  return launch<false>(x, film_w, film_b, nullptr, nullptr, nullptr, i_ln,
+                       wih_f, wih_b, whh, b8, proj_w, proj_b, t_ln, wih2,
+                       whh2, b2, proj2_w, proj2_b, h0, c0, x_out, h0_out,
+                       c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
+                       use_film, eps, stream);
 }
 
+// The conv_lstm branch: the conv operands of `pack_stack_params` in place of
+// proj_w / proj_b, and `lstm_down` s.
+extern "C" int sbt_stack_step_conv(
+    const float* x, const float* film_w, const float* film_b,
+    const float* down_cat, const float* down_b, const float* alpha,
+    const float* i_ln, const float* wih_f, const float* wih_b,
+    const float* whh, const float* b8, const float* up_flat,
+    const float* up_b, const float* t_ln, const float* wih2,
+    const float* whh2, const float* b2, const float* proj2_w,
+    const float* proj2_b, const float* h0, const float* c0, float* x_out,
+    float* h0_out, float* c0_out, float* gx, float* y, float* g2,
+    int n_blocks, int f_len, int d, int hidden, int lstm_down, int use_film,
+    float eps, void* stream) {
+  return launch<true>(x, film_w, film_b, down_cat, down_b, alpha, i_ln,
+                      wih_f, wih_b, whh, b8, up_flat, up_b, t_ln, wih2, whh2,
+                      b2, proj2_w, proj2_b, h0, c0, x_out, h0_out, c0_out,
+                      gx, y, g2, n_blocks, f_len, d, hidden, lstm_down,
+                      use_film, eps, stream);
+}

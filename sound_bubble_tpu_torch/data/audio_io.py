@@ -9,9 +9,8 @@ from __future__ import annotations
 import numpy as np
 
 
-def read_audio_file(path, downsample: int = 1) -> np.ndarray:
-    """Read a wav into float32 [C, T] in [-1, 1]; optional integer
-    downsample factor (polyphase, like the reference's resample path)."""
+def read_audio(path) -> tuple[np.ndarray, int]:
+    """Read a wav into float32 [C, T] in [-1, 1], and its sample rate."""
     import scipy.io.wavfile
 
     sr, data = scipy.io.wavfile.read(path)
@@ -27,17 +26,17 @@ def read_audio_file(path, downsample: int = 1) -> np.ndarray:
         data = data[None, :]
     else:
         data = data.T  # scipy gives [T, C]
+    return np.ascontiguousarray(data), int(sr)
+
+
+def read_audio_file(path, downsample: int = 1) -> np.ndarray:
+    """Read a wav into float32 [C, T] in [-1, 1]; optional integer
+    downsample factor (polyphase, like the reference's resample path)."""
+    data, sr = read_audio(path)
     if downsample > 1:
         from sound_bubble_tpu_torch.data.resample import resample_poly_np
         data = resample_poly_np(data, sr // downsample, sr)
     return np.ascontiguousarray(data)
-
-
-def read_audio_sr(path) -> int:
-    import scipy.io.wavfile
-
-    sr, _ = scipy.io.wavfile.read(path)
-    return int(sr)
 
 
 def write_audio_file(path, data: np.ndarray, sr: int,

@@ -1,7 +1,7 @@
 """Evaluation metrics with torchmetrics conventions (port of
-`sound_bubble_tpu/metrics/metrics.py`: snr, si_sdr, si_snr, compute_decay and
-the `Metrics` improvement wrappers). STOI and PESQ are not ported yet
-(ROADMAP Queue 1 item 9).
+`sound_bubble_tpu/metrics/metrics.py`: snr, si_sdr, si_snr, compute_decay,
+the `Metrics` improvement wrappers and `Multi_Reso_L1`). STOI and PESQ are
+not ported yet (ROADMAP Queue 1 item 7).
 
 - snr and si_sdr use zero_mean=False; si_snr is si_sdr with zero mean;
 - `*_i` variants are the improvement over the mixture: metric(est) -
@@ -76,12 +76,18 @@ _METRICS = {
 
 class Metrics:
     """Name-dispatched metric: __call__(est, gt, mix) with [*, C, T] inputs,
-    returns channel-averaged [*] values (reference `Metrics`)."""
+    returns channel-averaged [*] values (reference `Metrics`).
+    `Multi_Reso_L1` is `MultiResoFuseLoss(**kwargs)(est, gt)` as it is."""
 
-    def __init__(self, name: str):
-        if name not in _METRICS:
+    def __init__(self, name: str, **kwargs):
+        if name not in _METRICS and name != "Multi_Reso_L1":
             raise NotImplementedError(f"Metric {name} not implemented!")
         self.name = name
+        self.kwargs = kwargs
 
     def __call__(self, est, gt, mix):
+        if self.name == "Multi_Reso_L1":
+            from sound_bubble_tpu_torch.losses.multires_stft import (
+                MultiResoFuseLoss)
+            return MultiResoFuseLoss(**self.kwargs)(_t(est), _t(gt))
         return _METRICS[self.name](est, gt, mix).mean(dim=-1)

@@ -1,10 +1,12 @@
 """Causal TF-GridNet with FiLM distance conditioning (port of
-`sound_bubble_tpu/models/tfgridnet/model.py`, production subset).
+`sound_bubble_tpu/models/tfgridnet/model.py`).
 
 Covers the production configuration (`syn_experiments/finetune_stage.json`,
-`runs/finetune_r5/config.json`): no attention, no conv_lstm, no STFT
-look-back, `dis_type` conv1-4. The other variants raise NotImplementedError
-(ROADMAP Queue 1 item 11).
+`runs/finetune_r5/config.json`: plain intra BLSTM, `dis_type` conv3) and the
+edge configurations (`real_experiments/*.json`: `conv_lstm=True`,
+unconditioned), in fp32. Attention, STFT look-back, the linear `dis_type`s
+and the bf16 trunk (`compute_dtype="bf16"`) raise NotImplementedError
+(ROADMAP Queue 1). `remat` changes only memory and is accepted and ignored.
 
 Layouts follow the JAX package so the two compare array for array:
 activations are channel-minor `[B, T, F, C]`; parameters keep the JAX names
@@ -37,7 +39,8 @@ from sound_bubble_tpu_torch.ops.rnn import blstm, lstm
 from sound_bubble_tpu_torch.ops.stft import (
     STFT, istft, make_stft, mod_pad, stft)
 
-_VARIANTS_LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
+_VARIANTS_LATER = "is not ported yet (ROADMAP Queue 1 item 9)"
+_BF16_LATER = "is not ported yet (ROADMAP Queue 1 item 2)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,10 @@ class NetConfig:
     dis_type: str = "conv3"
     conditional: bool = True
     eps: float = 1e-5
+    # JAX rematerializes each block in the backward pass; here every
+    # activation is kept (a memory choice only, the numbers are the same)
+    remat: bool = True
+    compute_dtype: str | None = None
 
     @property
     def n_fft(self) -> int:
@@ -105,12 +112,12 @@ def check_supported(cfg: NetConfig) -> None:
     """Raise NotImplementedError for the variants this port does not cover."""
     if cfg.use_attn:
         raise NotImplementedError(f"use_attn=True {_VARIANTS_LATER}")
-    if cfg.conv_lstm:
-        raise NotImplementedError(f"conv_lstm=True {_VARIANTS_LATER}")
     if cfg.stft_back_pad > 0:
         raise NotImplementedError(f"stft_back_pad>0 {_VARIANTS_LATER}")
     if cfg.conditional and not cfg.dis_type.startswith("conv"):
         raise NotImplementedError(f"dis_type={cfg.dis_type} {_VARIANTS_LATER}")
+    if cfg.compute_dtype == "bf16":
+        raise NotImplementedError(f"compute_dtype='bf16' {_BF16_LATER}")
 
 
 def make_config(model_params: dict, conditional: bool = True) -> NetConfig:
@@ -284,25 +291,57 @@ class FiLM(nn.Module):
 
 
 class IntraBand(nn.Module):
-    """Sub-band module, conv_lstm=False: LN -> BLSTM over F -> Linear.
+    """Sub-band module: bidirectional LSTM across frequency.
+
+    conv_lstm=False: LN -> BLSTM over F -> Linear.
+    conv_lstm=True: strided Conv1d down (k = F // s frames of stride s) ->
+    PReLU -> LN -> BLSTM over k -> ConvTranspose1d up, zero-padded back to
+    F rows (rows from k*s on get nothing, not even the bias).
     x: [B, T, F, C] -> [B, T, F, C] (residual added by the caller)."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
         C, H = cfg.D, cfg.H
-        self.norm = LayerNorm(C, eps=cfg.eps)
+        self.conv_lstm, self.s = cfg.conv_lstm, cfg.lstm_down
+        if cfg.conv_lstm:
+            # Conv1d(C, C, kernel=s, stride=s) as a Linear over s*C; the JAX
+            # model gives this LayerNorm the default eps (1e-5), not cfg.eps
+            self.down = Linear(self.s * C, C)
+            self.act = PReLU()
+            self.norm = LayerNorm(C)
+        else:
+            self.norm = LayerNorm(C, eps=cfg.eps)
         self.blstm = nn.ModuleDict({"fwd": _lstm_params(C, H),
                                     "bwd": _lstm_params(C, H)})
-        self.proj = Linear(2 * H, C)
+        if cfg.conv_lstm:
+            # ConvTranspose1d(2H, C, kernel=s, stride=s): [2H, s, C]
+            self.up_kernel = _zeros(2 * H, self.s, C)
+            self.up_bias = _zeros(C)
+        else:
+            self.proj = Linear(2 * H, C)
 
     def reset_parameters(self, generator):
         _init_lstm(self.blstm["fwd"], generator)
         _init_lstm(self.blstm["bwd"], generator)
+        if self.conv_lstm:
+            # torch ConvTranspose1d fan_in = out_ch * kernel
+            C = self.up_bias.shape[0]
+            _init_uniform(generator, C * self.s, self.up_kernel, self.up_bias)
 
     def forward(self, x):
         B, T, F, C = x.shape
-        z = self.norm(x).reshape(B * T, F, C)
-        z = self.proj(blstm(self.blstm, z))
+        if not self.conv_lstm:
+            z = self.norm(x).reshape(B * T, F, C)
+            z = self.proj(blstm(self.blstm, z))
+            return z.reshape(B, T, F, C)
+        s = self.s
+        k = F // s
+        # non-overlapping stride-s framing of the first k*s rows
+        z = x.reshape(B * T, F, C)[:, :k * s].reshape(B * T, k, s * C)
+        z = self.norm(self.act(self.down(z)))
+        z = blstm(self.blstm, z)                          # [BT, k, 2H]
+        z = torch.einsum("btH,Hsc->btsc", z, self.up_kernel) + self.up_bias
+        z = TF.pad(z.reshape(B * T, k * s, C), (0, 0, 0, F - k * s))
         return z.reshape(B, T, F, C)
 
 

@@ -75,6 +75,9 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step.argtypes = (
                 [ptr] * 24 + [i32] * 5 + [ctypes.c_float, ptr])
             lib.sbt_stack_step.restype = i32
+            lib.sbt_stack_step_conv.argtypes = (
+                [ptr] * 27 + [i32] * 6 + [ctypes.c_float, ptr])
+            lib.sbt_stack_step_conv.restype = i32
             lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
             lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]

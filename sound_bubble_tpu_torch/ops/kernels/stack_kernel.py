@@ -1,12 +1,15 @@
 """The whole GridNet block stack in ONE kernel for a streaming step (T=1,
 batch 1): port of `sound_bubble_tpu/ops/pallas/stack_kernel.py`
-(`pack_stack_params`, `gridnet_stack_step`, non-conv non-attention branch).
+(`pack_stack_params`, `gridnet_stack_step`, the non-attention branches:
+the plain intra BLSTM, `_kernel`, and the conv_lstm intra, `_kernel_conv`).
 
-`gridnet_stack_step` launches the hand-written CUDA kernel
-`sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the card and runs
+`gridnet_stack_step` launches a hand-written CUDA kernel of
+`sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the card
+(`stack_step_kernel_t<false>`, or `<true>` for a conv_lstm pack) and runs
 `gridnet_stack_step_ref`, its plain PyTorch version, for tensors on the CPU.
 There is no fallback between the two: a CUDA tensor goes to the kernel or the
-call raises. The design notes and the bound of the kernel are in its source.
+call raises. The design notes and the bounds of the kernels are in their
+source.
 """
 from __future__ import annotations
 
@@ -24,17 +27,23 @@ def _np(a):
     return np.asarray(a, np.float32)
 
 
-def pack_stack_params(cfg, params) -> dict[str, torch.Tensor]:
+def pack_stack_params(cfg, params) -> dict:
     """Model params (block{i} subtrees, nested dicts of arrays or tensors) ->
     stacked [B, ...] float32 kernel operands on the CPU.
 
     Fused BLSTM packing: gate g occupies columns [g*2H, g*2H+H) forward and
     [g*2H+H, (g+1)*2H) backward; the recurrent matrix is block-diagonal so the
-    forward state only drives forward columns and vice versa."""
-    if cfg.conv_lstm:
-        raise NotImplementedError(
-            "conv_lstm=True is not ported yet (ROADMAP Queue 1 item 11)")
+    forward state only drives forward columns and vice versa.
+
+    conv_lstm: the down conv is phase-split, `down_cat [B, C, s*C]` with
+    column block j holding the stride-phase-j tap (row j*C+ci of the
+    [s*C, C] kernel goes to [ci, j*C+co]); the up conv is `up_flat
+    [B, 2H, s*C]`; `alpha [B, 1]` is the PReLU slope. These replace `proj_w`
+    / `proj_b`; s is `down_cat`'s width over its height."""
     B, D, H = cfg.B, cfg.D, cfg.H
+    if cfg.conv_lstm != ("down" in params["block0"]["intra"]):
+        raise ValueError(f"conv_lstm={cfg.conv_lstm}, but the parameters "
+                         "are those of the other intra variant")
 
     def gather(*path):
         out = []
@@ -67,8 +76,6 @@ def pack_stack_params(cfg, params) -> dict[str, torch.Tensor]:
         "i_ln": np.stack([gather("intra", "norm", "scale"),
                           gather("intra", "norm", "bias")], axis=1),
         "wih_f": wih_f, "wih_b": wih_b, "whh": whh, "b8": b8,
-        "proj_w": gather("intra", "proj", "kernel"),
-        "proj_b": gather("intra", "proj", "bias"),
         "t_ln": np.stack([gather("inter_norm", "scale"),
                           gather("inter_norm", "bias")], axis=1),
         "wih2": gather("inter_lstm", "w_ih"),
@@ -77,13 +84,36 @@ def pack_stack_params(cfg, params) -> dict[str, torch.Tensor]:
         "proj2_w": gather("inter_proj", "kernel"),
         "proj2_b": gather("inter_proj", "bias"),
     }
+    if cfg.conv_lstm:
+        s = cfg.lstm_down
+        packed["down_cat"] = gather("intra", "down", "kernel").reshape(
+            B, s, D, D).transpose(0, 2, 1, 3).reshape(B, D, s * D)
+        packed["down_b"] = gather("intra", "down", "bias")
+        packed["alpha"] = gather("intra", "act", "alpha").reshape(B, 1)
+        packed["up_flat"] = gather("intra", "up_kernel").reshape(
+            B, 2 * H, s * D)
+        packed["up_b"] = gather("intra", "up_bias")
+    else:
+        packed["proj_w"] = gather("intra", "proj", "kernel")
+        packed["proj_b"] = gather("intra", "proj", "bias")
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in packed.items()}
 
 
-# operand order of the kernel's C entry point (after x, film_w, film_b)
+def lstm_down(packed):
+    """s of a conv_lstm pack (`down_cat [B, C, s*C]`), None otherwise."""
+    if "down_cat" not in packed:
+        return None
+    _, d, sd = packed["down_cat"].shape
+    return sd // d
+
+
+# operand order of the kernels' C entry points (after x, film_w, film_b)
 _WEIGHTS = ("i_ln", "wih_f", "wih_b", "whh", "b8", "proj_w", "proj_b",
             "t_ln", "wih2", "whh2", "b2", "proj2_w", "proj2_b")
+_WEIGHTS_CONV = ("down_cat", "down_b", "alpha", "i_ln", "wih_f", "wih_b",
+                 "whh", "b8", "up_flat", "up_b", "t_ln", "wih2", "whh2", "b2",
+                 "proj2_w", "proj2_b")
 
 
 # ------------------------------------------------------ plain PyTorch ----
@@ -94,16 +124,16 @@ def _ln(x, s, b, eps):
     return (x - mu) * torch.rsqrt(var + eps) * s + b
 
 
-def _intra_blstm(p, b, x, hidden, eps):
-    """Fused-direction intra BLSTM over frequency + residual proj (one
-    block). x: [F, D]; returns the updated x."""
+def _fused_blstm(p, b, z, hidden):
+    """Both directions of the intra BLSTM over the n rows of z [n, D] in
+    one recurrence: the backward direction reads row n-1-f at step f and
+    stores its h there. Returns y [n, 2H] (fwd | bwd)."""
     H, h2 = hidden, 2 * hidden
-    F = x.shape[0]
-    z = _ln(x, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
-    gxf = z @ p["wih_f"][b] + p["b8"][b]               # [F, 8H]
+    F = z.shape[0]
+    gxf = z @ p["wih_f"][b] + p["b8"][b]               # [n, 8H]
     gxb = z @ p["wih_b"][b]
-    h1 = x.new_zeros(1, h2)
-    c1 = x.new_zeros(1, h2)
+    h1 = z.new_zeros(1, h2)
+    c1 = z.new_zeros(1, h2)
     yf, yb = [None] * F, [None] * F
     for f in range(F):
         rev = F - 1 - f
@@ -116,8 +146,35 @@ def _intra_blstm(p, b, x, hidden, eps):
         h1 = og * torch.tanh(c1)
         yf[f] = h1[0, :H]                              # fwd h at row f
         yb[rev] = h1[0, H:]                            # bwd h at mirrored row
-    y2h = torch.cat([torch.stack(yf), torch.stack(yb)], dim=-1)
+    return torch.cat([torch.stack(yf), torch.stack(yb)], dim=-1)
+
+
+def _intra_blstm(p, b, x, hidden, eps):
+    """Fused-direction intra BLSTM over frequency + residual proj (one
+    block). x: [F, D]; returns the updated x."""
+    z = _ln(x, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
+    y2h = _fused_blstm(p, b, z, hidden)
     return x + y2h @ p["proj_w"][b] + p["proj_b"][b]
+
+
+def _intra_conv(p, b, x, hidden, eps):
+    """conv_lstm intra for one block (the Pallas `_intra_conv`): the
+    phase-split down conv, PReLU, LayerNorm, the fused BLSTM over the
+    k = F // s frames, the up conv added to rows < k*s; rows from k*s on keep
+    x. x: [F, D]; returns the updated x (a new tensor)."""
+    s = lstm_down(p)
+    F, C = x.shape
+    k = F // s
+    taps = x @ p["down_cat"][b]                        # [F, s*C]
+    z = p["down_b"][b].expand(k, C)
+    for j in range(s):                                 # frame f sums rows f*s+j
+        z = z + taps[j:k * s:s, j * C:(j + 1) * C]
+    alpha = p["alpha"][b, 0]
+    z = torch.clamp(z, min=0) + alpha * torch.clamp(z, max=0)
+    z = _ln(z, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
+    y2h = _fused_blstm(p, b, z, hidden)                # [k, 2H]
+    up = (y2h @ p["up_flat"][b]).reshape(k * s, C)     # row f*s+j: phase j
+    return torch.cat([x[:k * s] + up + p["up_b"][b], x[k * s:]])
 
 
 def _inter_step(p, b, x, h0, c0, hidden, eps):
@@ -142,11 +199,12 @@ def gridnet_stack_step_ref(packed, x, h0, c0, film_w=None, film_b=None,
     Returns (x_out [F, D], h0' [B, F, H], c0' [B, F, H])."""
     n_blocks, _, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
+    intra = _intra_blstm if lstm_down(packed) is None else _intra_conv
     hs, cs = [], []
     for b in range(n_blocks):
         if film_w is not None and b > 0:
             x = x * film_w[b - 1] + film_b[b - 1]
-        x = _intra_blstm(packed, b, x, hidden, eps)
+        x = intra(packed, b, x, hidden, eps)
         x, h_new, c_new = _inter_step(packed, b, x, h0, c0, hidden, eps)
         hs.append(h_new)
         cs.append(c_new)
@@ -160,12 +218,42 @@ def _check(name, t, shape, device):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: bfloat16 is not ported yet; the stack-step kernels "
+            "take float32")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _operands(packed):
+    """(the C entry point, its launch counter, operand names in its order,
+    their shapes, s or None): which kernel a pack goes to is decided here."""
+    n_blocks, d, hidden4 = packed["wih2"].shape
+    hidden = hidden4 // 4
+    G, H2 = 8 * hidden, 2 * hidden
+    shapes = {"i_ln": (n_blocks, 2, d), "wih_f": (n_blocks, d, G),
+              "wih_b": (n_blocks, d, G), "whh": (n_blocks, H2, G),
+              "b8": (n_blocks, G), "t_ln": (n_blocks, 2, d),
+              "wih2": (n_blocks, d, hidden4),
+              "whh2": (n_blocks, hidden, hidden4),
+              "b2": (n_blocks, hidden4), "proj2_w": (n_blocks, hidden, d),
+              "proj2_b": (n_blocks, d)}
+    s = lstm_down(packed)
+    if s is None:
+        shapes.update(proj_w=(n_blocks, H2, d), proj_b=(n_blocks, d))
+        return "sbt_stack_step", "launches", _WEIGHTS, shapes, None
+    if s < 1:
+        raise ValueError(f"down_cat: shape {tuple(packed['down_cat'].shape)}"
+                         ", expected [B, C, s*C] with s >= 1")
+    shapes.update(down_cat=(n_blocks, d, s * d), down_b=(n_blocks, d),
+                  alpha=(n_blocks, 1), up_flat=(n_blocks, H2, s * d),
+                  up_b=(n_blocks, d))
+    return "sbt_stack_step_conv", "conv_launches", _WEIGHTS_CONV, shapes, s
 
 
 def check_packed(packed, device):
@@ -175,23 +263,14 @@ def check_packed(packed, device):
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    n_blocks, d, hidden4 = packed["wih2"].shape
-    hidden = hidden4 // 4
-    G, H2 = 8 * hidden, 2 * hidden
-    shapes = {"i_ln": (n_blocks, 2, d), "wih_f": (n_blocks, d, G),
-              "wih_b": (n_blocks, d, G), "whh": (n_blocks, H2, G),
-              "b8": (n_blocks, G), "proj_w": (n_blocks, H2, d),
-              "proj_b": (n_blocks, d), "t_ln": (n_blocks, 2, d),
-              "wih2": (n_blocks, d, hidden4),
-              "whh2": (n_blocks, hidden, hidden4),
-              "b2": (n_blocks, hidden4), "proj2_w": (n_blocks, hidden, d),
-              "proj2_b": (n_blocks, d)}
-    for k in _WEIGHTS:
+    _, _, names, shapes, _ = _operands(packed)
+    for k in names:
         _check(k, packed[k], shapes[k], device)
 
 
 def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
     dev = x.device
+    entry, counter, names, _, s = _operands(packed)
     n_blocks, d, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     f_len = x.shape[0]
@@ -203,6 +282,10 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT_BYTES}")
+    # rows of the intra recurrence: F, or the k = F // s conv frames
+    n_rows = f_len if s is None else f_len // s
+    if n_rows < 1:
+        raise ValueError(f"F={f_len} < lstm_down={s}: no conv frame")
     G, H2 = 8 * hidden, 2 * hidden
     _check("x", x, (f_len, d), dev)
     _check("h0", h0, (n_blocks, f_len, hidden), dev)
@@ -219,23 +302,25 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
     x_out = torch.empty_like(x)
     h0_out = torch.empty_like(h0)
     c0_out = torch.empty_like(c0)
-    gx = torch.empty((f_len, G), dtype=torch.float32, device=dev)
-    y = torch.empty((f_len, H2), dtype=torch.float32, device=dev)
+    gx = torch.empty((n_rows, G), dtype=torch.float32, device=dev)
+    y = torch.empty((n_rows, H2), dtype=torch.float32, device=dev)
     g2 = torch.empty((f_len, 4 * hidden), dtype=torch.float32, device=dev)
+    dims = (n_blocks, f_len, d, hidden) + (() if s is None else (s,))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sbt_stack_step(
+        rc = getattr(lib, entry)(
             x.data_ptr(),
             film_w.data_ptr() if use_film else None,
             film_b.data_ptr() if use_film else None,
-            *[packed[k].data_ptr() for k in _WEIGHTS],
+            *[packed[k].data_ptr() for k in names],
             h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
             h0_out.data_ptr(), c0_out.data_ptr(), gx.data_ptr(),
-            y.data_ptr(), g2.data_ptr(), n_blocks, f_len, d, hidden,
-            int(use_film), float(eps), stream)
+            y.data_ptr(), g2.data_ptr(), *dims, int(use_film), float(eps),
+            stream)
     if rc != 0:
-        raise RuntimeError(f"stack_step kernel launch failed: CUDA error {rc}")
-    gridnet_stack_step.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    setattr(gridnet_stack_step, counter,
+            getattr(gridnet_stack_step, counter) + 1)
     return x_out, h0_out, c0_out
 
 
@@ -247,10 +332,12 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
     inter-LSTM state; film_w/film_b: [B-1, F, D] precomputed FiLM affines
     (None for unconditional models). Returns (x_out [F, D], h0', c0').
 
-    CUDA tensors launch the kernel (`gridnet_stack_step.launches` counts the
-    launches); CPU tensors run `gridnet_stack_step_ref`. `checked=True`
-    skips the weight checks for a `packed` that already passed
-    `check_packed` on this device."""
+    CUDA tensors launch `stack_step_kernel_t<false>`
+    (`gridnet_stack_step.launches` counts its launches), or
+    `stack_step_kernel_t<true>` for a conv_lstm pack
+    (`gridnet_stack_step.conv_launches`); CPU tensors run
+    `gridnet_stack_step_ref`. `checked=True` skips the weight checks for a
+    `packed` that already passed `check_packed` on this device."""
     if x.device.type == "cuda":
         return _launch(packed, x, h0, c0, film_w, film_b, eps, checked)
     if x.device.type == "cpu":
@@ -259,3 +346,4 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
 
 
 gridnet_stack_step.launches = 0
+gridnet_stack_step.conv_launches = 0

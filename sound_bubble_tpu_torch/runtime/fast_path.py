@@ -2,12 +2,14 @@
 (port of `sound_bubble_tpu/runtime/fast_path.py:FusedStreamer`).
 
 `ModelWrapper` (runtime/streaming.py) runs the model's own forward, whose
-block stack is ~B*(F+1) small LSTM cell steps. `FusedStreamer` runs the same
-math with the whole block stack in one kernel launch per 8 ms chunk
-(`ops/kernels/stack_kernel.py:gridnet_stack_step`, CUDA source
-`csrc/stack_step.cu`); the STFT, features, convs and iSTFT around it are plain
-PyTorch. On a CPU device the stack step runs its plain PyTorch version.
-Non-attention configurations only (ROADMAP Queue 1 item 11).
+block stack is ~B*(F+1) small LSTM cell steps (B*(F//s+1) for conv_lstm).
+`FusedStreamer` runs the same math with the whole block stack in one kernel
+launch per 8 ms chunk (`ops/kernels/stack_kernel.py:gridnet_stack_step`, CUDA
+source `csrc/stack_step.cu`: `stack_step_kernel_t<false>` for the plain intra
+BLSTM, `<true>` for conv_lstm); the STFT, features, convs and iSTFT
+around it are plain PyTorch. On a CPU device the stack step runs its plain
+PyTorch version. Conditioned (FiLM) and unconditioned models; non-attention
+configurations only (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ class FusedStreamer:
         self.device = resolve_device(device)
         self.net = net.to(self.device).eval()
         self.cfg = net.cfg
-        self.packed = {k: v.to(self.device) for k, v in
-                       pack_stack_params(self.cfg, param_tree(net)).items()}
+        self.packed = {k: v.to(self.device) for k, v in pack_stack_params(
+            self.cfg, param_tree(net)).items()}
         check_packed(self.packed, self.device)
         self.film = self._precompute_film(dis_embed)
         self.internal_state = None

@@ -234,6 +234,10 @@ class PLModule:
             vals = np.asarray(metric(est=est_np, gt=gt, mix=mix))
             for i in range(batch_size):
                 if n_speakers[i] > 0:
+                    if not np.abs(gt[i]).max() > 0:
+                        raise ValueError(
+                            f"sample {i} has {int(n_speakers[i])} target "
+                            "speaker(s) but an all-zero target")
                     self.log_metric(f"{step}/{metric.name}", vals[i])
                     if metric.name == "si_sdr_i":
                         self.log_metric(

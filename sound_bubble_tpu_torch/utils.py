@@ -30,6 +30,8 @@ _PORTED = {
     "sound_bubble_tpu.losses.snrlp.SNRLPLoss":
         f"{_PORT}.losses.snrlp.SNRLPLoss",
     "sound_bubble_tpu.losses.sdr.SNRLosses": f"{_PORT}.losses.sdr.SNRLosses",
+    "sound_bubble_tpu.losses.multires_stft.MultiResoFuseLoss":
+        f"{_PORT}.losses.multires_stft.MultiResoFuseLoss",
     "sound_bubble_tpu.data.dataset.DistanceEmbedDataset":
         f"{_PORT}.data.dataset.DistanceEmbedDataset",
     "sound_bubble_tpu.data.dataset.FixedThresholdDataset":
@@ -54,6 +56,8 @@ _REFERENCE = {
         "sound_bubble_tpu.train.module.PLModule",
     "src.losses.SNRLP.SNRLPLoss": "sound_bubble_tpu.losses.snrlp.SNRLPLoss",
     "src.losses.SNRLosses.SNRLosses": "sound_bubble_tpu.losses.sdr.SNRLosses",
+    "src.losses.MultiResoLoss.MultiResoFuseLoss":
+        "sound_bubble_tpu.losses.multires_stft.MultiResoFuseLoss",
     "src.datasets.general_multisrc_dataset_dis_embed.Dataset":
         "sound_bubble_tpu.data.dataset.DistanceEmbedDataset",
     "src.datasets.multisrc_dataset_with_perturbations.Dataset":
@@ -116,23 +120,16 @@ def read_json(path):
 
 
 def read_audio_file(file_path, sr):
-    """Read a wav as float32 [C, T] in [-1, 1] (librosa.load layout). The
-    port does not resample: a file at another rate than `sr` raises."""
-    import scipy.io.wavfile
+    """Read a wav as float32 [C, T] in [-1, 1] (librosa.load layout),
+    resampled to `sr` when the file has another rate (polyphase, as the JAX
+    package's `utils.read_audio_file`)."""
+    from sound_bubble_tpu_torch.data.audio_io import read_audio
+    from sound_bubble_tpu_torch.data.resample import resample_poly_np
 
-    orig, data = scipy.io.wavfile.read(file_path)
+    data, orig = read_audio(file_path)
     if sr is not None and orig != sr:
-        raise ValueError(f"{file_path}: sample rate {orig}, expected {sr}")
-    if data.dtype == np.int16:
-        data = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        data = data.astype(np.float32) / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
-    else:
-        data = data.astype(np.float32)
-    data = data[None, :] if data.ndim == 1 else data.T   # scipy gives [T, C]
-    return np.ascontiguousarray(data)
+        data = resample_poly_np(data, sr, orig)
+    return data
 
 
 def load_pretrained(run_dir, device="cuda"):

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-stack-step kernel, and the slab LSTM scans (forward and backward).
+stack-step kernels (plain intra BLSTM and conv_lstm), and the slab LSTM
+scans (forward and backward).
 
 Marked `gpu`: each test decides inside itself whether a card is present and
 skips here with a reason. This file imports neither JAX nor the JAX package,
@@ -39,13 +40,26 @@ def _card():
     return torch.device("cuda")
 
 
-def _case(size, seed=0):
-    cfg = NetConfig(conv_lstm=False, **SIZES[size])
+# conv_lstm widths: the Orange Pi and Raspberry Pi models
+# (`real_experiments/*.json`: F=145, D=24 / 16, B=3, H=64, s=5) and a ragged
+# F (25 rows, s=4: the last row gets no up conv)
+CONV_SIZES = {
+    "orangepi": dict(stft_chunk_size=192, stft_pad_size=96, D=24, H=64, B=3,
+                     lstm_down=5),
+    "raspberrypi": dict(stft_chunk_size=192, stft_pad_size=96, D=16, H=64,
+                        B=3, lstm_down=5),
+    "ragged": dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3,
+                   lstm_down=4)}
+
+
+def _case(size, seed=0, conv=False):
+    cfg = (NetConfig(conv_lstm=True, **CONV_SIZES[size]) if conv
+           else NetConfig(conv_lstm=False, **SIZES[size]))
     rng = np.random.default_rng(seed)
     net = Net(cfg)
     net.load_state_dict({
-        k: torch.from_numpy(
-            rng.standard_normal(v.shape).astype(np.float32) * 0.3)
+        k: torch.from_numpy(np.asarray(
+            rng.standard_normal(v.shape) * 0.3, np.float32))
         for k, v in net.state_dict().items()})
     F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
 
@@ -77,6 +91,54 @@ def test_kernel_matches_plain(size, use_film):
         assert g.shape == w.shape, name
         err = float((g - w).abs().max())
         assert err <= TOL, f"{name}: {err}"
+
+
+@pytest.mark.parametrize("use_film", [False, True])
+@pytest.mark.parametrize("size", list(CONV_SIZES))
+def test_conv_kernel_matches_plain(size, use_film):
+    """3 chained steps; one launch of the conv kernel each, none of the
+    plain stack kernel."""
+    dev = _card()
+    cfg, packed, a = _case(size, conv=True)
+    packed = {k: v.to(dev) for k, v in packed.items()}
+    a = {k: v.to(dev) for k, v in a.items()}
+    fw = a["film_w"] if use_film else None
+    fb = a["film_b"] if use_film else None
+    before = (sk.gridnet_stack_step.conv_launches,
+              sk.gridnet_stack_step.launches)
+    hk, ck = a["h0"], a["c0"]
+    hr, cr = hk, ck
+    for step in range(3):
+        x = a["x"] * (1.0 + 0.5 * step)
+        xk, hk, ck = sk.gridnet_stack_step(packed, x, hk, ck, fw, fb,
+                                           eps=cfg.eps)
+        torch.cuda.synchronize()
+        xr, hr, cr = sk.gridnet_stack_step_ref(packed, x, hr, cr, fw, fb,
+                                               eps=cfg.eps)
+        for g, w, name in ((xk, xr, "x"), (hk, hr, "h0"), (ck, cr, "c0")):
+            assert g.shape == w.shape, name
+            err = float((g - w).abs().max())
+            assert err <= TOL, f"step {step} {name}: {err}"
+    assert (sk.gridnet_stack_step.conv_launches,
+            sk.gridnet_stack_step.launches) == (before[0] + 3, before[1])
+
+
+def test_conv_kernel_rejects_bad_operands():
+    dev = _card()
+    _, packed, a = _case("ragged", conv=True)
+    packed = {k: v.to(dev) for k, v in packed.items()}
+    x, h0, c0 = (a[k].to(dev) for k in ("x", "h0", "c0"))
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        sk.gridnet_stack_step(packed, x.bfloat16(), h0, c0)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        sk.gridnet_stack_step({**packed, "up_flat":
+                               packed["up_flat"].bfloat16()}, x, h0, c0)
+    with pytest.raises(ValueError, match="down_cat: shape"):
+        sk.gridnet_stack_step({**packed, "down_cat": packed["down_cat"]
+                               [..., :-1].contiguous()}, x, h0, c0)
+    with pytest.raises(ValueError, match="no conv frame"):
+        sk.gridnet_stack_step(packed, x[:3].contiguous(), h0[:, :3]
+                              .contiguous(), c0[:, :3].contiguous())
 
 
 def test_kernel_rejects_bad_operands():

@@ -20,7 +20,11 @@ SMALL = dict(stft_chunk_size=32, stft_pad_size=16, num_ch=6, D=8, B=3, H=8,
              L=2, E=2, use_attn=False, chunk_causal=True, use_first_ln=True,
              merge_method="early_cat", conv_lstm=False, dis_type="conv3")
 VARIANTS = {"cond": ({}, True), "uncond": ({}, False),
-            "masking": ({"spectral_masking": True}, True)}
+            "masking": ({"spectral_masking": True}, True),
+            # the edge configuration's intra path (F = 25: s = 5 divides
+            # it, s = 4 leaves a ragged tail), unconditioned as it ships
+            "conv_uncond": ({"conv_lstm": True, "lstm_down": 5}, False),
+            "conv_ragged": ({"conv_lstm": True, "lstm_down": 4}, True)}
 DIS = np.asarray([[0.0, 1.0, 0.0]], np.float32)
 
 
@@ -84,12 +88,26 @@ def test_fused_streamer_resets_and_switches_embedding(rng):
     assert not torch.equal(other, first[0])
 
 
-@pytest.mark.parametrize("change", [{"use_attn": True}, {"conv_lstm": True},
+@pytest.mark.parametrize("change", [{"use_attn": True},
+                                    {"compute_dtype": "bf16"},
                                     {"stft_back_pad": 8},
                                     {"dis_type": "linear2"}])
 def test_unported_variants_raise(change):
+    """The variants not ported yet raise, naming their ROADMAP item (Queue 1
+    item 9 for the model variants, item 2 for the bf16 trunk), where they
+    would otherwise build another model than the JAX package's."""
     cfg = make_config({**SMALL, **change})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    item = "item 2" if "compute_dtype" in change else "item 9"
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Net(cfg)
+
+
+def test_remat_is_accepted_and_changes_nothing():
+    """`remat` only saves memory in the JAX package: the port keeps the
+    field, builds the same model and ignores it."""
+    on = make_config({**SMALL, "remat": True, "compute_dtype": None})
+    off = make_config({**SMALL, "remat": False})
+    assert on.remat and not off.remat and on.compute_dtype is None
+    assert Net(on).state_dict().keys() == Net(off).state_dict().keys()
 
 

@@ -1,7 +1,9 @@
 """Port parity, whole-stack step: `pack_stack_params` and the plain PyTorch
 `gridnet_stack_step_ref` (and the CPU route of the `gridnet_stack_step`
 wrapper) against the JAX Pallas kernel `gridnet_stack_step` run in interpret
-mode on the CPU, at a small size (F=17, D=8, H=8, B=3).
+mode on the CPU, at a small size (F=17, D=8, H=8, B=3; the conv_lstm branch
+at F=25: the pack at lstm_down 5 and 4, the stack step at lstm_down 5
+without FiLM and at 4, ragged, with FiLM).
 
 Tolerance 1e-5 absolute: both sides run the same fp32 math."""
 import jax.numpy as jnp
@@ -18,13 +20,16 @@ from sound_bubble_tpu_torch.weights import param_tree
 TOL = 1e-5
 SIZE = dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=3,
             conv_lstm=False, merge_method="early_cat", use_first_ln=True)
+# the conv_lstm branch at F = 25
+CONV = dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3,
+            conv_lstm=True, merge_method="early_cat", use_first_ln=True)
 
 
 def _random_tree(rng, cfg):
     """The port Net's parameter tree filled with seeded normals."""
     net = Net(cfg)
-    sd = {k: torch.from_numpy(
-              rng.standard_normal(v.shape).astype(np.float32) * 0.4)
+    sd = {k: torch.from_numpy(np.asarray(
+              rng.standard_normal(v.shape) * 0.4, np.float32))
           for k, v in net.state_dict().items()}
     net.load_state_dict(sd)
     return param_tree(net)
@@ -97,9 +102,70 @@ def test_wrapper_rejects_other_devices(case):
 
 
 def test_pack_rejects_conv_lstm(case):
+    """A plain (non-conv) parameter tree packed for a conv_lstm config, and
+    the other way round, raise instead of packing the wrong operands."""
     _, tree, _ = case
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tsk.pack_stack_params(NetConfig(conv_lstm=True), tree)
+    with pytest.raises(ValueError, match="other intra variant"):
+        tsk.pack_stack_params(NetConfig(**{**SIZE, "conv_lstm": True}), tree)
+    conv_cfg = NetConfig(**{**CONV, "lstm_down": 5})
+    conv_tree = _random_tree(np.random.default_rng(1), conv_cfg)
+    with pytest.raises(ValueError, match="other intra variant"):
+        tsk.pack_stack_params(NetConfig(**SIZE), conv_tree)
+
+
+@pytest.mark.parametrize("s", [5, 4])
+def test_pack_conv_matches_jax(s, rng):
+    cfg = NetConfig(**CONV, lstm_down=s)
+    tree = _random_tree(rng, cfg)
+    got = tsk.pack_stack_params(cfg, tree)
+    want = jsk.pack_stack_params(JaxConfig(**CONV, lstm_down=s),
+                                 _np_tree(tree))
+    # JAX's pack also carries s as an int; the port's reads it off down_cat
+    assert set(got) == set(want) - {"lstm_down"}
+    assert "proj_w" not in got and tsk.lstm_down(got) == want["lstm_down"] == s
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    tsk.check_packed(got, "cpu")
+
+
+# (lstm_down, FiLM): F = 25 is a multiple of 5, not of 4 (ragged)
+@pytest.mark.parametrize("s,use_film", [(5, False), (4, True)])
+def test_stack_step_conv_matches_pallas_interpret(s, use_film, rng):
+    """3 chained steps, the state and x carried from one to the next."""
+    cfg = NetConfig(**CONV, lstm_down=s)
+    tree = _random_tree(rng, cfg)
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    assert F == 25 and (F % s == 0) == (s == 5)
+    packed_t = tsk.pack_stack_params(cfg, tree)
+    packed_j = jsk.pack_stack_params(JaxConfig(**CONV, lstm_down=s),
+                                     _np_tree(tree))
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    fw = draw(B - 1, F, D) if use_film else None
+    fb = draw(B - 1, F, D) if use_film else None
+    h0, c0 = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    want = (None, jnp.asarray(h0), jnp.asarray(c0))
+    got = (None, torch.from_numpy(h0), torch.from_numpy(c0))
+    launches = tsk.gridnet_stack_step.conv_launches
+    for _ in range(3):
+        x = draw(F, D)
+        want = jsk.gridnet_stack_step(
+            packed_j, jnp.asarray(x), want[1], want[2],
+            None if fw is None else jnp.asarray(fw),
+            None if fb is None else jnp.asarray(fb), eps=cfg.eps,
+            interpret=True)
+        got = tsk.gridnet_stack_step(
+            packed_t, torch.from_numpy(x), got[1], got[2],
+            None if fw is None else torch.from_numpy(fw),
+            None if fb is None else torch.from_numpy(fb), eps=cfg.eps)
+        for g, w, name in zip(got, want, ("x", "h0", "c0")):
+            assert tuple(g.shape) == tuple(w.shape), name
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                       rtol=0, err_msg=name)
+    assert tsk.gridnet_stack_step.conv_launches == launches
 
 
 def test_check_packed(case):

@@ -75,7 +75,9 @@ def test_loader_workers_and_shuffle(data):
 
 
 def _run(cfg_path, run_dir):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # two intra-op threads: the CLI shares the machine with the other test
+    # workers, and a thread per core each oversubscribes it many times over
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     return subprocess.run(
         [sys.executable, "-m", "sound_bubble_tpu_torch.train_pt", "--config",
          cfg_path, "--run_dir", run_dir, "--device", "cpu"],

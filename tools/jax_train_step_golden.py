@@ -1,15 +1,24 @@
-"""JAX reference numbers for the first train step of the flagship config.
+"""JAX reference numbers for the first train step of a config.
 
-One `PLModule` step of the JAX package on `syn_experiments/pretrain_stage.json`
-at full width (F=145, D=32, B=6, H=64), fp32 on the CPU, starting from
-`runs/finetune_r5/checkpoints/best.pt`, on the seeded batch of
-`sound_bubble_tpu_torch.data.synth.golden_batch(0)` (4 clips of 2.5 s at
-24 kHz, one with an empty bubble). Writes the loss, the global gradient norm
-before the clip and every parameter's gradient norm (keyed by the port's
-`state_dict` names) to `runs/train_step_golden_jax.json`, the numbers
-`chip_smoke.py` holds the port's kernel path against:
+One `PLModule` step of the JAX package at full width, fp32 on the CPU, on
+the seeded batch of `sound_bubble_tpu_torch.data.synth.golden_batch(0)` (4
+clips of 2.5 s at 24 kHz, one with an empty bubble). Writes the loss, the
+global gradient norm before the clip and every parameter's gradient norm
+(keyed by the port's `state_dict` names), the numbers `chip_smoke.py` holds
+the port's kernel path against:
+
+- the flagship: `syn_experiments/pretrain_stage.json` (F=145, D=32, B=6,
+  H=64, SNRLP) from `runs/finetune_r5/checkpoints/best.pt`, to
+  `runs/train_step_golden_jax.json`:
 
     JAX_PLATFORMS=cpu python tools/jax_train_step_golden.py
+
+- the edge model: `real_experiments/orangpi_model_finetune.json` (conv_lstm,
+  unconditioned, D=24, B=3, MultiResoFuseLoss) from the seeded
+  `runs/edge_orangpi_seeded/checkpoints/best.pt`
+  (`tools/jax_goldens_edge.py`), to `runs/train_step_golden_edge_jax.json`:
+
+    JAX_PLATFORMS=cpu python tools/jax_train_step_golden.py --edge
 """
 import json
 import os
@@ -26,19 +35,27 @@ sys.path.insert(0, REPO)
 from sound_bubble_tpu.train.module import PLModule  # noqa: E402
 from sound_bubble_tpu_torch.data.synth import golden_batch  # noqa: E402
 
-CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")
-CKPT = "runs/finetune_r5/checkpoints/best.pt"
-OUT = os.path.join(REPO, "runs", "train_step_golden_jax.json")
+# (config, checkpoint the step starts from, output)
+CASES = {
+    "flagship": ("syn_experiments/pretrain_stage.json",
+                 "runs/finetune_r5/checkpoints/best.pt",
+                 "runs/train_step_golden_jax.json"),
+    "edge": ("real_experiments/orangpi_model_finetune.json",
+             "runs/edge_orangpi_seeded/checkpoints/best.pt",
+             "runs/train_step_golden_edge_jax.json"),
+}
 SEED = 0
 
 
 def main():
     jax.config.update("jax_platforms", "cpu")
-    with open(CONFIG) as f:
+    config, ckpt, out = CASES["edge" if "--edge" in sys.argv[1:]
+                              else "flagship"]
+    with open(os.path.join(REPO, config)) as f:
         args = json.load(f)["pl_module_args"]
+    args["init_ckpt"] = os.path.join(REPO, ckpt)
     np.random.seed(SEED)
-    module = PLModule(**args, init_ckpt=os.path.join(REPO, CKPT),
-                      use_dp=False)
+    module = PLModule(**args, use_dp=False)
     inputs, targets = golden_batch(SEED)
 
     def loss_fn(params):
@@ -58,18 +75,18 @@ def main():
     result = {
         "_comment": (
             "JAX package, PLModule loss and gradients, fp32 on the CPU, "
-            f"{os.path.basename(CONFIG)} at full width from {CKPT}, batch "
+            f"{os.path.basename(config)} at full width from {ckpt}, batch "
             f"golden_batch({SEED}) (tools/jax_train_step_golden.py)"),
-        "config": "syn_experiments/pretrain_stage.json", "init_ckpt": CKPT,
+        "config": config, "init_ckpt": ckpt,
         "batch": f"sound_bubble_tpu_torch.data.synth.golden_batch({SEED})",
         "loss": float(loss),
         "grad_norm": float(np.sqrt(sum(v ** 2 for v in leaves.values()))),
         "grad_norms": leaves,
     }
-    with open(OUT, "w") as f:
+    with open(os.path.join(REPO, out), "w") as f:
         json.dump(result, f, indent=1)
     print(f"loss {result['loss']:.6f}, grad norm {result['grad_norm']:.6f}, "
-          f"{len(leaves)} leaves, {time.perf_counter() - t0:.1f} s -> {OUT}")
+          f"{len(leaves)} leaves, {time.perf_counter() - t0:.1f} s -> {out}")
 
 
 if __name__ == "__main__":
