@@ -4,9 +4,9 @@
 
 Drives the port's serving and training paths (`sound_bubble_tpu_torch`) at
 the full width of the flagship TF-GridNet (`runs/finetune_r5`: F=145, D=32,
-B=6, H=64, phases 3-8) and of the edge model (`real_experiments/
-orangpi_model_*.json`: conv_lstm, unconditioned, F=145, D=24, B=3, H=64,
-lstm_down=5, phases 9-12):
+B=6, H=64, phases 3-8, and its bf16 recipe, phases 13-15) and of the edge
+model (`real_experiments/orangpi_model_*.json`: conv_lstm, unconditioned,
+F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
@@ -52,7 +52,24 @@ lstm_down=5, phases 9-12):
    plain path and against the JAX package's numbers
    (`runs/train_step_golden_edge_jax.json`);
 12. times of the conv kernel, its plain version, one edge 8 ms chunk, one
-   edge train step and the slab kernels at the edge step's shapes.
+   edge train step and the slab kernels at the edge step's shapes;
+13. mixed slab kernels vs plain: the bf16 instantiation of `lstm_slab_fwd` /
+   `lstm_slab_bwd` against their plain versions at the flagship recipe's
+   shapes (batch 8 x 2.5 s: intra [145, 2504, 32] both directions, inter
+   [313, 1160, 32]), the edge's (intra [29, 2504, 24], inter
+   [313, 1160, 24]) and a ragged T, with (x, weights) in (bf16, bf16) and
+   (bf16, fp32); their times, bounds and cuDNN's bf16 LSTM;
+14. one bf16 flagship step as `train_stream` takes it (`cast_bf16`, the
+   bf16 trunk) from `runs/finetune_r5/checkpoints/best.pt` on phase 7's
+   batch: the kernel path against the plain path and against the JAX
+   package's numbers (`runs/train_step_golden_bf16_jax.json`), 18 + 18
+   mixed launches and no fp32 one; ms per bf16 step at the recipe (batch
+   8 x 2.5 s) and its split;
+15. `python -m sound_bubble_tpu_torch.train_stream` with the flagship
+   recipe's arguments (`runs/finetune_r5/train_stream_args.json`) from the
+   flagship checkpoint, the pool and the steps cut (`STREAM_CUTS`): steps,
+   a validation, checkpoints, then a `--resume` with the other precision
+   flag (the recorded bf16 is kept); the pool build seconds.
 
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
@@ -88,6 +105,7 @@ STREAM_REL_TOL = 1e-4      # kernel path vs ModelWrapper path, / output peak
 # fp32 streaming on the card vs fp32 offline JAX on the CPU, per sample
 PARITY_TOL_DB = 0.01
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 # slab kernels vs plain (fp32 vs fp32, other summation order): forward
 # outputs max-abs; backward outputs max-abs over the output's peak (the dW
@@ -117,6 +135,18 @@ EDGE_CONFIG = os.path.join(REPO, "real_experiments",
 # the first 20 streamed chunks vs the JAX output, max-abs / peak (fp32 on the
 # card vs fp32 on the CPU: the port's CPU path agrees to 8.3e-6)
 EDGE_HEAD_REL_TOL = 1e-4
+# the bf16 flagship step (train_stream --bf16) against the JAX package's
+# (tools/jax_train_step_golden.py --bf16), and the kernel path against the
+# plain path on the card
+BF16_STEP_GOLDEN = os.path.join(REPO, "runs",
+                                "train_step_golden_bf16_jax.json")
+BF16_LOSS_REL_TOL = 1e-2
+BF16_NORM_REL_TOL = 3e-2
+# phase 15's cuts of the flagship campaign (pool of 3000 scenarios, 180 for
+# validation, 8 validation batches, 20000 steps): the pool and the steps
+STREAM_CUTS = ["--pool", "24", "--val_pool", "8", "--val_batches", "1",
+               "--log_every", "2"]
+STREAM_STEPS = (4, 4)          # steps, val_every
 T0 = time.perf_counter()
 
 
@@ -211,28 +241,34 @@ SLAB_H = 64
 SLAB_MIX = (("intra", 12), ("inter", 6))
 
 
-def slab_bound_ms(t_len, r, c, h, kind):
+def slab_bound_ms(t_len, r, c, h, kind, xb=4, wb=4):
     """Least time for one slab scan on an H100: the larger of the bytes it
     must move (each input read once, each output written once) over 3.35
     TB/s and its matrix-product FLOPs over the fp32 rate (the gate
-    nonlinearities, ~2 % more, are not counted)."""
+    nonlinearities, ~2 % more, are not counted). The mixed mode (xb = 2:
+    x, ys, dy and dx in bf16; wb = 2 or 4 for the weights and hp) counts
+    those tensors at 2 bytes, the fp32 state, checkpoints and weight
+    gradients at 4, and its products at the bf16 tensor-core rate (989
+    TFLOP/s dense): bf16 operands with fp32 accumulation."""
     nb = -(-t_len // min(8, t_len))
     n, g = t_len * r, 4 * h
     w = (c + h) * g + g                             # w_ih, w_hh, b
     state = 2 * r * h                               # (h, c) or their grads
     if kind == "fwd":
         flops = 2 * n * (c + h) * g
-        n_bytes = 4 * (n * c + w + state                      # in
-                       + n * h + nb * r * h + state)          # ys, c_ckpt, out
+        n_bytes = (xb * n * c + wb * w + 4 * state             # in
+                   + xb * n * h + 4 * nb * r * h + 4 * state)  # ys, c_ckpt
     else:
         flops = (2 * n * (c + h) * g          # gate recompute
                  + 2 * n * g * h              # dh chain: dgates @ w_hh^T
                  + 2 * n * g * c              # dx = dgates @ w_ih^T
                  + 2 * n * (c + h + 1) * g)   # dW_ih, dW_hh, db
-        n_bytes = 4 * (n * c + 2 * n * h + nb * r * h + w + state  # in
-                       + n * c + w + state)                        # out
+        n_bytes = (xb * n * c + wb * n * h + xb * n * h      # x, hp, dy
+                   + 4 * nb * r * h + wb * w + 4 * state     # c_ckpt, in
+                   + xb * n * c + 4 * w + 4 * state)         # out
+    peak = PEAK_FP32_FLOPS if xb == 4 and wb == 4 else PEAK_BF16_FLOPS
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")), flops, n_bytes
 
@@ -262,8 +298,8 @@ def slab_args(a, ls, reverse, ys=None):
     if ys is None:
         return fwd
     return (a["w_ih"], a["w_hh"], a["b"], a["x"],
-            ls.shift_prev(ys[0], a["h0"], reverse), ys[3], a["dy"],
-            a["dhT"], a["dcT"], reverse)
+            ls.shift_prev(ys[0], a["h0"], reverse, a["w_hh"].dtype), ys[3],
+            a["dy"], a["dhT"], a["dcT"], reverse)
 
 
 @contextlib.contextmanager
@@ -540,20 +576,22 @@ def kernel_vs_plain_step(args, init_ckpt, batch, n_scans, dev, ls):
     return mod, loss_k, norm_k, grads_k
 
 
-def cudnn_lstm_ms(dev, a, n):
-    """cuDNN's LSTM on the same shapes, fp32, TF32 off (the library
-    yardstick; the port never calls it): (forward, backward) ms, the
-    backward as forward+backward minus forward, both in training mode."""
+def cudnn_lstm_ms(dev, a, n, dtype=torch.float32):
+    """cuDNN's LSTM on the same shapes in `dtype` (fp32 with TF32 off, or
+    bf16), the library yardstick; the port never calls it: (forward,
+    backward) ms, the backward as forward+backward minus forward, both in
+    training mode."""
     t_len, r, c = a["x"].shape
-    lstm = torch.nn.LSTM(c, SLAB_H).to(dev)
-    x = a["x"].clone().requires_grad_()
-    hc = (a["h0"][None], a["c0"][None])
+    lstm = torch.nn.LSTM(c, SLAB_H).to(dev, dtype)
+    x = a["x"].to(dtype).clone().requires_grad_()
+    hc = (a["h0"][None].to(dtype), a["c0"][None].to(dtype))
+    dy = a["dy"].to(dtype)
 
     def fwd():
         return lstm(x, hc)[0]
 
     def fwd_bwd():
-        fwd().backward(a["dy"])
+        fwd().backward(dy)
 
     fwd_bwd()
     fwd_ms = cuda_ms(fwd, n)
@@ -605,6 +643,357 @@ def phase8_times(dev, ls, mod, batch):
         f"inter): fwd {mixed['fwd']['ms']:.4f} ms, bwd "
         f"{mixed['bwd']['ms']:.4f} ms")
     return mixed, step_ms
+
+
+# (name, T, R, C, reverse): the mixed slab kernels at the flagship recipe's
+# shapes (train_stream --bf16, batch 8 x 2.5 s: intra [145, 2504, 32] both
+# directions, inter [313, 1160, 32]), the edge model's at the same batch
+# (intra [29, 2504, 24], inter [313, 1160, 24]) and a ragged T, each with
+# (x, weights) in (bf16, bf16) (cast_bf16) and (bf16, fp32) (train_pt --bf16)
+MIXED_SHAPES = (("intra", 145, 2504, 32, False),
+                ("intra_rev", 145, 2504, 32, True),
+                ("inter", 313, 1160, 32, False),
+                ("edge_intra", 29, 2504, 24, False),
+                ("edge_inter", 313, 1160, 24, False),
+                ("ragged_rev", 13, 37, 32, True))
+# mixed kernel vs its plain version: the same roundings, but fp32 sums in
+# another order move some gates across a bf16 rounding boundary, and the
+# recurrence carries such a flip on through the later frames. Every output
+# within 1e-2 of its peak; ys within one bf16 ulp of its peak (`bf16_ulp`:
+# 2^-8 for a peak in [0.5, 1)) at all but MIXED_YS_FRAC of its elements
+MIXED_REL_TOL = 1e-2
+MIXED_YS_FRAC = 1e-6
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
+
+
+def mixed_case(a, wdt):
+    """The fp32 operands of slab_case in the mixed mode: x and dy in bf16,
+    the weights in wdt, the state in fp32."""
+    m = dict(a, x=a["x"].bfloat16(), dy=a["dy"].bfloat16())
+    for k in ("w_ih", "w_hh", "b"):
+        m[k] = a[k].to(wdt)
+    return m
+
+
+def rel_errs(got, want):
+    """(max-abs, max-abs over want's peak, want's peak) of each output."""
+    out = []
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        peak = max(float(w.float().abs().max()), 1e-30)
+        out.append((err, err / peak, peak))
+    return out
+
+
+def mixed_counts(ls):
+    return (ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches,
+            ls.lstm_slab_fwd.mixed_launches, ls.lstm_slab_bwd.mixed_launches)
+
+
+def phase13_mixed_slab(dev, ls):
+    """The mixed slab kernels against their plain versions on the card.
+    Returns the worst max-abs errors (forward, backward)."""
+    fwd_err = bwd_err = 0.0
+    for i, (name, t_len, r, c, reverse) in enumerate(MIXED_SHAPES):
+        base = slab_case(dev, t_len, r, c, SEED + 100 + i)
+        for wdt in (torch.bfloat16, torch.float32):
+            a = mixed_case(base, wdt)
+            before = mixed_counts(ls)
+            with torch.no_grad():
+                got = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
+                torch.cuda.synchronize()
+                want = ls.lstm_slab_fwd_ref(*slab_args(a, ls, reverse))
+                f_errs = rel_errs(got, want)
+                got_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
+                torch.cuda.synchronize()
+                want_b = ls.lstm_slab_bwd_ref(*slab_args(a, ls, reverse,
+                                                         want))
+                b_errs = rel_errs(got_b, want_b)
+            grew = tuple(n - m for n, m in zip(mixed_counts(ls), before))
+            wname = "bf16" if wdt == torch.bfloat16 else "fp32"
+            log(f"  {name} [T={t_len}, R={r}, C={c}], H={SLAB_H}, x bf16, "
+                f"weights {wname}: forward max-abs / peak (ys, hT, cT, "
+                f"c_ckpt) {['%.2e' % e[1] for e in f_errs]}; backward "
+                f"(dx, dw_ih, dw_hh, db, dh0, dc0) "
+                f"{['%.2e' % e[1] for e in b_errs]}; launches fp32 "
+                f"{grew[:2]}, mixed {grew[2:]}")
+            if (got[0].dtype, got_b[0].dtype) != (torch.bfloat16,) * 2:
+                fail(f"mixed slab kernels at {name}: ys {got[0].dtype}, dx "
+                     f"{got_b[0].dtype}, expected bfloat16")
+            ys_ulp = bf16_ulp(f_errs[0][2])
+            ys_frac = float(((got[0].float() - want[0].float()).abs()
+                             > ys_ulp).float().mean())
+            log(f"    ys max-abs {f_errs[0][0]:.3e}; one bf16 ulp of its "
+                f"peak {f_errs[0][2]:.4f} is {ys_ulp:.3e}, exceeded at "
+                f"{ys_frac:.2e} of the elements")
+            if not (ys_frac <= MIXED_YS_FRAC
+                    and max(e[1] for e in f_errs) <= MIXED_REL_TOL):
+                fail(f"mixed slab forward kernel disagrees at {name} "
+                     f"({wname} weights): {f_errs}")
+            if not max(e[1] for e in b_errs) <= MIXED_REL_TOL:
+                fail(f"mixed slab backward kernel disagrees at {name} "
+                     f"({wname} weights): {b_errs}")
+            if grew != (0, 0, 1, 1):
+                fail(f"slab launches grew by {grew}, expected fp32 (0, 0) "
+                     f"and mixed (1, 1)")
+            fwd_err = max(fwd_err, *(e[0] for e in f_errs))
+            bwd_err = max(bwd_err, *(e[0] for e in b_errs))
+    log(f"phase 13 mixed slab kernels vs plain: forward max-abs {fwd_err:.3e}"
+        f", backward max-abs {bwd_err:.3e} (every output within "
+        f"{MIXED_REL_TOL} of its peak; ys within one bf16 ulp of its peak "
+        f"at all but {MIXED_YS_FRAC} of its elements)")
+    return fwd_err, bwd_err
+
+
+def mixed_slab_times(dev, ls, card):
+    """Per-launch times of the mixed kernels ((bf16, bf16), the campaign
+    trainer's operands) at the recipe's intra and inter shapes, with their
+    bound, their plain versions and cuDNN's bf16 LSTM. Returns the means over
+    a step's 12 intra : 6 inter launches, for the kernels line, and the
+    per-shape rows."""
+    rows = {}
+    shapes = {name: rest for name, *rest in MIXED_SHAPES}
+    for name, _ in SLAB_MIX:
+        t_len, r, c, reverse = shapes[name]
+        a = mixed_case(slab_case(dev, t_len, r, c, SEED), torch.bfloat16)
+        with torch.no_grad():
+            ys = ls.lstm_slab_fwd(*slab_args(a, ls, reverse))
+            bargs = slab_args(a, ls, reverse, ys)
+            fwd_ms = cuda_ms(lambda: ls.lstm_slab_fwd(
+                *slab_args(a, ls, reverse)), 20)
+            bwd_ms = cuda_ms(lambda: ls.lstm_slab_bwd(*bargs), 20)
+            fwd_plain = cuda_ms(lambda: ls.lstm_slab_fwd_ref(
+                *slab_args(a, ls, reverse)), 1)
+            bwd_plain = cuda_ms(lambda: ls.lstm_slab_bwd_ref(*bargs), 1)
+        lib_fwd, lib_bwd = cudnn_lstm_ms(dev, a, 10, torch.bfloat16)
+        (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, c, SLAB_H, "fwd",
+                                              xb=2, wb=2)
+        (bb, bby), bf, bbytes = slab_bound_ms(t_len, r, c, SLAB_H, "bwd",
+                                              xb=2, wb=2)
+        rows[name] = {"fwd": (fwd_ms, fwd_plain, fb, fby, lib_fwd),
+                      "bwd": (bwd_ms, bwd_plain, bb, bby, lib_bwd)}
+        log(f"  mixed {name} [T={t_len}, R={r}, C={c}] on {card}: fwd "
+            f"{fwd_ms:.4f} ms (plain {fwd_plain:.2f}, cuDNN bf16 LSTM fwd "
+            f"{lib_fwd:.4f}, bound {fb:.6f} {fby}: {ff} FLOP, {fbytes} B); "
+            f"bwd {bwd_ms:.4f} ms (plain {bwd_plain:.2f}, cuDNN bf16 LSTM "
+            f"bwd {lib_bwd:.4f}, bound {bb:.6f} {bby}: {bf} FLOP, "
+            f"{bbytes} B)")
+    total = sum(k for _, k in SLAB_MIX)
+    mixed = {}
+    for kind in ("fwd", "bwd"):
+        vals = [sum(rows[name][kind][i] * k for name, k in SLAB_MIX) / total
+                for i in (0, 1, 2, 4)]
+        mixed[kind] = dict(zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                               vals), bound_by=rows["intra"][kind][3])
+    return mixed, rows
+
+
+def bf16_module(args, init_ckpt, dev):
+    """The flagship PLModule from init_ckpt with the bf16 trunk, as the
+    campaign trainer runs it (float32 master params)."""
+    from sound_bubble_tpu_torch.train.module import PLModule
+
+    mod = PLModule(**{**args, "init_ckpt": init_ckpt}, device=dev)
+    mod.set_bf16_trunk()
+    return mod
+
+
+def phase14_bf16_step(dev, ls):
+    """One bf16 flagship step as train_stream takes it (cast_bf16, the bf16
+    trunk) on phase 7's golden batch: the kernel path against the plain
+    path on the card and against the JAX package's golden. Returns the
+    kernel path's mixed launches (forward, backward) in the step."""
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+
+    with open(TRAIN_CONFIG) as fh:
+        args = json.load(fh)["pl_module_args"]
+    n_scans = 3 * args["model_params"]["B"]
+    batch = golden_batch(SEED)
+    flagship = os.path.join(RUN_DIR, "checkpoints", "best.pt")
+
+    def one_step(plain):
+        mod = bf16_module(args, flagship, dev)
+        model_in = mod._model_inputs(batch[0])
+        gt = torch.from_numpy(batch[1]["target"]).to(dev)
+        before = mixed_counts(ls)
+        with plain_slab(ls) if plain else contextlib.nullcontext():
+            loss, _ = train_stream.train_step(mod, model_in, gt, True)
+        torch.cuda.synchronize()
+        grew = tuple(n - m for n, m in zip(mixed_counts(ls), before))
+        return float(loss), float(mod.last_grad_norm), grew
+
+    loss_k, norm_k, grew_k = one_step(False)
+    loss_p, norm_p, grew_p = one_step(True)
+    with open(BF16_STEP_GOLDEN) as fh:
+        golden = json.load(fh)
+    rel = {"plain loss": abs(loss_k - loss_p) / abs(loss_p),
+           "plain norm": abs(norm_k - norm_p) / norm_p,
+           "golden loss": abs(loss_k - golden["loss"]) / abs(golden["loss"]),
+           "golden norm": abs(norm_k - golden["grad_norm"])
+           / golden["grad_norm"]}
+    log(f"phase 14 bf16 step (train_stream.train_step, cast_bf16, bf16 "
+        f"trunk) from {os.path.relpath(flagship, REPO)} on the golden batch:"
+        f" loss {loss_k:.6f}, pre-clip grad norm {norm_k:.6f}; plain path "
+        f"on the card {loss_p:.6f}, {norm_p:.6f} (rel {rel['plain loss']:.2e},"
+        f" {rel['plain norm']:.2e}); JAX golden "
+        f"({os.path.basename(BF16_STEP_GOLDEN)}) {golden['loss']:.6f}, "
+        f"{golden['grad_norm']:.6f} (rel {rel['golden loss']:.2e}, "
+        f"{rel['golden norm']:.2e}; tol {BF16_LOSS_REL_TOL}, "
+        f"{BF16_NORM_REL_TOL}); slab launches fp32 {grew_k[:2]}, mixed "
+        f"{grew_k[2:]} (plain path {grew_p})")
+    if grew_k != (0, 0, n_scans, n_scans) or grew_p != (0, 0, 0, 0):
+        fail(f"bf16 step launches: kernel path {grew_k}, plain path {grew_p};"
+             f" expected fp32 (0, 0) and mixed ({n_scans}, {n_scans}), and "
+             f"none")
+    for what in ("plain", "golden"):
+        if not (rel[f"{what} loss"] <= BF16_LOSS_REL_TOL
+                and rel[f"{what} norm"] <= BF16_NORM_REL_TOL):
+            fail(f"the bf16 step disagrees with the {what} reference: {rel}")
+    return grew_k[2:]
+
+
+def bf16_step_times(dev, ls, mixed_rows, card):
+    """ms per bf16 train step at the recipe (batch 8 x 2.5 s: golden
+    batches 0 and 1), host clock over 5 steps after one warm-up, peak device
+    memory, and the step's split: 12 intra + 6 inter launches of each mixed
+    slab kernel at their per-launch times, the eager rest by difference."""
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+
+    with open(TRAIN_CONFIG) as fh:
+        args = json.load(fh)["pl_module_args"]
+    mod = bf16_module(args, os.path.join(RUN_DIR, "checkpoints", "best.pt"),
+                      dev)
+    b0, b1 = golden_batch(SEED), golden_batch(SEED + 1)
+    inputs = {k: np.concatenate([b0[0][k], b1[0][k]]) for k in b0[0]
+              if k in ("mixture", "dis_embed")}
+    model_in = mod._model_inputs(inputs)
+    gt = torch.from_numpy(np.concatenate([b0[1]["target"],
+                                          b1[1]["target"]])).to(dev)
+    train_stream.train_step(mod, model_in, gt, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(5):
+        train_stream.train_step(mod, model_in, gt, True)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / 5 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    slab_ms = sum(k * (mixed_rows[name]["fwd"][0] + mixed_rows[name]["bwd"][0])
+                  for name, k in SLAB_MIX)
+    log(f"phase 14 times on {card}: bf16 train step {step_ms:.2f} ms "
+        f"(train_stream.train_step, batch 8 x 2.5 s, host clock, 5 steps), "
+        f"peak device memory {peak_gb:.2f} GB; mixed slab launches 12 intra "
+        f"+ 6 inter of each kernel: {slab_ms:.2f} ms; the eager rest by "
+        f"difference {step_ms - slab_ms:.2f} ms")
+    return step_ms
+
+
+def phase15_train_stream(dev, ls, card):
+    """`python -m sound_bubble_tpu_torch.train_stream` with the flagship
+    recipe's arguments (runs/finetune_r5/train_stream_args.json) from the
+    flagship checkpoint, the pool and the steps cut (STREAM_CUTS); then a
+    --resume. Returns the main run's mixed launches (forward, backward)."""
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.datagen import campaign
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+
+    with open(os.path.join(RUN_DIR, "train_stream_args.json")) as fh:
+        recipe = json.load(fh)
+    with open(os.path.join(RUN_DIR, "config.json")) as fh:
+        cfg = json.load(fh)
+    cfg["pl_module_args"]["init_ckpt"] = os.path.join(
+        RUN_DIR, "checkpoints", "best.pt")
+    n_scans = 3 * cfg["pl_module_args"]["model_params"]["B"]
+    built = []
+    build_pool = campaign.build_pool
+
+    def timed_build(*a, **k):
+        t = time.perf_counter()
+        out = build_pool(*a, **k)
+        built.append(time.perf_counter() - t)
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    campaign.build_pool = timed_build
+    try:
+        cfg_path, run_dir = (os.path.join(tmp, "config.json"),
+                             os.path.join(tmp, "run"))
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        argv = ["--config", cfg_path, "--run_dir", run_dir,
+                "--bf16" if recipe["bf16"] else "--no-bf16",
+                "--voice", recipe["voice"], "--batch", str(recipe["batch"]),
+                "--clip_seconds", str(recipe["clip_seconds"]),
+                "--snr_min", str(recipe["snr_range"][0]),
+                "--snr_max", str(recipe["snr_range"][1]),
+                "--bg_noise", str(recipe["bg_noise"]), "--seed", str(SEED),
+                *STREAM_CUTS]
+        steps, val_every = STREAM_STEPS
+        # ---- the main path: the campaign's first steps and validation
+        ls.lstm_slab_fwd.launches = ls.lstm_slab_bwd.launches = 0
+        ls.lstm_slab_fwd.mixed_launches = ls.lstm_slab_bwd.mixed_launches = 0
+        t = time.perf_counter()
+        mod = train_stream.main(train_stream.parse_args(
+            argv + ["--steps", str(steps), "--val_every", str(val_every)]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = mixed_counts(ls)
+        want = (0, 0, (steps + 1) * n_scans, steps * n_scans)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        log(f"phase 15 train_stream: the flagship recipe {recipe} from "
+            f"runs/finetune_r5/checkpoints/best.pt, cut to "
+            f"{' '.join(STREAM_CUTS)} --steps {steps} --val_every "
+            f"{val_every}: {run_s:.2f} s incl. the pool build "
+            f"({', '.join('%.2f s' % s for s in built)} for the train and "
+            f"validation pools); slab launches fp32 {counts[:2]}, mixed "
+            f"{counts[2:]} (expected {want[2:]}: {n_scans} per step, "
+            f"{n_scans} forward for the validation batch); log {logged}")
+        if counts != want:
+            fail(f"train_stream slab launches {counts}, expected {want}")
+        last = load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                            "last.pt"))
+        vals = [r["val_loss"] for r in logged if "val_loss" in r]
+        if (last["current_epoch"] != 1 or len(vals) != 1
+                or not np.isfinite(vals).all()
+                or not os.path.exists(os.path.join(run_dir, "checkpoints",
+                                                   "best.pt"))):
+            fail(f"train_stream run: epoch {last['current_epoch']}, "
+                 f"validations {vals}")
+        if mod.net.cfg.compute_dtype != "bf16":
+            fail("train_stream did not run the bf16 trunk")
+
+        # ---- resume from last.pt with the other precision flag
+        before = mixed_counts(ls)
+        argv[argv.index("--bf16")] = "--no-bf16"
+        mod = train_stream.main(train_stream.parse_args(
+            argv + ["--steps", str(steps + 2), "--val_every",
+                    str(val_every), "--resume"]))
+        torch.cuda.synchronize()
+        grew = tuple(n - m for n, m in zip(mixed_counts(ls), before))
+        last = load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                            "last.pt"))
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            steps_logged = [json.loads(line)["step"] for line in fh]
+        log(f"  resumed with --no-bf16 from last.pt at step {steps}: the "
+            f"recorded bf16 kept ({mod.net.cfg.compute_dtype}); slab "
+            f"launches fp32 {grew[:2]}, mixed {grew[2:]}; steps logged "
+            f"{steps_logged}")
+        if (mod.net.cfg.compute_dtype != "bf16"
+                or grew != (0, 0, 3 * n_scans, 2 * n_scans)
+                or steps_logged[len(logged):] != [steps + 2, steps + 2]):
+            fail("the resumed train_stream run did not continue in bf16 "
+                 "for exactly two steps and one validation")
+    finally:
+        campaign.build_pool = build_pool
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts[2:], sum(built)
 
 
 def seeded_net(model_params, conditional, seed):
@@ -1086,6 +1475,18 @@ def main():
     conv_times = phase12_edge_times(dev, edge_streamer, edge_mod, edge_batch,
                                     card, ls)
 
+    # ---- 13. mixed slab kernels vs plain, and their times
+    mixed_fwd_err, mixed_bwd_err = phase13_mixed_slab(dev, ls)
+    mixed_times, mixed_rows = mixed_slab_times(dev, ls, card)
+
+    # ---- 14. one bf16 flagship step: kernel vs plain, vs the JAX golden
+    phase14_bf16_step(dev, ls)
+    bf16_step_times(dev, ls, mixed_rows, card)
+
+    # ---- 15. the campaign trainer (the main path of the mixed kernels)
+    (mixed_fwd_n, mixed_bwd_n), pool_s = phase15_train_stream(dev, ls, card)
+    log(f"phase 15 on {card}: pool build {pool_s:.2f} s (host)")
+
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
@@ -1105,7 +1506,13 @@ def main():
         "max_abs_err": fwd_err, **slab_times["fwd"]}, {
         "name": "lstm_slab_bwd", "route": "cuda", "source": slab_src,
         "replaces": f"{slab_tpu}:229", "launches": bwd_n,
-        "max_abs_err": bwd_err, **slab_times["bwd"]}]}), flush=True)
+        "max_abs_err": bwd_err, **slab_times["bwd"]}, {
+        "name": "lstm_slab_fwd_mixed", "route": "cuda", "source": slab_src,
+        "replaces": f"{slab_tpu}:125", "launches": mixed_fwd_n,
+        "max_abs_err": mixed_fwd_err, **mixed_times["fwd"]}, {
+        "name": "lstm_slab_bwd_mixed", "route": "cuda", "source": slab_src,
+        "replaces": f"{slab_tpu}:271", "launches": mixed_bwd_n,
+        "max_abs_err": mixed_bwd_err, **mixed_times["bwd"]}]}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

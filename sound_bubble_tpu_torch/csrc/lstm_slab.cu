@@ -1,5 +1,6 @@
 // Single-direction LSTM training scans over scan-major x [T, R, C], forward
-// and backward, in fp32.
+// and backward, in fp32 and in the mixed mode (bf16 activations with bf16 or
+// fp32 weights).
 //
 // Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
 // lstm_train_slab.py`:
@@ -49,9 +50,49 @@
 //   atomics. This costs 2 x 186 MB of traffic at the training shape, which
 //   the TPU kernel avoids by accumulating dW in VMEM.
 // No TF32 and no fast-math: fp32 FMA throughout, expf / tanhf.
+//
+// The mixed mode (`_fwd_kernel` / `_bwd_kernel` with mixed=True, the
+// instantiation the JAX package's bf16 trunk launches) is the same code,
+// templated on the activation type XT (x, ys, dy, dx) and the weight type WT
+// (w_ih, w_hh, b, hp): bf16 operands are widened to fp32 on load (products
+// of bf16 values are exact in fp32) and accumulated in fp32, and values are
+// rounded to bf16 exactly where the Pallas kernel rounds: the gates
+// (gx + bf16(h) W_hh, with gx = x W_ih + b unrounded), each sigmoid / tanh
+// output, i*g, tanh's input c_t and the output h_t; the carried c stays
+// fp32. The backward keeps the fp32 gate gradients for db (summed per row
+// tile in the walk, then over the tiles in a fixed order) and stores them
+// as bf16 for the dh chain, dx and the weight gradients, so the dgates
+// scratch is half the fp32 one. The mixed branches are `if constexpr`, so
+// the fp32 instantiation (XT = WT = float) runs the code path it had before.
+// The bound of a mixed scan counts 2 bytes for each bf16 tensor and its
+// matrix products at the bf16 tensor-core rate (989 TFLOP/s dense), the
+// rate the work could reach; this first instantiation does fp32 FMA on the
+// CUDA cores like the fp32 one (bf16 mma / wgmma tiles are later work).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ldf(const bf16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void stf(bf16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+// round to bf16 and back (the mixed mode's rounding points)
+__device__ __forceinline__ float rb(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename XT, typename WT>
+constexpr bool kMixed =
+    std::is_same<XT, bf16>::value || std::is_same<WT, bf16>::value;
 
 constexpr int KMAX = 8;   // frames per slab (the TPU kernel's K)
 constexpr int G = 4;      // row groups per block
@@ -91,24 +132,35 @@ __device__ __forceinline__ void gates4(const float4* __restrict__ wp,
 }
 
 // wp[k*H + j] = (W[k][j], W[k][H+j], W[k][2H+j], W[k][3H+j]), W = [w_ih; w_hh]
-__device__ void load_interleaved(float4* wp, const float* __restrict__ w_ih,
-                                 const float* __restrict__ w_hh, int C,
+template <typename WT>
+__device__ void load_interleaved(float4* wp, const WT* __restrict__ w_ih,
+                                 const WT* __restrict__ w_hh, int C,
                                  int H) {
   const int H4 = 4 * H;
   for (int i = threadIdx.x; i < (C + H) * H; i += blockDim.x) {
     const int k = i / H, j = i - k * H;
-    const float* row = k < C ? w_ih + (size_t)k * H4 : w_hh + (size_t)(k - C) * H4;
-    wp[i] = make_float4(row[j], row[H + j], row[2 * H + j], row[3 * H + j]);
+    const WT* row = k < C ? w_ih + (size_t)k * H4 : w_hh + (size_t)(k - C) * H4;
+    wp[i] = make_float4(ldf(row, j), ldf(row, H + j), ldf(row, 2 * H + j),
+                        ldf(row, 3 * H + j));
   }
 }
 
+template <typename WT>
+__device__ __forceinline__ float4 load_bias(const WT* __restrict__ b, int H,
+                                            int j) {
+  return make_float4(ldf(b, j), ldf(b, H + j), ldf(b, 2 * H + j),
+                     ldf(b, 3 * H + j));
+}
+
+template <typename XT, typename WT>
 __global__ void __launch_bounds__(1024) slab_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w_ih,
-    const float* __restrict__ w_hh, const float* __restrict__ b,
+    const XT* __restrict__ x, const WT* __restrict__ w_ih,
+    const WT* __restrict__ w_hh, const WT* __restrict__ b,
     const float* __restrict__ h0, const float* __restrict__ c0,
-    float* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
+    XT* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
     float* __restrict__ c_ckpt, int T, int R, int C, int H, int kf,
     int reverse) {
+  constexpr bool M = kMixed<XT, WT>;
   extern __shared__ float4 smem4[];
   float4* wp = smem4;                                  // [(C+H)*H]
   float* xbuf = reinterpret_cast<float*>(wp + (C + H) * H);  // [2][RT][C]
@@ -118,18 +170,21 @@ __global__ void __launch_bounds__(1024) slab_fwd_kernel(
   const int r0 = blockIdx.x * RT;
 
   load_interleaved(wp, w_ih, w_hh, C, H);
-  const float4 bias = make_float4(b[j], b[H + j], b[2 * H + j], b[3 * H + j]);
+  const float4 bias = load_bias(b, H, j);
   float c[RPT];
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {
     const int row = grp * RPT + q, r = r0 + row;
-    hbuf[row * H + j] = r < R ? h0[(size_t)r * H + j] : 0.f;
+    // the mixed mode's recurrence matmul takes bf16(h)
+    const float h = r < R ? h0[(size_t)r * H + j] : 0.f;
+    hbuf[row * H + j] = M ? rb(h) : h;
     c[q] = r < R ? c0[(size_t)r * H + j] : 0.f;
   }
   const int t_first = reverse ? T - 1 : 0;
   for (int i = tid; i < RT * C; i += nt) {
     const int row = i / C, r = r0 + row;
-    xbuf[i] = r < R ? x[((size_t)t_first * R + r) * C + (i - row * C)] : 0.f;
+    xbuf[i] = r < R ? ldf(x, ((size_t)t_first * R + r) * C + (i - row * C))
+                    : 0.f;
   }
   __syncthreads();
 
@@ -156,7 +211,8 @@ __global__ void __launch_bounds__(1024) slab_fwd_kernel(
       pre[u] = 0.f;
       if (more && i < RT * C) {
         const int row = i / C, r = r0 + row;
-        if (r < R) pre[u] = x[((size_t)t_next * R + r) * C + (i - row * C)];
+        if (r < R)
+          pre[u] = ldf(x, ((size_t)t_next * R + r) * C + (i - row * C));
       }
     }
     float4 acc[RPT];
@@ -165,12 +221,20 @@ __global__ void __launch_bounds__(1024) slab_fwd_kernel(
 #pragma unroll
     for (int q = 0; q < RPT; ++q) {
       const int row = grp * RPT + q, r = r0 + row;
-      const float ig = sigm(acc[q].x), fg = sigm(acc[q].y);
-      const float gg = tanhf(acc[q].z), og = sigm(acc[q].w);
-      c[q] = fg * c[q] + ig * gg;
-      const float h = og * tanhf(c[q]);
+      float h;
+      if constexpr (M) {
+        const float ig = rb(sigm(rb(acc[q].x))), fg = rb(sigm(rb(acc[q].y)));
+        const float gg = rb(tanhf(rb(acc[q].z))), og = rb(sigm(rb(acc[q].w)));
+        c[q] = fg * c[q] + rb(ig * gg);
+        h = rb(og * rb(tanhf(rb(c[q]))));
+      } else {
+        const float ig = sigm(acc[q].x), fg = sigm(acc[q].y);
+        const float gg = tanhf(acc[q].z), og = sigm(acc[q].w);
+        c[q] = fg * c[q] + ig * gg;
+        h = og * tanhf(c[q]);
+      }
       hbuf[nxt * RT * H + row * H + j] = h;
-      if (r < R) ys[((size_t)t * R + r) * H + j] = h;
+      if (r < R) stf(ys, ((size_t)t * R + r) * H + j, h);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -191,16 +255,24 @@ __global__ void __launch_bounds__(1024) slab_fwd_kernel(
 }
 
 // Backward walk: gate gradients dg [T, R, 4H] (torch gate-major columns),
-// and dh0, dc0. At most 256 threads (4H, H <= 64), so the slab's gates stay
-// in registers without spilling.
+// and dh0, dc0; in the mixed mode also db_part [row tiles, 4H], each tile's
+// fp32 sum of its gate gradients. At most 256 threads (4H, H <= 64), so the
+// slab's gates stay in registers without spilling.
+template <typename XT, typename WT>
+using GateT = typename std::conditional<kMixed<XT, WT>, bf16, float>::type;
+
+template <typename XT, typename WT>
 __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
-    const float* __restrict__ x, const float* __restrict__ hp,
-    const float* __restrict__ c_ckpt, const float* __restrict__ dy,
-    const float* __restrict__ w_ih, const float* __restrict__ w_hh,
-    const float* __restrict__ b, const float* __restrict__ dhT,
-    const float* __restrict__ dcT, float* __restrict__ dg,
-    float* __restrict__ dh0, float* __restrict__ dc0, int T, int R, int C,
-    int H, int kf, int reverse) {
+    const XT* __restrict__ x, const WT* __restrict__ hp,
+    const float* __restrict__ c_ckpt, const XT* __restrict__ dy,
+    const WT* __restrict__ w_ih, const WT* __restrict__ w_hh,
+    const WT* __restrict__ b, const float* __restrict__ dhT,
+    const float* __restrict__ dcT,
+    GateT<XT, WT>* __restrict__ dg,
+    float* __restrict__ db_part, float* __restrict__ dh0,
+    float* __restrict__ dc0, int T, int R, int C, int H, int kf,
+    int reverse) {
+  constexpr bool M = kMixed<XT, WT>;
   extern __shared__ float4 smem4[];
   const int H4 = 4 * H;
   float4* wp = smem4;                                    // [(C+H)*H]
@@ -216,10 +288,11 @@ __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
   load_interleaved(wp, w_ih, w_hh, C, H);
   for (int i = tid; i < H4 * H; i += nt) {
     const int col = i / H, m = i - col * H;
-    whhT[i] = w_hh[(size_t)m * H4 + col];
+    whhT[i] = ldf(w_hh, (size_t)m * H4 + col);
   }
-  const float4 bias = make_float4(b[j], b[H + j], b[2 * H + j], b[3 * H + j]);
+  const float4 bias = load_bias(b, H, j);
   float dh[RPT], dc[RPT];
+  float4 dbacc = make_float4(0.f, 0.f, 0.f, 0.f);   // mixed mode: db
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {
     const int r = r0 + grp * RPT + q;
@@ -240,11 +313,11 @@ __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
       if (rem < RT * C) {
         const int row = rem / C, r = r0 + row;
         xs[s * RT * C + rem] = ok && r < R
-            ? x[((size_t)t * R + r) * C + (rem - row * C)] : 0.f;
+            ? ldf(x, ((size_t)t * R + r) * C + (rem - row * C)) : 0.f;
       } else {
         const int e = rem - RT * C, row = e / H, r = r0 + row;
         hs[s * RT * H + e] = ok && r < R
-            ? hp[((size_t)t * R + r) * H + (e - row * H)] : 0.f;
+            ? ldf(hp, ((size_t)t * R + r) * H + (e - row * H)) : 0.f;
       }
     }
     __syncthreads();
@@ -268,11 +341,17 @@ __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
                hs + s * RT * H + grp * RPT * H, C, H, j, bias, acc);
 #pragma unroll
         for (int q = 0; q < RPT; ++q) {
-          const float4 a = make_float4(sigm(acc[q].x), sigm(acc[q].y),
-                                       tanhf(acc[q].z), sigm(acc[q].w));
+          float4 a;
+          if constexpr (M) {
+            a = make_float4(rb(sigm(rb(acc[q].x))), rb(sigm(rb(acc[q].y))),
+                            rb(tanhf(rb(acc[q].z))), rb(sigm(rb(acc[q].w))));
+          } else {
+            a = make_float4(sigm(acc[q].x), sigm(acc[q].y), tanhf(acc[q].z),
+                            sigm(acc[q].w));
+          }
           act[s][q] = a;
           cprev[s][q] = c[q];
-          c[q] = a.y * c[q] + a.x * a.z;
+          c[q] = a.y * c[q] + (M ? rb(a.x * a.z) : a.x * a.z);
         }
       }
     }
@@ -289,21 +368,30 @@ __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
           const float4 a = act[s][q];
           const float cp = cprev[s][q];
           const float ct = a.y * cp + a.x * a.z;
-          const float tc = tanhf(ct);
-          const float d = (r < R ? dy[((size_t)t * R + r) * H + j] : 0.f) + dh[q];
+          const float tc = M ? rb(tanhf(rb(ct))) : tanhf(ct);
+          const float d = (r < R ? ldf(dy, ((size_t)t * R + r) * H + j) : 0.f)
+                          + dh[q];
           const float dO = d * tc;
           const float dC = dc[q] + d * a.w * (1.f - tc * tc);
           const float di = dC * a.z * a.x * (1.f - a.x);
           const float df = dC * cp * a.y * (1.f - a.y);
           const float dgg = dC * a.x * (1.f - a.z * a.z);
           const float dog = dO * a.w * (1.f - a.w);
-          dgb[row * H4 + j] = di;
-          dgb[row * H4 + H + j] = df;
-          dgb[row * H4 + 2 * H + j] = dgg;
-          dgb[row * H4 + 3 * H + j] = dog;
+          if constexpr (M) {
+            if (r < R) {
+              dbacc.x += di; dbacc.y += df; dbacc.z += dgg; dbacc.w += dog;
+            }
+          }
+          // the dh chain, dx and dW take the gate gradients in bf16 in the
+          // mixed mode
+          dgb[row * H4 + j] = M ? rb(di) : di;
+          dgb[row * H4 + H + j] = M ? rb(df) : df;
+          dgb[row * H4 + 2 * H + j] = M ? rb(dgg) : dgg;
+          dgb[row * H4 + 3 * H + j] = M ? rb(dog) : dog;
           if (r < R) {
-            float* o = dg + ((size_t)t * R + r) * H4;
-            o[j] = di; o[H + j] = df; o[2 * H + j] = dgg; o[3 * H + j] = dog;
+            const size_t o = ((size_t)t * R + r) * H4;
+            stf(dg, o + j, di); stf(dg, o + H + j, df);
+            stf(dg, o + 2 * H + j, dgg); stf(dg, o + 3 * H + j, dog);
           }
           dc[q] = dC * a.y;
         }
@@ -332,14 +420,31 @@ __global__ void __launch_bounds__(256) slab_bwd_walk_kernel(
       dc0[(size_t)r * H + j] = dc[q];
     }
   }
+  if constexpr (M) {
+    // the tile's db: sum the G row groups' fp32 sums, in order
+    __syncthreads();
+    float* red = dgs;                                    // [G][4][H]
+    red[(grp * 4 + 0) * H + j] = dbacc.x;
+    red[(grp * 4 + 1) * H + j] = dbacc.y;
+    red[(grp * 4 + 2) * H + j] = dbacc.z;
+    red[(grp * 4 + 3) * H + j] = dbacc.w;
+    __syncthreads();
+    for (int o = tid; o < H4; o += nt) {
+      const int gate = o / H, u = o - gate * H;
+      float sum = 0.f;
+      for (int g = 0; g < G; ++g) sum += red[(g * 4 + gate) * H + u];
+      db_part[(size_t)blockIdx.x * H4 + o] = sum;
+    }
+  }
 }
 
 constexpr int DX_ROWS = 32;
 
 // dx[n, :] = dg[n, :] @ w_ih^T over the N = T*R rows.
+template <typename XT, typename WT, typename GT>
 __global__ void __launch_bounds__(256) slab_dx_kernel(
-    const float* __restrict__ dg, const float* __restrict__ w_ih,
-    float* __restrict__ dx, int N, int C, int H) {
+    const GT* __restrict__ dg, const WT* __restrict__ w_ih,
+    XT* __restrict__ dx, int N, int C, int H) {
   extern __shared__ float sm[];
   const int H4 = 4 * H;
   float* wT = sm;                  // [4H][C]
@@ -347,7 +452,7 @@ __global__ void __launch_bounds__(256) slab_dx_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < H4 * C; i += nt) {
     const int col = i / C, c = i - col * C;
-    wT[i] = w_ih[(size_t)c * H4 + col];
+    wT[i] = ldf(w_ih, (size_t)c * H4 + col);
   }
   const int n_tiles = (N + DX_ROWS - 1) / DX_ROWS;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -355,7 +460,7 @@ __global__ void __launch_bounds__(256) slab_dx_kernel(
     __syncthreads();
     for (int i = tid; i < DX_ROWS * H4; i += nt) {
       const int row = i / H4, n = n0 + row;
-      dgt[i] = n < N ? dg[(size_t)n * H4 + (i - row * H4)] : 0.f;
+      dgt[i] = n < N ? ldf(dg, (size_t)n * H4 + (i - row * H4)) : 0.f;
     }
     __syncthreads();
     for (int o = tid; o < DX_ROWS * C; o += nt) {
@@ -363,7 +468,7 @@ __global__ void __launch_bounds__(256) slab_dx_kernel(
       float acc = 0.f;
       for (int col = 0; col < H4; ++col)
         acc += dgt[row * H4 + col] * wT[col * C + c];
-      if (n < N) dx[(size_t)n * C + c] = acc;
+      if (n < N) stf(dx, (size_t)n * C + c, acc);
     }
   }
 }
@@ -373,9 +478,10 @@ constexpr int DW_TILE = 16;    // rows of N per shared-memory tile
 
 // Per-chunk partials of [x | hp | 1]^T @ dg: part[chunk][a][col],
 // a in [0, C+H+1). Block (chunk, a-group) of 4H threads, thread = column.
+template <typename XT, typename WT, typename GT>
 __global__ void __launch_bounds__(1024) slab_dw_partial_kernel(
-    const float* __restrict__ x, const float* __restrict__ hp,
-    const float* __restrict__ dg, float* __restrict__ part, int N, int C,
+    const XT* __restrict__ x, const WT* __restrict__ hp,
+    const GT* __restrict__ dg, float* __restrict__ part, int N, int C,
     int H, int chunk_rows) {
   extern __shared__ float sm[];
   const int H4 = 4 * H, A = C + H + 1;
@@ -392,14 +498,14 @@ __global__ void __launch_bounds__(1024) slab_dw_partial_kernel(
     __syncthreads();
     for (int i = tid; i < DW_TILE * H4; i += nt) {
       const int row = i / H4, n = n0 + row;
-      dgt[i] = n < n_end ? dg[(size_t)n * H4 + (i - row * H4)] : 0.f;
+      dgt[i] = n < n_end ? ldf(dg, (size_t)n * H4 + (i - row * H4)) : 0.f;
     }
     for (int i = tid; i < DW_TILE * DW_AG; i += nt) {
       const int row = i / DW_AG, a = a0 + (i - row * DW_AG), n = n0 + row;
       float v = 0.f;
       if (n < n_end && a < A)
-        v = a < C ? x[(size_t)n * C + a]
-                  : (a < C + H ? hp[(size_t)n * H + (a - C)] : 1.f);
+        v = a < C ? ldf(x, (size_t)n * C + a)
+                  : (a < C + H ? ldf(hp, (size_t)n * H + (a - C)) : 1.f);
       at[i] = v;
     }
     __syncthreads();
@@ -414,18 +520,26 @@ __global__ void __launch_bounds__(1024) slab_dw_partial_kernel(
     if (a0 + a < A) part[((size_t)chunk * A + a0 + a) * H4 + col] = acc[a];
 }
 
-// Sum the partials over the chunks in order: dW_ih, dW_hh, db.
+// Sum the partials over the chunks in order: dW_ih, dW_hh, db. In the mixed
+// mode db sums the walk's per-tile fp32 sums db_part [n_tiles, 4H] instead
+// (the partials' ones row summed the bf16-rounded gate gradients).
+template <bool M>
 __global__ void slab_dw_reduce_kernel(const float* __restrict__ part,
+                                      const float* __restrict__ db_part,
                                       float* __restrict__ dw_ih,
                                       float* __restrict__ dw_hh,
                                       float* __restrict__ db, int n_chunks,
-                                      int C, int H) {
+                                      int n_tiles, int C, int H) {
   const int H4 = 4 * H, A = C + H + 1;
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= A * H4) return;
-  float s = 0.f;
-  for (int k = 0; k < n_chunks; ++k) s += part[(size_t)k * A * H4 + o];
   const int a = o / H4, col = o - a * H4;
+  float s = 0.f;
+  if (M && a == C + H) {
+    for (int k = 0; k < n_tiles; ++k) s += db_part[(size_t)k * H4 + col];
+  } else {
+    for (int k = 0; k < n_chunks; ++k) s += part[(size_t)k * A * H4 + o];
+  }
   if (a < C) dw_ih[(size_t)a * H4 + col] = s;
   else if (a < C + H) dw_hh[(size_t)(a - C) * H4 + col] = s;
   else db[col] = s;
@@ -437,72 +551,142 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-}  // namespace
-
-extern "C" size_t sbt_lstm_slab_fwd_smem(int C, int H) {
+size_t fwd_smem(int C, int H) {
   return (size_t)(C + H) * H * 16 + (size_t)2 * RT * (C + H) * 4;
 }
 
-extern "C" size_t sbt_lstm_slab_bwd_smem(int C, int H) {
+size_t bwd_smem(int C, int H) {
   return (size_t)(C + H) * H * 16 + (size_t)4 * H * H * 4 +
          (size_t)KMAX * RT * (C + H) * 4 + (size_t)2 * RT * 4 * H * 4;
 }
 
-extern "C" int sbt_lstm_slab_fwd(const float* x, const float* w_ih,
-                                 const float* w_hh, const float* b,
-                                 const float* h0, const float* c0, float* ys,
-                                 float* hT, float* cT, float* c_ckpt, int T,
-                                 int R, int C, int H, int kf, int reverse,
-                                 void* stream) {
-  cudaGetLastError();  // clear an error left by an earlier call
-  const size_t smem = sbt_lstm_slab_fwd_smem(C, H);
-  int err = set_smem((const void*)slab_fwd_kernel, smem);
+template <typename XT, typename WT>
+int slab_fwd(const void* x, const void* w_ih, const void* w_hh,
+             const void* b, const float* h0, const float* c0, void* ys,
+             float* hT, float* cT, float* c_ckpt, int T, int R, int C, int H,
+             int kf, int reverse, cudaStream_t st) {
+  const size_t smem = fwd_smem(C, H);
+  int err = set_smem((const void*)slab_fwd_kernel<XT, WT>, smem);
   if (err) return err;
   const int blocks = (R + RT - 1) / RT;
-  slab_fwd_kernel<<<blocks, G * H, smem, (cudaStream_t)stream>>>(
-      x, w_ih, w_hh, b, h0, c0, ys, hT, cT, c_ckpt, T, R, C, H, kf, reverse);
+  slab_fwd_kernel<XT, WT><<<blocks, G * H, smem, st>>>(
+      (const XT*)x, (const WT*)w_ih, (const WT*)w_hh, (const WT*)b, h0, c0,
+      (XT*)ys, hT, cT, c_ckpt, T, R, C, H, kf, reverse);
   return (int)cudaGetLastError();
 }
 
-// Scratch from the caller: dg [T*R*4H], part [n_chunks*(C+H+1)*4H].
-extern "C" int sbt_lstm_slab_bwd(const float* x, const float* hp,
-                                 const float* c_ckpt, const float* dy,
-                                 const float* w_ih, const float* w_hh,
-                                 const float* b, const float* dhT,
-                                 const float* dcT, float* dx, float* dw_ih,
-                                 float* dw_hh, float* db, float* dh0,
-                                 float* dc0, float* dg, float* part, int T,
-                                 int R, int C, int H, int kf, int reverse,
-                                 int n_chunks, void* stream) {
-  cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename XT, typename WT>
+int slab_bwd(const void* x, const void* hp, const float* c_ckpt,
+             const void* dy, const void* w_ih, const void* w_hh,
+             const void* b, const float* dhT, const float* dcT, void* dx,
+             float* dw_ih, float* dw_hh, float* db, float* dh0, float* dc0,
+             void* dg, float* part, float* db_part, int T, int R, int C,
+             int H, int kf, int reverse, int n_chunks, cudaStream_t st) {
+  constexpr bool M = kMixed<XT, WT>;
+  using GT = GateT<XT, WT>;
   const int H4 = 4 * H, N = T * R, A = C + H + 1;
+  const int n_tiles = (R + RT - 1) / RT;
 
-  const size_t smem_walk = sbt_lstm_slab_bwd_smem(C, H);
-  int err = set_smem((const void*)slab_bwd_walk_kernel, smem_walk);
+  const size_t smem_walk = bwd_smem(C, H);
+  int err = set_smem((const void*)slab_bwd_walk_kernel<XT, WT>, smem_walk);
   if (err) return err;
-  slab_bwd_walk_kernel<<<(R + RT - 1) / RT, G * H, smem_walk, st>>>(
-      x, hp, c_ckpt, dy, w_ih, w_hh, b, dhT, dcT, dg, dh0, dc0, T, R, C, H,
-      kf, reverse);
+  slab_bwd_walk_kernel<XT, WT><<<n_tiles, G * H, smem_walk, st>>>(
+      (const XT*)x, (const WT*)hp, c_ckpt, (const XT*)dy, (const WT*)w_ih,
+      (const WT*)w_hh, (const WT*)b, dhT, dcT, (GT*)dg, db_part, dh0, dc0, T,
+      R, C, H, kf, reverse);
   if ((err = (int)cudaGetLastError())) return err;
 
   const size_t smem_dx = (size_t)(H4 * C + DX_ROWS * H4) * 4;
-  if ((err = set_smem((const void*)slab_dx_kernel, smem_dx))) return err;
+  if ((err = set_smem((const void*)slab_dx_kernel<XT, WT, GT>, smem_dx)))
+    return err;
   const int dx_tiles = (N + DX_ROWS - 1) / DX_ROWS;
-  slab_dx_kernel<<<dx_tiles < 1056 ? dx_tiles : 1056, 256, smem_dx, st>>>(
-      dg, w_ih, dx, N, C, H);
+  slab_dx_kernel<XT, WT, GT><<<dx_tiles < 1056 ? dx_tiles : 1056, 256,
+                               smem_dx, st>>>(
+      (const GT*)dg, (const WT*)w_ih, (XT*)dx, N, C, H);
   if ((err = (int)cudaGetLastError())) return err;
 
   const int chunk_rows = (N + n_chunks - 1) / n_chunks;
   const size_t smem_dw = (size_t)(DW_TILE * H4 + DW_TILE * DW_AG) * 4;
-  if ((err = set_smem((const void*)slab_dw_partial_kernel, smem_dw)))
+  if ((err = set_smem((const void*)slab_dw_partial_kernel<XT, WT, GT>,
+                      smem_dw)))
     return err;
   dim3 grid(n_chunks, (A + DW_AG - 1) / DW_AG);
-  slab_dw_partial_kernel<<<grid, H4, smem_dw, st>>>(x, hp, dg, part, N, C, H,
-                                                    chunk_rows);
+  slab_dw_partial_kernel<XT, WT, GT><<<grid, H4, smem_dw, st>>>(
+      (const XT*)x, (const WT*)hp, (const GT*)dg, part, N, C, H, chunk_rows);
   if ((err = (int)cudaGetLastError())) return err;
 
-  slab_dw_reduce_kernel<<<(A * H4 + 255) / 256, 256, 0, st>>>(
-      part, dw_ih, dw_hh, db, n_chunks, C, H);
+  slab_dw_reduce_kernel<M><<<(A * H4 + 255) / 256, 256, 0, st>>>(
+      part, db_part, dw_ih, dw_hh, db, n_chunks, n_tiles, C, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
+// 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); hp has the
+// weights' type, dy and dx the activations'.
+extern "C" size_t sbt_lstm_slab_fwd_smem(int C, int H) {
+  return fwd_smem(C, H);
+}
+
+extern "C" size_t sbt_lstm_slab_bwd_smem(int C, int H) {
+  return bwd_smem(C, H);
+}
+
+extern "C" int sbt_lstm_slab_fwd(const void* x, const void* w_ih,
+                                 const void* w_hh, const void* b,
+                                 const float* h0, const float* c0, void* ys,
+                                 float* hT, float* cT, float* c_ckpt, int T,
+                                 int R, int C, int H, int kf, int reverse,
+                                 int dtypes, void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtypes) {
+    case 0:
+      return slab_fwd<float, float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                    c_ckpt, T, R, C, H, kf, reverse, st);
+    case 1:
+      return slab_fwd<bf16, bf16>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                  c_ckpt, T, R, C, H, kf, reverse, st);
+    case 2:
+      return slab_fwd<bf16, float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                   c_ckpt, T, R, C, H, kf, reverse, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Scratch from the caller: dg [T*R*4H] (bf16 in the mixed mode),
+// part [n_chunks*(C+H+1)*4H], db_part [ceil(R/8)*4H] (mixed mode only).
+extern "C" int sbt_lstm_slab_bwd(const void* x, const void* hp,
+                                 const float* c_ckpt, const void* dy,
+                                 const void* w_ih, const void* w_hh,
+                                 const void* b, const float* dhT,
+                                 const float* dcT, void* dx, float* dw_ih,
+                                 float* dw_hh, float* db, float* dh0,
+                                 float* dc0, void* dg, float* part,
+                                 float* db_part, int T, int R, int C, int H,
+                                 int kf, int reverse, int n_chunks,
+                                 int dtypes, void* stream) {
+  cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtypes) {
+    case 0:
+      return slab_bwd<float, float>(x, hp, c_ckpt, dy, w_ih, w_hh, b, dhT,
+                                    dcT, dx, dw_ih, dw_hh, db, dh0, dc0, dg,
+                                    part, db_part, T, R, C, H, kf, reverse,
+                                    n_chunks, st);
+    case 1:
+      return slab_bwd<bf16, bf16>(x, hp, c_ckpt, dy, w_ih, w_hh, b, dhT,
+                                  dcT, dx, dw_ih, dw_hh, db, dh0, dc0, dg,
+                                  part, db_part, T, R, C, H, kf, reverse,
+                                  n_chunks, st);
+    case 2:
+      return slab_bwd<bf16, float>(x, hp, c_ckpt, dy, w_ih, w_hh, b, dhT,
+                                   dcT, dx, dw_ih, dw_hh, db, dh0, dc0, dg,
+                                   part, db_part, T, R, C, H, kf, reverse,
+                                   n_chunks, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,9 +4,20 @@
 Covers the production configuration (`syn_experiments/finetune_stage.json`,
 `runs/finetune_r5/config.json`: plain intra BLSTM, `dis_type` conv3) and the
 edge configurations (`real_experiments/*.json`: `conv_lstm=True`,
-unconditioned), in fp32. Attention, STFT look-back, the linear `dis_type`s
-and the bf16 trunk (`compute_dtype="bf16"`) raise NotImplementedError
-(ROADMAP Queue 1). `remat` changes only memory and is accepted and ignored.
+unconditioned), in fp32 and with the bf16 trunk (`compute_dtype="bf16"`).
+Attention, STFT look-back and the linear `dis_type`s raise
+NotImplementedError (ROADMAP Queue 1). `remat` changes only memory and is
+accepted and ignored.
+
+The bf16 trunk follows the JAX package's mixed precision: the STFT, the
+spatial features and the iSTFT run in float32; the features, the streaming
+state and the distance embedding are cast to bf16; LayerNorm takes its
+statistics in float32 and returns its input's dtype; convolutions follow the
+activation dtype. Every product of two dtypes takes JAX's promotion
+(bf16 x float32 -> float32; `ops.rnn.matmul`), since torch.matmul refuses
+mixed operands: with float32 params (`train_pt --bf16`) the first Linear
+after a bf16 activation returns float32, as in JAX; with bf16 params
+(`cast_bf16`, `train_stream --bf16`) the trunk stays bf16.
 
 Layouts follow the JAX package so the two compare array for array:
 activations are channel-minor `[B, T, F, C]`; parameters keep the JAX names
@@ -35,12 +46,11 @@ from torch import nn
 from sound_bubble_tpu_torch.constants import BUBBLE_RADII
 from sound_bubble_tpu_torch.ops.features import spatial_features
 from sound_bubble_tpu_torch.ops.init import lstm_init, uniform_fan
-from sound_bubble_tpu_torch.ops.rnn import blstm, lstm
+from sound_bubble_tpu_torch.ops.rnn import blstm, lstm, matmul
 from sound_bubble_tpu_torch.ops.stft import (
     STFT, istft, make_stft, mod_pad, stft)
 
 _VARIANTS_LATER = "is not ported yet (ROADMAP Queue 1 item 9)"
-_BF16_LATER = "is not ported yet (ROADMAP Queue 1 item 2)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +126,9 @@ def check_supported(cfg: NetConfig) -> None:
         raise NotImplementedError(f"stft_back_pad>0 {_VARIANTS_LATER}")
     if cfg.conditional and not cfg.dis_type.startswith("conv"):
         raise NotImplementedError(f"dis_type={cfg.dis_type} {_VARIANTS_LATER}")
-    if cfg.compute_dtype == "bf16":
-        raise NotImplementedError(f"compute_dtype='bf16' {_BF16_LATER}")
+    if cfg.compute_dtype not in (None, "bf16"):
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: None or "
+                         "'bf16'")
 
 
 def make_config(model_params: dict, conditional: bool = True) -> NetConfig:
@@ -190,7 +201,9 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return TF.layer_norm(x, (self.dim,), self.scale, self.bias, self.eps)
+        # statistics in float32 under a bf16 trunk, output in x's dtype
+        return TF.layer_norm(x.float(), (self.dim,), self.scale.float(),
+                             self.bias.float(), self.eps).to(x.dtype)
 
 
 class Linear(nn.Module):
@@ -206,7 +219,7 @@ class Linear(nn.Module):
         _init_uniform(generator, self.kernel.shape[0], self.kernel, self.bias)
 
     def forward(self, x):
-        y = x @ self.kernel
+        y = matmul(x, self.kernel)
         return y if self.bias is None else y + self.bias
 
 
@@ -220,7 +233,12 @@ class PReLU(nn.Module):
         self.alpha.fill_(0.25)
 
     def forward(self, x):
-        return torch.clamp(x, min=0) + self.alpha * torch.clamp(x, max=0)
+        # JAX promotes with the float32 slope (torch would keep x's dtype
+        # for a 0-dim operand)
+        dt = torch.promote_types(x.dtype, self.alpha.dtype)
+        x = x.to(dt)
+        return torch.clamp(x, min=0) + self.alpha.to(dt) * torch.clamp(x,
+                                                                       max=0)
 
 
 class CausalConv2d(nn.Module):
@@ -237,9 +255,11 @@ class CausalConv2d(nn.Module):
         _init_uniform(generator, kt * kf * cin, self.kernel, self.bias)
 
     def _conv(self, x, kernel):
-        y = TF.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                      self.bias, padding=(0, 1))
-        return y.permute(0, 2, 3, 1)
+        # follows the activation dtype; the bias is added after the
+        # convolution, in that dtype, as in JAX
+        y = TF.conv2d(x.permute(0, 3, 1, 2),
+                      kernel.to(x.dtype).permute(3, 2, 0, 1), padding=(0, 1))
+        return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
 
     def forward(self, x):
         return self._conv(x, self.kernel)
@@ -340,7 +360,9 @@ class IntraBand(nn.Module):
         z = x.reshape(B * T, F, C)[:, :k * s].reshape(B * T, k, s * C)
         z = self.norm(self.act(self.down(z)))
         z = blstm(self.blstm, z)                          # [BT, k, 2H]
-        z = torch.einsum("btH,Hsc->btsc", z, self.up_kernel) + self.up_bias
+        dt = torch.promote_types(z.dtype, self.up_kernel.dtype)
+        z = torch.einsum("btH,Hsc->btsc", z.to(dt),
+                         self.up_kernel.to(dt)) + self.up_bias
         z = TF.pad(z.reshape(B * T, k * s, C), (0, 0, 0, F - k * s))
         return z.reshape(B, T, F, C)
 
@@ -414,19 +436,27 @@ class Net(nn.Module):
 
     def init_buffers(self, batch_size):
         p = next(self.parameters())
-        return init_state(self.cfg, batch_size, p.device)
+        return init_state(self.cfg, batch_size, p.device, self.trunk_dtype())
+
+    def trunk_dtype(self, dtype=torch.float32):
+        """bf16 under `compute_dtype="bf16"`, else `dtype` (the input's)."""
+        return torch.bfloat16 if self.cfg.compute_dtype == "bf16" else dtype
 
     def forward(self, inputs, input_state=None, pad=True):
         cfg = self.cfg
         x = inputs["mixture"]
         if input_state is None:
-            input_state = init_state(cfg, x.shape[0], x.device)
+            input_state = init_state(cfg, x.shape[0], x.device,
+                                     self.trunk_dtype(x.dtype))
         mod = 0
         if pad:
             psz = ((cfg.stft_back_pad, cfg.stft_pad_size)
                    if cfg.lookahead else (0, 0))
             x, mod = mod_pad(x, cfg.stft_chunk_size, psz)
-        emb = self.dis_embed(inputs["dis_embed"]) if cfg.conditional else None
+        emb = None
+        if cfg.conditional:
+            emb = self.dis_embed(inputs["dis_embed"]).to(
+                self.trunk_dtype(x.dtype))
         y, next_state = self.core(x, emb, input_state)
         if mod:
             y = y[..., :-mod]
@@ -437,12 +467,14 @@ class Net(nn.Module):
         (h [B, T, F, D], spec [B, M, T, 2F])."""
         cfg = self.cfg
         F = cfg.n_freqs
-        spec = stft(self.filterbank(), x)                 # [B, M, T, 2F]
+        # the STFT and the features in float32 (a bf16 trunk starts after)
+        spec = stft(self.filterbank(), x.float())         # [B, M, T, 2F]
         real, imag = spec[..., :F], spec[..., F:]
         feat = torch.movedim(torch.cat([real, imag], dim=1), 1, -1)
         if cfg.merge_method == "early_cat":
             feat = torch.cat(
                 [feat, spatial_features(real, imag, cfg.directional)], dim=-1)
+        feat = feat.to(self.trunk_dtype(x.dtype))
         full = torch.cat([state["conv_buf"], feat], dim=1)
         next_state["conv_buf"] = full[:, -2:]
         h = self.conv(full)                               # [B, T, F, D]
@@ -457,13 +489,16 @@ class Net(nn.Module):
         B, T, F, _ = h.shape
         full = torch.cat([state["deconv_buf"], h], dim=1)
         next_state["deconv_buf"] = full[:, -2:]
-        out = self.deconv(full).reshape(B, T, F, cfg.num_src, 2)
+        # the iSTFT back-end in float32
+        out = self.deconv(full).float().reshape(B, T, F, cfg.num_src, 2)
         est = torch.cat([out[..., 0].permute(0, 3, 1, 2),
                          out[..., 1].permute(0, 3, 1, 2)], dim=-1)
         if cfg.spectral_masking:
             est = est * spec[:, :cfg.num_src]
         full_spec = torch.cat([state["istft_buf"], est], dim=2)
-        next_state["istft_buf"] = full_spec[:, :, -cfg.istft_lookback:]
+        # the carried state keeps its dtype
+        next_state["istft_buf"] = full_spec[:, :, -cfg.istft_lookback:].to(
+            state["istft_buf"].dtype)
         y = istft(self.filterbank(), full_spec)
         y = y[..., :-(cfg.n_fft - cfg.stft_chunk_size)]
         return y[..., cfg.istft_lookback * cfg.stft_chunk_size:]

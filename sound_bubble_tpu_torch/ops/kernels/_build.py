@@ -78,9 +78,9 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step_conv.argtypes = (
                 [ptr] * 27 + [i32] * 6 + [ctypes.c_float, ptr])
             lib.sbt_stack_step_conv.restype = i32
-            lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
-            lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
+            lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_bwd.restype = i32
             for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_slab_bwd_smem):
                 fn.argtypes = [i32, i32]

@@ -1,20 +1,33 @@
 """Single-direction LSTM training scans over K-frame slabs, forward and
 backward: port of `sound_bubble_tpu/ops/pallas/lstm_train_slab.py`
-(`lstm_slab_fwd`, `lstm_slab_bwd`, the custom-VJP `lstm_slab`), fp32.
+(`lstm_slab_fwd`, `lstm_slab_bwd`, the custom-VJP `lstm_slab`), in float32
+and in the mixed mode.
 
 `lstm_slab_fwd` / `lstm_slab_bwd` launch the hand-written CUDA kernels of
 `sound_bubble_tpu_torch/csrc/lstm_slab.cu` for tensors on the card and run
 `lstm_slab_fwd_ref` / `lstm_slab_bwd_ref`, their plain PyTorch versions (the
 same slab algorithm), for tensors on the CPU. A CUDA tensor goes to the kernel
-or the call raises: bf16 raises NotImplementedError (the mixed mode of the
-TPU kernel is not ported yet). `lstm_slab` is the `torch.autograd.Function`
-over the two; `ops/rnn.py` routes every LSTM scan with T >= 2 through it.
+or the call raises. `lstm_slab` is the `torch.autograd.Function` over the
+two; `ops/rnn.py` routes every LSTM scan with T >= 2 through it.
 
 Layouts (JAX package): x [T, R, C] scan-major, w_ih [C, 4H], w_hh [H, 4H],
 one folded bias b [4H], gate order [i, f, g, o]; h0/c0 [R, H]. The forward
 also returns c_ckpt [nb, R, H], the cell state entering each slab's first
 processed frame (its last index in the reverse direction), nb = ceil(T/K)
 with K = min(8, T).
+
+Dtypes. The operands the two recipes hand the scans (`DTYPES`): all float32;
+bf16 activations and weights (`cast_bf16` on the params, as the campaign
+trainer `train_stream --bf16` runs); bf16 activations with float32 weights
+(`train_pt --bf16`: the trunk is bf16, the params stay float32). bf16
+anywhere is the mixed mode, which rounds where the Pallas kernel rounds:
+gx = x@W_ih + b stays float32; gates = bf16(gx + bf16(h)@W_hh); every
+sigmoid / tanh is taken in float32 on the bf16 value and rounded to bf16;
+c_t = f*c + bf16(i*g) in float32; h_t = bf16(o * bf16(tanh(bf16(c_t)))).
+The backward recomputes the gates the same way, keeps the gate gradients
+in float32 for db, and rounds them to bf16 for dh = dg@W_hh^T, dx = dg@W_ih^T
+and the weight gradients (float32 accumulation throughout). ys and dx come
+back in x's dtype; hT, cT, c_ckpt, dW, db, dh0, dc0 in float32.
 """
 from __future__ import annotations
 
@@ -25,6 +38,10 @@ from sound_bubble_tpu_torch.ops.kernels import _build
 K = 8                        # frames per slab (the TPU kernel's K)
 SMEM_LIMIT_BYTES = 232448    # dynamic shared memory one H100 block can use
 DW_CHUNKS = 128              # row chunks of the weight-gradient partials
+F32, BF16 = torch.float32, torch.bfloat16
+# (x dtype, weight dtype) pairs the kernels take; the code the C entry points
+# dispatch on is the pair's index
+DTYPES = ((F32, F32), (BF16, BF16), (BF16, F32))
 
 
 def n_slabs(t_len: int) -> tuple[int, int]:
@@ -33,101 +50,135 @@ def n_slabs(t_len: int) -> tuple[int, int]:
     return kf, -(-t_len // kf)
 
 
-def _act(gates, hidden):
-    i = torch.sigmoid(gates[..., :hidden])
-    f = torch.sigmoid(gates[..., hidden:2 * hidden])
-    g = torch.tanh(gates[..., 2 * hidden:3 * hidden])
-    o = torch.sigmoid(gates[..., 3 * hidden:])
-    return i, f, g, o
+def is_mixed(x, w_hh) -> bool:
+    return BF16 in (x.dtype, w_hh.dtype)
+
+
+def sigmoid_q(v):
+    """sigmoid in float32 on v, rounded to v's dtype (the Pallas `_sig`)."""
+    return torch.sigmoid(v.float()).to(v.dtype)
+
+
+def tanh_q(v):
+    """tanh in float32 on v, rounded to v's dtype (the Pallas `_tanh`)."""
+    return torch.tanh(v.float()).to(v.dtype)
+
+
+def act(gates, hidden):
+    """(i, f, g, o) of the gate pre-activations, in the gates' dtype."""
+    return (sigmoid_q(gates[..., :hidden]),
+            sigmoid_q(gates[..., hidden:2 * hidden]),
+            tanh_q(gates[..., 2 * hidden:3 * hidden]),
+            sigmoid_q(gates[..., 3 * hidden:]))
+
+
+def _mm(a, b):
+    """a @ b with float32 accumulation (exact products of bf16 operands)."""
+    return a.float() @ b.float()
 
 
 # ------------------------------------------------------ plain PyTorch ----
 
 def lstm_slab_fwd_ref(w_ih, w_hh, b, x, h0, c0, reverse: bool):
-    """Plain version of the forward kernel. Returns (ys [T, R, H], hT, cT
-    [R, H], c_ckpt [nb, R, H])."""
+    """Plain version of the forward kernel. Returns (ys [T, R, H] in x's
+    dtype, hT, cT [R, H], c_ckpt [nb, R, H] float32)."""
     t_len, r, _ = x.shape
     hidden = w_hh.shape[0]
     kf, nb = n_slabs(t_len)
+    gdt = BF16 if is_mixed(x, w_hh) else F32
     ys = x.new_empty(t_len, r, hidden)
-    c_ckpt = x.new_empty(nb, r, hidden)
-    h, c = h0, c0
+    c_ckpt = torch.empty(nb, r, hidden, dtype=F32, device=x.device)
+    h, c = h0.float(), c0.float()
     for js in range(nb):
         blk = nb - 1 - js if reverse else js
         lo, hi = blk * kf, min(t_len, blk * kf + kf)
         c_ckpt[blk] = c
-        gx = x[lo:hi] @ w_ih + b                     # one slab projection
+        gx = _mm(x[lo:hi], w_ih) + b.float()         # one slab projection
         for t in (range(hi - 1, lo - 1, -1) if reverse else range(lo, hi)):
-            i, f, g, o = _act(gx[t - lo] + h @ w_hh, hidden)
-            c = f * c + i * g
-            h = o * torch.tanh(c)
-            ys[t] = h
+            gates = (gx[t - lo] + _mm(h.to(gdt), w_hh)).to(gdt)
+            i, f, g, o = act(gates, hidden)
+            c = f.float() * c + (i * g).float()
+            h_t = o * tanh_q(c.to(gdt))
+            ys[t] = h_t
+            h = h_t.float()
     return ys, h, c, c_ckpt
 
 
 def lstm_slab_bwd_ref(w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT,
                       reverse: bool):
     """Plain version of the backward kernel. hp [T, R, H] is the h entering
-    each frame. Returns (dx [T, R, C], dw_ih, dw_hh, db, dh0, dc0)."""
+    each frame. Returns (dx [T, R, C] in x's dtype, dw_ih, dw_hh, db, dh0,
+    dc0 float32)."""
     t_len, r, c_in = x.shape
     hidden = w_hh.shape[0]
     kf, nb = n_slabs(t_len)
+    gdt = BF16 if is_mixed(x, w_hh) else F32
     dx = torch.empty_like(x)
-    dw_ih = torch.zeros_like(w_ih)
-    dw_hh = torch.zeros_like(w_hh)
-    db = torch.zeros_like(b)
-    dh, dc = dhT, dcT
+    dw_ih = torch.zeros(w_ih.shape, dtype=F32, device=x.device)
+    dw_hh = torch.zeros(w_hh.shape, dtype=F32, device=x.device)
+    db = torch.zeros(b.shape, dtype=F32, device=x.device)
+    dh, dc = dhT.float(), dcT.float()
     for js in range(nb):
         blk = js if reverse else nb - 1 - js
         lo, hi = blk * kf, min(t_len, blk * kf + kf)
         order = list(range(hi - 1, lo - 1, -1) if reverse else range(lo, hi))
         # re-forward the slab's cell states from its checkpoint
-        acts = _act(x[lo:hi] @ w_ih + hp[lo:hi] @ w_hh + b, hidden)
+        gates = ((_mm(x[lo:hi], w_ih) + _mm(hp[lo:hi], w_hh)) + b.float()
+                 ).to(gdt)
+        acts = act(gates, hidden)
         c = c_ckpt[blk]
         c_prev = {}
         for t in order:
             i, f, g, _ = (a[t - lo] for a in acts)
             c_prev[t] = c
-            c = f * c + i * g
+            c = f.float() * c + (i * g).float()
+        acts = [a.float() for a in acts]
         # reverse walk: gate gradients and the (dh, dc) chain
-        dgs = x.new_empty(hi - lo, r, 4 * hidden)
+        dgs = torch.empty(hi - lo, r, 4 * hidden, dtype=gdt, device=x.device)
         for t in reversed(order):
             i, f, g, o = (a[t - lo] for a in acts)
             cp = c_prev[t]
-            tc = torch.tanh(f * cp + i * g)
-            d = dy[t] + dh
+            tc = tanh_q((f * cp + i * g).to(gdt)).float()
+            d = dy[t].float() + dh
             dc = dc + d * o * (1.0 - tc * tc)
-            dgs[t - lo] = torch.cat([dc * g * i * (1.0 - i),
-                                     dc * cp * f * (1.0 - f),
-                                     dc * i * (1.0 - g * g),
-                                     d * tc * o * (1.0 - o)], dim=-1)
-            dh = dgs[t - lo] @ w_hh.T
+            dgates = torch.cat([dc * g * i * (1.0 - i),
+                                dc * cp * f * (1.0 - f),
+                                dc * i * (1.0 - g * g),
+                                d * tc * o * (1.0 - o)], dim=-1)
+            db += dgates.sum(dim=0)
+            dgs[t - lo] = dgates
+            dh = _mm(dgs[t - lo], w_hh.T)
             dc = dc * f
-        dx[lo:hi] = dgs @ w_ih.T
+        dx[lo:hi] = _mm(dgs, w_ih.T)
         dg2 = dgs.reshape(-1, 4 * hidden)
-        dw_ih += x[lo:hi].reshape(-1, c_in).T @ dg2
-        dw_hh += hp[lo:hi].reshape(-1, hidden).T @ dg2
-        db += dg2.sum(dim=0)
+        dw_ih += _mm(x[lo:hi].reshape(-1, c_in).to(gdt).T, dg2)
+        dw_hh += _mm(hp[lo:hi].reshape(-1, hidden).T, dg2)
     return dx, dw_ih, dw_hh, db, dh, dc
 
 
 # --------------------------------------------------------- CUDA kernels ----
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: bfloat16 (the mixed mode of the slab kernels) is not "
-            "ported yet; the CUDA kernels take float32")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _dtype_code(x, w_hh) -> int:
+    """Index into DTYPES of (x.dtype, w_hh.dtype); any other pair raises."""
+    pair = (x.dtype, w_hh.dtype)
+    if pair not in DTYPES:
+        raise TypeError(
+            f"x {x.dtype} with weights {w_hh.dtype}: the slab kernels take "
+            "(x, weights) in " + ", ".join(f"({a}, {b})" for a, b in DTYPES))
+    return DTYPES.index(pair)
 
 
 def _check_dims(x, w_hh, smem_fn):
@@ -154,71 +205,90 @@ def _stream(dev):
 
 def _launch_fwd(w_ih, w_hh, b, x, h0, c0, reverse):
     dev = x.device
-    _check("x", x, x.shape, dev)
+    _check("x", x, x.shape, dev, x.dtype)
+    _check("w_hh", w_hh, w_hh.shape, dev, w_hh.dtype)
+    code = _dtype_code(x, w_hh)
+    wdt = w_hh.dtype
     lib = _build.load_library()
     t_len, r, c_in, hidden = _check_dims(x, w_hh, lib.sbt_lstm_slab_fwd_smem)
-    for name, t, shape in (("w_ih", w_ih, (c_in, 4 * hidden)),
-                           ("w_hh", w_hh, (hidden, 4 * hidden)),
-                           ("b", b, (4 * hidden,)), ("h0", h0, (r, hidden)),
-                           ("c0", c0, (r, hidden))):
-        _check(name, t, shape, dev)
+    for name, t, shape, dt in (("w_ih", w_ih, (c_in, 4 * hidden), wdt),
+                               ("w_hh", w_hh, (hidden, 4 * hidden), wdt),
+                               ("b", b, (4 * hidden,), wdt),
+                               ("h0", h0, (r, hidden), F32),
+                               ("c0", c0, (r, hidden), F32)):
+        _check(name, t, shape, dev, dt)
     kf, nb = n_slabs(t_len)
-    ys = torch.empty((t_len, r, hidden), dtype=torch.float32, device=dev)
-    hT = torch.empty((r, hidden), dtype=torch.float32, device=dev)
+    ys = torch.empty((t_len, r, hidden), dtype=x.dtype, device=dev)
+    hT = torch.empty((r, hidden), dtype=F32, device=dev)
     cT = torch.empty_like(hT)
-    c_ckpt = torch.empty((nb, r, hidden), dtype=torch.float32, device=dev)
+    c_ckpt = torch.empty((nb, r, hidden), dtype=F32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sbt_lstm_slab_fwd(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hT.data_ptr(),
             cT.data_ptr(), c_ckpt.data_ptr(), t_len, r, c_in, hidden, kf,
-            int(bool(reverse)), _stream(dev))
+            int(bool(reverse)), code, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_slab_fwd kernel launch failed: CUDA error "
                            f"{rc}")
-    lstm_slab_fwd.launches += 1
+    if code:
+        lstm_slab_fwd.mixed_launches += 1
+    else:
+        lstm_slab_fwd.launches += 1
     return ys, hT, cT, c_ckpt
 
 
 def _launch_bwd(w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT, reverse):
     dev = x.device
-    _check("x", x, x.shape, dev)
+    _check("x", x, x.shape, dev, x.dtype)
+    _check("w_hh", w_hh, w_hh.shape, dev, w_hh.dtype)
+    code = _dtype_code(x, w_hh)
+    xdt, wdt = x.dtype, w_hh.dtype
     lib = _build.load_library()
     t_len, r, c_in, hidden = _check_dims(x, w_hh, lib.sbt_lstm_slab_bwd_smem)
     kf, nb = n_slabs(t_len)
-    for name, t, shape in (("w_ih", w_ih, (c_in, 4 * hidden)),
-                           ("w_hh", w_hh, (hidden, 4 * hidden)),
-                           ("b", b, (4 * hidden,)),
-                           ("hp", hp, (t_len, r, hidden)),
-                           ("c_ckpt", c_ckpt, (nb, r, hidden)),
-                           ("dy", dy, (t_len, r, hidden)),
-                           ("dhT", dhT, (r, hidden)),
-                           ("dcT", dcT, (r, hidden))):
-        _check(name, t, shape, dev)
+    for name, t, shape, dt in (("w_ih", w_ih, (c_in, 4 * hidden), wdt),
+                               ("w_hh", w_hh, (hidden, 4 * hidden), wdt),
+                               ("b", b, (4 * hidden,), wdt),
+                               ("hp", hp, (t_len, r, hidden), wdt),
+                               ("c_ckpt", c_ckpt, (nb, r, hidden), F32),
+                               ("dy", dy, (t_len, r, hidden), xdt),
+                               ("dhT", dhT, (r, hidden), F32),
+                               ("dcT", dcT, (r, hidden), F32)):
+        _check(name, t, shape, dev, dt)
     n_rows = t_len * r
     n_chunks = max(1, min(DW_CHUNKS, -(-n_rows // 256)))
+    n_tiles = -(-r // 8)                  # row tiles of the walk kernel
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
     dx = torch.empty_like(x)
     dw_ih, dw_hh, db = empty(c_in, 4 * hidden), empty(hidden, 4 * hidden), \
         empty(4 * hidden)
     dh0, dc0 = empty(r, hidden), empty(r, hidden)
-    dg = empty(n_rows, 4 * hidden)                          # scratch
-    part = empty(n_chunks, c_in + hidden + 1, 4 * hidden)   # scratch
+    # scratch: the gate gradients (bf16 in the mixed mode, as the Pallas
+    # kernel's g_s), the weight-gradient partials, and in the mixed mode the
+    # walk's per-tile float32 sums of the gate gradients (db)
+    dg = empty(n_rows, 4 * hidden, dtype=BF16 if code else F32)
+    part = empty(n_chunks, c_in + hidden + 1, 4 * hidden)
+    db_part = empty(n_tiles if code else 1, 4 * hidden)
     with torch.cuda.device(dev):
         rc = lib.sbt_lstm_slab_bwd(
             x.data_ptr(), hp.data_ptr(), c_ckpt.data_ptr(), dy.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), dhT.data_ptr(),
             dcT.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(),
             dw_hh.data_ptr(), db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            dg.data_ptr(), part.data_ptr(), t_len, r, c_in, hidden, kf,
-            int(bool(reverse)), n_chunks, _stream(dev))
+            dg.data_ptr(), part.data_ptr(), db_part.data_ptr(), t_len, r,
+            c_in, hidden, kf, int(bool(reverse)), n_chunks, code,
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_slab_bwd kernel launch failed: CUDA error "
                            f"{rc}")
-    lstm_slab_bwd.launches += 1
+    if code:
+        lstm_slab_bwd.mixed_launches += 1
+    else:
+        lstm_slab_bwd.launches += 1
     return dx, dw_ih, dw_hh, db, dh0, dc0
 
 
@@ -232,7 +302,8 @@ def _dispatch(x, kernel, plain, args):
 
 def lstm_slab_fwd(w_ih, w_hh, b, x, h0, c0, reverse: bool):
     """Forward scan: the CUDA kernel for CUDA tensors
-    (`lstm_slab_fwd.launches` counts its launches), the plain version for
+    (`lstm_slab_fwd.launches` counts the float32 instantiation's launches,
+    `lstm_slab_fwd.mixed_launches` the mixed ones'), the plain version for
     CPU tensors. Returns (ys, hT, cT, c_ckpt)."""
     return _dispatch(x, _launch_fwd, lstm_slab_fwd_ref,
                      (w_ih, w_hh, b, x, h0, c0, reverse))
@@ -241,24 +312,29 @@ def lstm_slab_fwd(w_ih, w_hh, b, x, h0, c0, reverse: bool):
 def lstm_slab_bwd(w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT,
                   reverse: bool):
     """Backward scan: the CUDA kernels for CUDA tensors
-    (`lstm_slab_bwd.launches` counts the calls), the plain version for CPU
-    tensors. Returns (dx, dw_ih, dw_hh, db, dh0, dc0)."""
+    (`lstm_slab_bwd.launches` / `.mixed_launches` count the calls of the
+    float32 / mixed instantiation), the plain version for CPU tensors.
+    Returns (dx, dw_ih, dw_hh, db, dh0, dc0)."""
     return _dispatch(x, _launch_bwd, lstm_slab_bwd_ref,
                      (w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT, reverse))
 
 
-lstm_slab_fwd.launches = 0
-lstm_slab_bwd.launches = 0
+lstm_slab_fwd.launches = lstm_slab_fwd.mixed_launches = 0
+lstm_slab_bwd.launches = lstm_slab_bwd.mixed_launches = 0
 
 
 # ------------------------------------------------------- autograd -------
 
-def shift_prev(ys, h0, reverse: bool):
+def shift_prev(ys, h0, reverse: bool, mdt=None):
     """h entering each frame: the output of the previously processed frame,
-    h0 entering the first one."""
+    h0 entering the first one (cast to ys' dtype), all in `mdt` (the
+    recurrence-matmul dtype, the weights'; default ys' dtype)."""
+    h0r = h0[None].to(ys.dtype)
     if reverse:
-        return torch.cat([ys[1:], h0[None]], dim=0)
-    return torch.cat([h0[None], ys[:-1]], dim=0)
+        hp = torch.cat([ys[1:], h0r], dim=0)
+    else:
+        hp = torch.cat([h0r, ys[:-1]], dim=0)
+    return hp if mdt is None else hp.to(mdt)
 
 
 class _LstmSlab(torch.autograd.Function):
@@ -266,21 +342,23 @@ class _LstmSlab(torch.autograd.Function):
     def forward(ctx, reverse, w_ih, w_hh, b, x, h0, c0):
         ys, hT, cT, c_ckpt = lstm_slab_fwd(w_ih, w_hh, b, x, h0, c0, reverse)
         ctx.reverse = reverse
-        ctx.save_for_backward(w_ih, w_hh, b, x, h0, ys, c_ckpt)
-        return ys, hT, cT
+        ctx.save_for_backward(w_ih, w_hh, b, x, h0, c0, ys, c_ckpt)
+        return ys, hT.to(h0.dtype), cT.to(c0.dtype)
 
     @staticmethod
     def backward(ctx, dy, dhT, dcT):
-        w_ih, w_hh, b, x, h0, ys, c_ckpt = ctx.saved_tensors
-        hp = shift_prev(ys, h0, ctx.reverse)
+        w_ih, w_hh, b, x, h0, c0, ys, c_ckpt = ctx.saved_tensors
+        hp = shift_prev(ys, h0, ctx.reverse, w_hh.dtype)
         dx, dw_ih, dw_hh, db, dh0, dc0 = lstm_slab_bwd(
-            w_ih, w_hh, b, x, hp, c_ckpt, dy.contiguous(), dhT.contiguous(),
-            dcT.contiguous(), ctx.reverse)
-        return None, dw_ih, dw_hh, db, dx, dh0, dc0
+            w_ih, w_hh, b, x, hp, c_ckpt, dy.to(x.dtype).contiguous(),
+            dhT.float().contiguous(), dcT.float().contiguous(), ctx.reverse)
+        # grads in each input's dtype, as the JAX custom VJP returns them
+        return (None, dw_ih.to(w_ih.dtype), dw_hh.to(w_hh.dtype),
+                db.to(b.dtype), dx, dh0.to(h0.dtype), dc0.to(c0.dtype))
 
 
 def lstm_slab(reverse: bool, w_ih, w_hh, b, x, h0, c0):
-    """(ys [T, R, H], hT, cT [R, H]) for scan-major x [T, R, C]; the
-    backward runs the slab backward scan."""
+    """(ys [T, R, H] in x's dtype, hT, cT [R, H] in h0's / c0's) for
+    scan-major x [T, R, C]; the backward runs the slab backward scan."""
     return _LstmSlab.apply(bool(reverse), w_ih, w_hh, b, x.contiguous(),
                            h0.contiguous(), c0.contiguous())

@@ -1,11 +1,19 @@
 """LSTM primitives with PyTorch cell semantics (port of `sound_bubble_tpu/ops/rnn.py`).
 
-fp32. A scan with T >= 2 goes through `ops/kernels/lstm_slab.py:lstm_slab`,
-as the JAX package's `_run_fused` routes it to the slab kernels: x moves to
+A scan with T >= 2 goes through `ops/kernels/lstm_slab.py:lstm_slab`, as the
+JAX package's `_run_fused` routes it to the slab kernels: x moves to
 scan-major [T, R, C] with the lead dims folded into R, the reverse direction
 runs `reverse=True` on the same x (no flips), and hT, cT come back. On the
 card that is the CUDA slab kernels, forward and backward; on the CPU their
 plain PyTorch versions. T == 1 (the streaming step) is a single `_cell`.
+
+Mixed precision (the JAX package's rule): when the weights or the
+activations are bfloat16 the (h, c) carry is float32, the recurrence matmul
+takes bf16(h) with float32 accumulation, and the gates are rounded to bf16
+(`bf16_gates=True`, the JAX package's `SB_LSTM_BF16_GATES=1` default). The
+outputs y come back in x's dtype and (hT, cT) in the state's. A bf16 scan
+with `bf16_gates=False` raises NotImplementedError: the JAX package runs that
+corner through its XLA fused scan, not the slab kernels.
 
 Params per direction: {"w_ih": [C, 4H], "w_hh": [H, 4H], "b": [4H]} (JAX
 layout: weights stored transposed for right-matmuls, the two torch biases
@@ -17,45 +25,72 @@ import math
 
 import torch
 
-from sound_bubble_tpu_torch.ops.kernels.lstm_slab import lstm_slab
+from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
+    act, lstm_slab, tanh_q)
 
 
-def _cell(h, c, gates_x, w_hh, hidden):
-    """One LSTM step. gates_x = x@W_ih + b precomputed. [..., 4H]."""
-    gates = gates_x + h @ w_hh
-    i = torch.sigmoid(gates[..., :hidden])
-    f = torch.sigmoid(gates[..., hidden:2 * hidden])
-    g = torch.tanh(gates[..., 2 * hidden:3 * hidden])
-    o = torch.sigmoid(gates[..., 3 * hidden:])
-    c = f * c + i * g
-    h = o * torch.tanh(c)
-    return h, c
+def matmul(a, b):
+    """`a @ b` with JAX's type promotion: both operands go to the promoted
+    dtype first (torch.matmul refuses mixed dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
-def lstm(params, x, h0=None, c0=None, reverse: bool = False):
+def _cell(h, c, gates_x, w_hh, hidden, bf16_gates: bool = True):
+    """One LSTM step. gates_x = x@W_ih + b precomputed. [..., 4H].
+
+    Mixed precision (bf16 weights, float32 carry): the recurrence matmul
+    takes bf16(h) with float32 accumulation; the gates are rounded to bf16
+    when `bf16_gates`, and the nonlinearities run in the gates' dtype."""
+    if w_hh.dtype != h.dtype:
+        gates = gates_x.float() + h.to(w_hh.dtype).float() @ w_hh.float()
+        if bf16_gates:
+            gates = gates.bfloat16()
+    else:
+        gates = gates_x + h @ w_hh
+    i, f, g, o = act(gates, hidden)
+    c = (f * c).to(c.dtype) + i * g
+    h = o * tanh_q(c.to(gates.dtype))
+    return (h.float() if h.dtype != c.dtype else h), c
+
+
+def lstm(params, x, h0=None, c0=None, reverse: bool = False,
+         bf16_gates: bool = True):
     """Run an LSTM along axis -2 of `x` ([..., T, C]).
 
-    Returns (y [..., T, H], (hT, cT) [..., H])."""
-    hidden = params["w_hh"].shape[0]
+    Returns (y [..., T, H] in x's dtype, (hT, cT) [..., H] in the state's
+    dtype: h0's, or x's when h0 is None)."""
+    w_ih, w_hh, b = params["w_ih"], params["w_hh"], params["b"]
+    hidden = w_hh.shape[0]
     lead = x.shape[:-2]
     t_len = x.shape[-2]
-    h = x.new_zeros(lead + (hidden,)) if h0 is None else h0
-    c = x.new_zeros(lead + (hidden,)) if c0 is None else c0
+    mixed = torch.bfloat16 in (w_hh.dtype, x.dtype)
+    carry = torch.float32 if mixed else x.dtype
+    state_dtype = x.dtype if h0 is None else h0.dtype
+    h = x.new_zeros(lead + (hidden,), dtype=carry) if h0 is None \
+        else h0.to(carry)
+    c = x.new_zeros(lead + (hidden,), dtype=carry) if c0 is None \
+        else c0.to(carry)
     if t_len == 1:
-        gates_x = x[..., 0, :] @ params["w_ih"] + params["b"]
-        h, c = _cell(h, c, gates_x, params["w_hh"], hidden)
-        return h[..., None, :], (h, c)
+        gates_x = matmul(x[..., 0, :], w_ih) + b
+        h, c = _cell(h, c, gates_x, w_hh, hidden, bf16_gates)
+        return (h.to(x.dtype)[..., None, :],
+                (h.to(state_dtype), c.to(state_dtype)))
+    if mixed and not bf16_gates:
+        raise NotImplementedError(
+            "a bfloat16 LSTM scan with bf16_gates=False is not ported: the "
+            "slab kernels round the gates to bf16 (ROADMAP Queue 2)")
     r = math.prod(lead)
     x_t = x.movedim(-2, 0).reshape(t_len, r, x.shape[-1])
-    ys, hT, cT = lstm_slab(reverse, params["w_ih"], params["w_hh"],
-                           params["b"], x_t, h.reshape(r, hidden),
+    ys, hT, cT = lstm_slab(reverse, w_ih, w_hh, b, x_t, h.reshape(r, hidden),
                            c.reshape(r, hidden))
     y = ys.reshape((t_len,) + lead + (hidden,)).movedim(0, -2)
-    return y, (hT.reshape(lead + (hidden,)), cT.reshape(lead + (hidden,)))
+    return y, (hT.reshape(lead + (hidden,)).to(state_dtype),
+               cT.reshape(lead + (hidden,)).to(state_dtype))
 
 
-def blstm(params, x):
+def blstm(params, x, bf16_gates: bool = True):
     """Bidirectional LSTM over axis -2; concat outputs -> [..., T, 2H]."""
-    yf, _ = lstm(params["fwd"], x)
-    yb, _ = lstm(params["bwd"], x, reverse=True)
+    yf, _ = lstm(params["fwd"], x, bf16_gates=bf16_gates)
+    yb, _ = lstm(params["bwd"], x, reverse=True, bf16_gates=bf16_gates)
     return torch.cat([yf, yb], dim=-1)

@@ -9,7 +9,9 @@ source `csrc/stack_step.cu`: `stack_step_kernel_t<false>` for the plain intra
 BLSTM, `<true>` for conv_lstm); the STFT, features, convs and iSTFT
 around it are plain PyTorch. On a CPU device the stack step runs its plain
 PyTorch version. Conditioned (FiLM) and unconditioned models; non-attention
-configurations only (ROADMAP Queue 1 item 9).
+configurations only (ROADMAP Queue 1 item 9); float32 only: a net with the
+bf16 trunk raises NotImplementedError (bf16 serving, ROADMAP Queue 2 item 3)
+rather than being served in another precision than its own.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ class FusedStreamer:
     per-block `gridnet_bufs`."""
 
     def __init__(self, net, dis_embed=None, device="cuda"):
+        if net.cfg.compute_dtype == "bf16":
+            raise NotImplementedError(
+                "bf16 serving (the stack-step kernels in bf16) is not ported "
+                "yet (ROADMAP Queue 2 item 3); serve the net with "
+                "compute_dtype=None")
         self.device = resolve_device(device)
         self.net = net.to(self.device).eval()
         self.cfg = net.cfg

@@ -13,6 +13,8 @@ logged; the metrics go to the local JSONL run log (`train/logging.py`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -67,6 +69,12 @@ class PLModule:
         self.scheduler_params = scheduler_params
         self._build_optimizer()
         self.epoch = 0
+
+    def set_bf16_trunk(self):
+        """Run the net's trunk in bf16 (`compute_dtype="bf16"`) with the
+        float32 params as they are (`train_pt --bf16`; `train_stream --bf16`
+        casts the params too)."""
+        self.net.cfg = dataclasses.replace(self.net.cfg, compute_dtype="bf16")
 
     def _build_optimizer(self):
         self.optimizer = import_attr(self.optim_name)(

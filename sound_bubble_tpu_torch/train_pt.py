@@ -2,7 +2,7 @@
 
     python -m sound_bubble_tpu_torch.train_pt \
         --config syn_experiments/pretrain_stage.json --run_dir runs/<name> \
-        [--seed 0] [--device cuda|cpu]
+        [--seed 0] [--device cuda|cpu] [--bf16]
 
 Same arguments and config schema as the JAX trainer (the config's
 `sound_bubble_tpu.*` and `torch.optim.*` names resolve to the port through
@@ -12,8 +12,10 @@ when the validation loss is the best so far, resume from `last.pt`, and the
 epoch's metrics in `metrics.jsonl`. Per epoch: the train steps, then a
 validation epoch with the fixed VAL_SEED, then the scheduler. One process on
 one device (`--device`, default `cuda`; no card raises). In float32, with
-TF32 off for matrix products and cuDNN convolutions. An error ends the run
-with its traceback.
+TF32 off for matrix products and cuDNN convolutions; `--bf16` runs the
+model's trunk in bf16 with float32 master params and a float32 STFT
+front-end (the JAX trainer's `--bf16`, which records it nowhere but the
+log). An error ends the run with its traceback.
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ def train(args: argparse.Namespace):
 
     hl_module = import_attr(params["pl_module"])(
         **params["pl_module_args"], device=device)
+    if args.bf16:
+        hl_module.set_bf16_trunk()
+        print("bf16 trunk enabled (fp32 master params / front-end)")
 
     run_name = os.path.basename(args.run_dir.rstrip("/"))
     checkpoints_dir = os.path.join(args.run_dir, "checkpoints")
@@ -109,6 +114,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Project name for the run log")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bf16 trunk (fp32 master params); off by "
+                             "default")
     return parser.parse_args(argv)
 
 

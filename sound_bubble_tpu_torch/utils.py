@@ -96,6 +96,20 @@ def seed_all(seed: int):
     np.random.seed(seed)
     torch.manual_seed(seed)
 
+
+def cast_bf16(params):
+    """Every float32 tensor of a param dict (a flat state dict, or the
+    nested dict of `weights.param_tree`) cast to bfloat16, other leaves as
+    they are: the bf16 forward of mixed precision (JAX `utils.cast_bf16`).
+    The float32 master params stay outside; the cast is differentiable, so
+    their gradients come back through it in float32."""
+    if isinstance(params, dict):
+        return {k: cast_bf16(v) for k, v in params.items()}
+    if isinstance(params, torch.Tensor) and params.dtype == torch.float32:
+        return params.to(torch.bfloat16)
+    return params
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for an entry point. A CUDA device with no card raises:
     the port never falls back to the CPU on its own."""

@@ -6,7 +6,9 @@
 - `PLModule` raises on a sample that has target speakers but an all-zero
   target, where the JAX package asserts (`train/module.py`), for the train
   and the validation step alike.
-(A bf16 `compute_dtype` raising NotImplementedError is in
+- `utils.read_audio_file` and `data.audio_io.read_audio_file` parse each
+  wav once (the rate and the samples come from one read).
+(The bf16 trunk's serving raising NotImplementedError is in
 tests/test_torch_port_model.py.)"""
 import json
 import os
@@ -36,6 +38,21 @@ def test_read_audio_file_resamples_like_jax(tmp_path, dtype, rng):
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
     # the file's own rate: no resampling
     assert tutils.read_audio_file(path, 16000).shape == (2, 1600)
+
+
+def test_each_wav_is_parsed_once(tmp_path, monkeypatch, rng):
+    from sound_bubble_tpu_torch.data import audio_io
+
+    path = str(tmp_path / "a16k.wav")
+    scipy.io.wavfile.write(path, 16000, (0.3 * rng.standard_normal(
+        (1600, 2)) * 32767).astype(np.int16))
+    reads = []
+    read = scipy.io.wavfile.read
+    monkeypatch.setattr(scipy.io.wavfile, "read",
+                        lambda p, *a, **k: reads.append(p) or read(p, *a, **k))
+    assert tutils.read_audio_file(path, 24000).shape == (2, 2400)
+    assert audio_io.read_audio_file(path, downsample=2).shape == (2, 800)
+    assert reads == [path, path]
 
 
 @pytest.mark.parametrize("step", ["train", "val"])

@@ -19,6 +19,14 @@ the port's kernel path against:
   (`tools/jax_goldens_edge.py`), to `runs/train_step_golden_edge_jax.json`:
 
     JAX_PLATFORMS=cpu python tools/jax_train_step_golden.py --edge
+
+- the flagship's bf16 step as the campaign trainer takes it
+  (`src/train_stream.py --bf16`: the params through `utils.cast_bf16`, the
+  net built with `compute_dtype="bf16"`, the output cast to fp32 for the
+  loss), the flagship config and checkpoint, to
+  `runs/train_step_golden_bf16_jax.json`:
+
+    JAX_PLATFORMS=cpu python tools/jax_train_step_golden.py --bf16
 """
 import json
 import os
@@ -43,38 +51,64 @@ CASES = {
     "edge": ("real_experiments/orangpi_model_finetune.json",
              "runs/edge_orangpi_seeded/checkpoints/best.pt",
              "runs/train_step_golden_edge_jax.json"),
+    "bf16": ("syn_experiments/pretrain_stage.json",
+             "runs/finetune_r5/checkpoints/best.pt",
+             "runs/train_step_golden_bf16_jax.json"),
 }
 SEED = 0
 
 
 def main():
     jax.config.update("jax_platforms", "cpu")
-    config, ckpt, out = CASES["edge" if "--edge" in sys.argv[1:]
-                              else "flagship"]
+    case = next((c for c in ("edge", "bf16") if f"--{c}" in sys.argv[1:]),
+                "flagship")
+    config, ckpt, out = CASES[case]
     with open(os.path.join(REPO, config)) as f:
         args = json.load(f)["pl_module_args"]
     args["init_ckpt"] = os.path.join(REPO, ckpt)
     np.random.seed(SEED)
     module = PLModule(**args, use_dp=False)
     inputs, targets = golden_batch(SEED)
+    net, cast = module.net, (lambda p: p)
+    if case == "bf16":
+        import dataclasses
+
+        import sound_bubble_tpu.ops.rnn as rnn
+        import sound_bubble_tpu.utils as utils
+        from sound_bubble_tpu.models.tfgridnet.model import Net
+        net = Net(dataclasses.replace(net.cfg, compute_dtype="bf16"))
+        cast = utils.cast_bf16
+        # the route the JAX package takes for a bf16 trunk on one TPU: every
+        # LSTM scan through the Pallas slab kernels (here in interpret mode)
+        rnn.set_slab(True)
 
     def loss_fn(params):
-        out = module.net.apply({"params": params},
-                               {k: jnp.asarray(inputs[k])
-                                for k in ("mixture", "dis_embed")})
+        out = net.apply({"params": cast(params)},
+                        {k: jnp.asarray(inputs[k])
+                         for k in ("mixture", "dis_embed")})
         # PLModule's loss: the mean of the per-sample losses (every mask
         # weight 1: no padding on one device)
         return jnp.mean(jnp.atleast_1d(module.loss_fn(
-            est=out["output"], gt=jnp.asarray(targets["target"]))))
+            est=out["output"].astype(jnp.float32),
+            gt=jnp.asarray(targets["target"]))))
 
     t0 = time.perf_counter()
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(module.params)
+    step = jax.jit(jax.value_and_grad(loss_fn))
+    if case == "bf16":
+        # XLA on the CPU may keep an fp32 value where the code casts to bf16
+        # (excess precision); this golden rounds at every cast, as the
+        # Pallas kernels do on the TPU, and as the port does
+        step = step.lower(module.params).compile(
+            compiler_options={"xla_allow_excess_precision": False})
+    loss, grads = step(module.params)
     leaves = {".".join(str(getattr(k, "key", k)) for k in path):
               float(jnp.sqrt(jnp.sum(jnp.square(g))))
               for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]}
     result = {
         "_comment": (
-            "JAX package, PLModule loss and gradients, fp32 on the CPU, "
+            "JAX package, PLModule loss and gradients, "
+            + ("bf16 trunk through cast_bf16 (fp32 master params)"
+               if case == "bf16" else "fp32") + " on the CPU, "
             f"{os.path.basename(config)} at full width from {ckpt}, batch "
             f"golden_batch({SEED}) (tools/jax_train_step_golden.py)"),
         "config": config, "init_ckpt": ckpt,
