@@ -71,6 +71,30 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    a validation, checkpoints, then a `--resume` with the other precision
    flag (the recorded bf16 is kept); the pool build seconds.
 
+Phases 16-19 drive the attention nets (`use_attn: true`, L=4, E=2,
+W=100), seeded weights of the flagship and the Orange Pi configurations
+(`runs/attn_{flagship,orangpi}_seeded`, `tools/jax_goldens_attn.py`):
+
+16. attention kernels vs plain: `gridnet_stack_step_attn` (the
+   `stack_step_kernel_t<false, true>` and, on the conv_lstm pack,
+   `<true, true>`) against `gridnet_stack_step_attn_ref`, W + 5 = 105
+   chained steps (pos wraps the ring): x, h0, c0 and both rings;
+17. attention serving: the 9 goldens of `test_samples/` through
+   `FusedStreamer` (the in-kernel route) on both nets, per sample against
+   the JAX package's numbers (`runs/goldens_attn_jax.json`), the first 20
+   chunks of `syn_1m/00002` against the JAX output, and the per-block
+   route (`attn_in_kernel=False`: the row-1 / row-2 kernel a block, the
+   attention in PyTorch) against the in-kernel route on one clip;
+18. times of the two attention kernels, their plain versions, their
+   bounds, and `FusedStreamer.feed` per chunk on both routes;
+19. `train_pt` on `runs/attn_flagship_seeded/config.json` (fp32, batch 4 x
+   2.5 s, 1 epoch, from the seeded weights), the slab launches per step;
+   one step from the seeded weights on the kernel path against the plain
+   path and against the JAX package's numbers for the same step in
+   float64 (`runs/train_step_golden_attn_jax.json`: the fp32 JAX step is
+   itself 1.5e-3 off in one PReLU slope's grad, see
+   `tools/jax_train_step_golden.py`); ms per step, peak memory.
+
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
 power limit, and the device line.
@@ -147,6 +171,14 @@ BF16_NORM_REL_TOL = 3e-2
 STREAM_CUTS = ["--pool", "24", "--val_pool", "8", "--val_batches", "1",
                "--log_every", "2"]
 STREAM_STEPS = (4, 4)          # steps, val_every
+# the attention nets: seeded weights and the JAX package's numbers for them
+# (tools/jax_goldens_attn.py, tools/jax_train_step_golden.py --attn)
+ATTN_RUN_DIRS = {"flagship": os.path.join(REPO, "runs",
+                                          "attn_flagship_seeded"),
+                 "orangpi": os.path.join(REPO, "runs", "attn_orangpi_seeded")}
+ATTN_GOLDENS = os.path.join(REPO, "runs", "goldens_attn_jax.json")
+ATTN_STEP_GOLDEN = os.path.join(REPO, "runs",
+                                "train_step_golden_attn_jax.json")
 T0 = time.perf_counter()
 
 
@@ -179,7 +211,7 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def stack_step_bound_ms(n_blocks, f, d, h, film, s=None):
+def stack_step_bound_ms(n_blocks, f, d, h, film, s=None, attn=None):
     """Least time for one stack step on an H100: the larger of the bytes the
     step must move and its fp32 arithmetic over the fp32 rate. Both count the
     compact math, not the packed operands: the fused BLSTM packing pads each
@@ -187,7 +219,13 @@ def stack_step_bound_ms(n_blocks, f, d, h, film, s=None):
     into a block-diagonal [2H, 8H], and those zeros are no work the step
     needs; the conv branch (lstm_down s) counts each row's own phase of the
     down conv, not the s phases the phase-split form computes. Bytes: weights
-    read once, x/h0/c0 (and FiLM) read once, x/h0/c0 written once."""
+    read once, x/h0/c0 (and FiLM) read once, x/h0/c0 written once.
+
+    attn = (heads L, key width E, window W): the attention step adds its
+    weights, the whole K/V rings read once (B*W*F*(L*E + D) floats) and the
+    new slot written once (B*F*(L*E + D)); and per block the q/k/v and
+    output projections, the scores over the W slots and the weighted sum of
+    the values (the softmax and the LayerNorms are O(F*D), not counted)."""
     lstm_w = (2 * d * 4 * h                # fwd + bwd input weights
               + 2 * h * 4 * h              # fwd + bwd recurrent weights
               + 8 * h)                     # fwd + bwd biases
@@ -210,16 +248,30 @@ def stack_step_bound_ms(n_blocks, f, d, h, film, s=None):
                      + 2 * n * 2 * h * s * d)  # up conv
     acts = 2 * (f * d + 2 * n_blocks * f * h)   # x, h0, c0 in and out
     film_floats = 2 * (n_blocks - 1) * f * d if film else 0
-    n_bytes = 4 * (n_blocks * weights + acts + film_floats)
+    attn_ops = ring_floats = 0
+    if attn is not None:
+        heads, e, w = attn
+        le = heads * e
+        weights += (d * (2 * le + d) + 2 * le + d + 3  # q, k, v Linear, PReLU
+                    + 2 * f * (2 * e + d // heads)     # their LayerNorms
+                    + d * d + d + 1 + 2 * f * d)       # output Linear, LN
+        ring_floats = n_blocks * f * (le + d) * (w + 1)  # read all, write 1
+        attn_ops = (2 * f * d * (2 * le + d)      # q, k, v projections
+                    + 2 * f * d * d               # output projection
+                    + 2 * heads * w * f * e       # scores
+                    + 2 * d * w * f)              # weighted values
+    n_bytes = 4 * (n_blocks * weights + acts + film_floats + ring_floats)
     per_block = (2 * 2 * n * d * 4 * h      # fwd + bwd input projections
                  + 2 * 2 * n * h * 4 * h    # fwd + bwd recurrence
-                 + intra_ops + inter_ops)
+                 + intra_ops + inter_ops + attn_ops)
     flops = n_blocks * per_block
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     log(f"bound: {n_bytes} B -> {t_bytes:.6f} ms at 3.35 TB/s; "
         f"{flops} FLOP -> {t_ops:.6f} ms at 67 TFLOP/s fp32; dependency "
-        f"chain {n_blocks * (n + 1)} sequential cell updates")
+        f"chain {n_blocks * (n + 1)} sequential cell updates"
+        + ("" if attn is None else f"; K/V rings {4 * ring_floats} B read "
+           "and written"))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -393,8 +445,9 @@ def point_at_scenes(cfg, dirs):
 
 def check_step_golden(loss_k, norm_k, grads_k, grad_clip, golden_path):
     """One train step on the card against the JAX package's numbers for the
-    same step (fp32 on the CPU): loss, pre-clip global grad norm, per-leaf
-    grad norms (grads_k were clipped in place by the step)."""
+    same step (fp32 on the CPU, or float64 where the golden says so):
+    loss, pre-clip global grad norm, per-leaf grad norms (grads_k were
+    clipped in place by the step)."""
     with open(golden_path) as fh:
         golden = json.load(fh)
     # the step clipped the gradients in place by min(1, max_norm / norm)
@@ -405,7 +458,8 @@ def check_step_golden(loss_k, norm_k, grads_k, grad_clip, golden_path):
     worst = max(leaf_rel, key=leaf_rel.get)
     g_loss = abs(loss_k - golden["loss"]) / abs(golden["loss"])
     g_norm = abs(norm_k - golden["grad_norm"]) / golden["grad_norm"]
-    log(f"  one step vs the JAX package (fp32, CPU; "
+    log(f"  one step vs the JAX package ("
+        f"{golden.get('precision', 'fp32')}, CPU; "
         f"{os.path.basename(golden_path)}): loss {loss_k:.6f} vs "
         f"{golden['loss']:.6f} (rel {g_loss:.2e}, tol {GOLDEN_LOSS_REL_TOL}); "
         f"grad norm {norm_k:.6f} vs {golden['grad_norm']:.6f} (rel "
@@ -1277,6 +1331,309 @@ def phase12_edge_times(dev, streamer, mod, batch, card, ls):
                 bound_by=bound_by, library_ms=None)
 
 
+def attn_case(net, dev):
+    """(a FusedStreamer of an attention net with the 1 m embedding, whose
+    packs and FiLM the kernel takes; empty K/V rings) on the card."""
+    from sound_bubble_tpu_torch.evaluation import one_hot
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+
+    streamer = FusedStreamer(net, dis_embed=one_hot(1.0), device=dev)
+    cfg = net.cfg
+    F, W = cfg.n_freqs, cfg.local_atten_len
+    rings = (torch.zeros((cfg.B, cfg.L * cfg.E, W, F), device=dev),
+             torch.zeros((cfg.B, cfg.D, W, F), device=dev))
+    return streamer, rings
+
+
+def phase16_attn_kernels(dev, nets):
+    """The two attention kernels against their plain version, W + 5
+    chained steps from zero rings at both nets' widths (flagship with FiLM).
+    Returns {net: max-abs error}."""
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+
+    errs = {}
+    rng = np.random.default_rng(SEED + 16)
+    for name, net in nets.items():
+        cfg = net.cfg
+        F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+        streamer, (kk, vk) = attn_case(net, dev)
+        packed, pa = streamer.packed, streamer.packed_attn
+        fw, fb = streamer.film if streamer.film is not None else (None, None)
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        hk, ck = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+        hr, cr, kr, vr = hk, ck, kk.clone(), vk.clone()
+        counter = ("conv_attn_launches" if cfg.conv_lstm
+                   else "attn_launches")
+        before = getattr(sk.gridnet_stack_step, counter)
+        err = {k: 0.0 for k in ("x", "h0", "c0", "k_ring", "v_ring")}
+        with torch.no_grad():
+            for step in range(W + 5):
+                x = draw(F, D)
+                xk, hk, ck, kk, vk = sk.gridnet_stack_step_attn(
+                    packed, pa, x, hk, ck, kk, vk, step % W, cfg.L, fw, fb,
+                    eps=cfg.eps)
+                xr, hr, cr, kr, vr = sk.gridnet_stack_step_attn_ref(
+                    packed, pa, x, hr, cr, kr, vr, step % W, cfg.L, fw, fb,
+                    eps=cfg.eps)
+                torch.cuda.synchronize()
+                for key, a, b in (("x", xk, xr), ("h0", hk, hr),
+                                  ("c0", ck, cr), ("k_ring", kk, kr),
+                                  ("v_ring", vk, vr)):
+                    err[key] = max(err[key], float((a - b).abs().max()))
+        grew = getattr(sk.gridnet_stack_step, counter) - before
+        worst = max(err.values())
+        log(f"  {name}: F={F} D={D} H={H} B={B} L={cfg.L} E={cfg.E} W={W} "
+            f"conv_lstm={cfg.conv_lstm}, FiLM {fw is not None}, {W + 5} "
+            f"chained steps (pos wraps): max-abs err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f" (tol {KERNEL_TOL}); {counter} +{grew}")
+        if not worst <= KERNEL_TOL:
+            fail(f"attention kernel disagrees with its plain version at "
+                 f"{name}: {err}")
+        if grew != W + 5:
+            fail(f"{counter} grew by {grew}, expected {W + 5}")
+        errs[name] = worst
+    log(f"phase 16 attention kernels vs plain: max-abs err {errs}")
+    return errs
+
+
+def phase17_attn_serving(dev, nets):
+    """Both attention nets through FusedStreamer (in-kernel) over the 9
+    goldens against the JAX numbers; the first 20 chunks against the JAX
+    output; the per-block route against the in-kernel route on one clip.
+    Returns {net: (streamer, launches on the goldens)}."""
+    from sound_bubble_tpu_torch import test_samples
+    from sound_bubble_tpu_torch.evaluation import (
+        load_testcase, one_hot, run_testcase)
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+
+    with open(ATTN_GOLDENS) as fh:
+        goldens = json.load(fh)
+    out = {}
+    for name, net in nets.items():
+        cfg = net.cfg
+        golden = goldens[name]
+        counter = ("conv_attn_launches" if cfg.conv_lstm
+                   else "attn_launches")
+        streamer = FusedStreamer(net, device=dev)
+        n_chunks, failures, results = 0, [], {}
+        # the main path: only the attention kernel of this net launches
+        for c in ("launches", "conv_launches", "attn_launches",
+                  "conv_attn_launches"):
+            setattr(sk.gridnet_stack_step, c, 0)
+        t = time.perf_counter()
+        for radius, threshold in RADII:
+            rdir = os.path.join(GOLDENS, f"syn_{radius}")
+            sisdris, _, decays = test_samples.evaluate_dir(
+                streamer, rdir, threshold, verbose=False)
+            want = {"sisdri": [], "decay": []}
+            for sample in sorted(os.listdir(rdir)):
+                (key, v), = golden["samples"][f"{radius}/{sample}"].items()
+                want[key].append(v)
+                _, mixture, _, _, _ = load_testcase(
+                    os.path.join(rdir, sample), 24000, threshold)
+                n_chunks += -(-mixture.shape[-1] // cfg.stft_chunk_size)
+            for key, got in (("sisdri", sisdris), ("decay", decays)):
+                if len(got) != len(want[key]) or not np.isfinite(got).all():
+                    fail(f"attn {name} {radius}: {key} {got} vs JAX "
+                         f"{want[key]}")
+                for g, w in zip(got, want[key]):
+                    if not abs(g - w) <= PARITY_TOL_DB:
+                        failures.append(f"attn {name} {radius} {key} "
+                                        f"{g:.5f} vs JAX {w:.5f}")
+            results[radius] = (sisdris, decays)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        launches = {c: getattr(sk.gridnet_stack_step, c) for c in (
+            "launches", "conv_launches", "attn_launches",
+            "conv_attn_launches")}
+        log(f"phase 17 attention serving, {name}: 9 goldens, {n_chunks} "
+            f"chunks in {serve_s:.2f} s ({serve_s / n_chunks * 1e3:.3f} "
+            f"ms/chunk incl. metrics), stack kernel launches {launches}")
+        for radius, (sisdris, decays) in results.items():
+            log(f"  {name} goldens {radius}: SI-SDRi {np.round(sisdris, 4)}"
+                f" (JAX mean {golden['sisdri'][radius]:+.4f}), decay "
+                f"{np.round(decays, 4)} (JAX mean "
+                f"{golden['decay'][radius]:.4f})")
+        if failures:
+            fail(f"attention goldens (tol {PARITY_TOL_DB} dB): "
+                 + "; ".join(failures))
+        if launches != {c: n_chunks if c == counter else 0
+                        for c in launches}:
+            fail(f"{name}: kernel launches {launches} for {n_chunks} "
+                 f"chunks, expected {counter} only")
+
+        head = golden["head"]
+        _, mixture, _, _, _ = load_testcase(
+            os.path.join(GOLDENS, head["sample"]), 24000, 1.0)
+        n_head = head["chunks"] * cfg.stft_chunk_size
+        fused = run_testcase(streamer, mixture[:, :n_head + cfg.stft_pad_size],
+                             1.0)
+        want = np.asarray(head["output"], np.float32)
+        rel_jax = float(np.abs(fused[0, :n_head] - want).max()
+                        / np.abs(want).max())
+        # the per-block route on the whole clip against the in-kernel one
+        whole = run_testcase(streamer, mixture, 1.0)
+        per_block = FusedStreamer(net, dis_embed=one_hot(1.0), device=dev,
+                                  attn_in_kernel=False)
+        b0 = sk.gridnet_stack_step.launches + sk.gridnet_stack_step.conv_launches
+        routed = run_testcase(per_block, mixture, 1.0)
+        per_block_launches = (sk.gridnet_stack_step.launches
+                              + sk.gridnet_stack_step.conv_launches - b0)
+        rel = float(np.abs(whole - routed).max() / np.abs(routed).max())
+        clip_chunks = -(-mixture.shape[-1] // cfg.stft_chunk_size)
+        log(f"  {name} first {head['chunks']} chunks of {head['sample']}: "
+            f"vs the JAX output max-abs / peak {rel_jax:.3e} (tol "
+            f"{EDGE_HEAD_REL_TOL}); the whole clip, in-kernel route vs "
+            f"per-block route ({per_block_launches} row-1/2 launches, "
+            f"{cfg.B} a chunk): max-abs / peak {rel:.3e} (tol "
+            f"{STREAM_REL_TOL})")
+        if not rel_jax <= EDGE_HEAD_REL_TOL:
+            fail(f"attention stream of {name} disagrees with the JAX "
+                 f"output: {rel_jax}")
+        if not rel <= STREAM_REL_TOL:
+            fail(f"{name}: the two FusedStreamer routes disagree: {rel}")
+        if per_block_launches != cfg.B * clip_chunks:
+            fail(f"{name}: the per-block route launched "
+                 f"{per_block_launches} times for {clip_chunks} chunks")
+        out[name] = (streamer, per_block, launches[counter])
+    return out
+
+
+def feed_ms(streamer, n, rng):
+    """ms per FusedStreamer.feed, host clock, n chunks after 10."""
+    cfg = streamer.cfg
+    streamer.reset()
+    win = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_ch, cfg.n_fft)).astype(np.float32))
+    with torch.no_grad():
+        for _ in range(10):
+            streamer.feed(win)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            streamer.feed(win)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def phase18_attn_times(dev, served, card):
+    """Times of the two attention kernels (CUDA events), their plain
+    versions, their bounds, and ms per chunk on both routes."""
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+
+    rng = np.random.default_rng(SEED + 18)
+    rows = {}
+    for name, (streamer, per_block, _) in served.items():
+        cfg = streamer.cfg
+        F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+        kr = draw(B, cfg.L * cfg.E, W, F)
+        vr = draw(B, D, W, F)
+        fw, fb = streamer.film if streamer.film is not None else (None, None)
+        pos = [0]
+        with torch.no_grad():
+            def kernel():
+                sk.gridnet_stack_step_attn(
+                    streamer.packed, streamer.packed_attn, x, h0, c0, kr, vr,
+                    pos[0], cfg.L, fw, fb, eps=cfg.eps, checked=True)
+                pos[0] = (pos[0] + 1) % W
+
+            def plain_step():
+                sk.gridnet_stack_step_attn_ref(
+                    streamer.packed, streamer.packed_attn, x, h0, c0, kr, vr,
+                    0, cfg.L, fw, fb, eps=cfg.eps)
+
+            for _ in range(10):
+                kernel()
+            kernel_ms = cuda_ms(kernel, 200)
+            plain_step()
+            plain_ms = cuda_ms(plain_step, 3)
+        chunk_ms = feed_ms(streamer, 250, rng)
+        block_ms = feed_ms(per_block, 100, rng)
+        s = cfg.lstm_down if cfg.conv_lstm else None
+        bound_ms, bound_by = stack_step_bound_ms(
+            B, F, D, H, fw is not None, s=s, attn=(cfg.L, cfg.E, W))
+        log(f"phase 18 attention times, {name}, on {card}: kernel "
+            f"{kernel_ms:.4f} ms (CUDA events, 200 launches); plain version "
+            f"{plain_ms:.3f} ms (3 calls); FusedStreamer.feed {chunk_ms:.4f} "
+            f"ms per 8 ms chunk in-kernel (250 chunks), {block_ms:.4f} ms "
+            f"per-block route (100 chunks; host clock); bound "
+            f"{bound_ms:.6f} ms ({bound_by}); library_ms: none (no single "
+            f"PyTorch call computes the stack step)")
+        rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def phase19_attn_train(dev, ls, card):
+    """train_pt on the attention flagship's config from its seeded weights,
+    1 epoch; one step from the seeded weights, kernel path against plain
+    path and against the JAX golden; ms per step, peak memory."""
+    from sound_bubble_tpu_torch.data.synth import (
+        golden_batch, write_sample_dirs)
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+
+    init_ckpt = os.path.join(ATTN_RUN_DIRS["flagship"], "checkpoints",
+                             "best.pt")
+    with open(os.path.join(ATTN_RUN_DIRS["flagship"], "config.json")) as fh:
+        cfg = json.load(fh)
+    args = cfg["pl_module_args"]
+    args["init_ckpt"] = init_ckpt
+    n_scans = 3 * args["model_params"]["B"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_attn_")
+    try:
+        n_train, n_val = 4, 2
+        dirs = write_sample_dirs(os.path.join(tmp, "data"), SEED + 19,
+                                 n_train, n_val)
+        point_at_scenes(cfg, dirs)
+        cfg["num_workers"] = 2
+        run_dir = os.path.join(tmp, "run")
+        _, secs, fwd_n, bwd_n = run_train_pt(
+            cfg, os.path.join(tmp, "config.json"), run_dir, 1, ls)
+        steps = math.ceil(3 * n_train / cfg["batch_size"])
+        val_batches = math.ceil(3 * n_val / cfg["eval_batch_size"])
+        want = ((steps + val_batches) * n_scans, steps * n_scans)
+        state = load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                             "last.pt"))
+        losses = [state["metric_values"][0][k]["epoch"]
+                  / state["metric_values"][0][k]["num_elements"]
+                  for k in ("train/loss", "val/loss")]
+        log(f"phase 19 attention training: train_pt on "
+            f"{os.path.relpath(ATTN_RUN_DIRS['flagship'], REPO)}/config.json"
+            f" from its seeded weights, 1 epoch x {steps} steps + "
+            f"{val_batches} val batch(es) in {secs:.2f} s; slab launches fwd "
+            f"{fwd_n}, bwd {bwd_n} (expected {want[0]}, {want[1]}: "
+            f"{n_scans} per step); epoch losses (train, val) {losses}")
+        if (fwd_n, bwd_n) != want:
+            fail(f"attention training: slab launches {(fwd_n, bwd_n)}, "
+                 f"expected {want}")
+        if state["current_epoch"] != 1 or not np.isfinite(losses).all():
+            fail(f"attention training: last.pt {state['current_epoch']}, "
+                 f"losses {losses}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    batch = golden_batch(SEED)
+    mod, loss, norm, grads = kernel_vs_plain_step(
+        args, init_ckpt, batch, n_scans, dev, ls)
+    check_step_golden(loss, norm, grads, args["grad_clip"], ATTN_STEP_GOLDEN)
+    step_ms, peak_gb = train_step_ms(mod, batch, dev)
+    log(f"phase 19 attention times on {card}: train step {step_ms:.2f} ms "
+        f"(PLModule.train_step, fp32, batch 4 x 2.5 s, host clock, 5 "
+        f"steps), peak device memory {peak_gb:.2f} GB")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1487,6 +1844,20 @@ def main():
     (mixed_fwd_n, mixed_bwd_n), pool_s = phase15_train_stream(dev, ls, card)
     log(f"phase 15 on {card}: pool build {pool_s:.2f} s (host)")
 
+    # ---- 16. the attention kernels vs plain (both nets' widths)
+    attn_nets = {name: load_pretrained(d, device=dev)
+                 for name, d in ATTN_RUN_DIRS.items()}
+    attn_errs = phase16_attn_kernels(dev, attn_nets)
+
+    # ---- 17. attention serving (the main path of rows 3 and 4)
+    served = phase17_attn_serving(dev, attn_nets)
+
+    # ---- 18. times
+    attn_times = phase18_attn_times(dev, served, card)
+
+    # ---- 19. training the attention flagship (train_pt)
+    phase19_attn_train(dev, ls, card)
+
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
@@ -1512,7 +1883,18 @@ def main():
         "max_abs_err": mixed_fwd_err, **mixed_times["fwd"]}, {
         "name": "lstm_slab_bwd_mixed", "route": "cuda", "source": slab_src,
         "replaces": f"{slab_tpu}:271", "launches": mixed_bwd_n,
-        "max_abs_err": mixed_bwd_err, **mixed_times["bwd"]}]}), flush=True)
+        "max_abs_err": mixed_bwd_err, **mixed_times["bwd"]}, {
+        "name": "gridnet_stack_step_attn", "route": "cuda",
+        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:354",
+        "launches": served["flagship"][2],
+        "max_abs_err": attn_errs["flagship"], **attn_times["flagship"]}, {
+        "name": "gridnet_stack_step_conv_attn", "route": "cuda",
+        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:491",
+        "launches": served["orangpi"][2],
+        "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]}]}),
+        flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 // One streaming step (T=1, batch 1) of the whole TF-GridNet block stack.
 //
 // Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
-// stack_kernel.py` (called from `gridnet_stack_step`) for the non-attention
-// configurations: `stack_step_kernel_t<false>` replaces `_kernel` (plain intra
-// BLSTM), `stack_step_kernel_t<true>` replaces `_kernel_conv` / `_intra_conv`
-// (conv_lstm). Per block b: FiLM (b > 0) -> the intra part -> LayerNorm ->
-// one inter-LSTM step on all F lanes -> projection residual. The plain intra
+// stack_kernel.py` (called from `gridnet_stack_step` and
+// `gridnet_stack_step_attn`): `stack_step_kernel_t<false, false>` replaces
+// `_kernel` (plain intra BLSTM), `<true, false>` replaces `_kernel_conv` /
+// `_intra_conv` (conv_lstm), `<false, true>` replaces `_kernel_attn` and
+// `<true, true>` replaces `_kernel_conv_attn` (the same with local causal
+// attention, `_attn_step`). Per block b: FiLM (b > 0) -> the intra part ->
+// LayerNorm -> one inter-LSTM step on all F lanes -> projection residual
+// [-> the attention step, kAttn]. The plain intra
 // part is LayerNorm -> fused-direction BLSTM over the F frequency rows ->
 // projection residual; the conv intra part is the strided down conv ->
 // PReLU -> LayerNorm -> fused-direction BLSTM over the k = F // s conv frames
@@ -41,14 +44,58 @@
 // W_hh is re-read from L2 at every step. Clusters, weights in shared memory
 // and tensor-core `mma` are later work.
 //
-// Both kernels are the instantiations of ONE kernel template,
-// `stack_step_kernel_t<kConv>`: FiLM, the input projections, the fused
-// recurrence and the inter step are written once, and `if constexpr`
+// The four kernels are the instantiations of ONE kernel template,
+// `stack_step_kernel_t<kConv, kAttn>`: FiLM, the input projections, the
+// fused recurrence and the inter step are written once, and `if constexpr`
 // selects the intra part's head (LayerNorm, or down conv + PReLU +
-// LayerNorm) and tail (projection, or up conv). The plain instantiation is
-// the code of the earlier plain kernel, and runs at its speed: the same
-// steps split into __device__ helpers made it 10 % slower
-// (tools/time_stack_kernels.py, PERF.md).
+// LayerNorm) and tail (projection, or up conv), and adds the attention step
+// (kAttn). The plain instantiation is the code of the earlier plain kernel,
+// and runs at its speed: the same steps split into __device__ helpers made
+// it 10 % slower (tools/time_stack_kernels.py, PERF.md); the attention
+// step's operands are appended to the parameter list, so the <*, false>
+// instantiations compile to the code they had before it.
+//
+// The attention step (kAttn; the Pallas `_attn_step`), per block after the
+// inter step, with L heads of key width E and value width vd = D / L:
+//   1. q, k, v = PReLU(x W + b): [F, L*E], [F, L*E], [F, D] in a global
+//      scratch the wrapper allocates (see below);
+//   2. per head, a LayerNorm over its whole [F, e] slab (one warp a slab,
+//      eps 1e-5: the model's attention LayerNorms take flax's default, not
+//      cfg.eps);
+//   3. this frame's k and v to slot `pos` of the K/V rings, which live in
+//      global memory as per-(head, channel) planes k_ring [B, L*E, W, F] and
+//      v_ring [B, D, W, F] (a window softmax does not depend on the slots'
+//      order, so the ring is written in place and never shifted);
+//   4. __syncthreads(), which makes the block's global writes visible to its
+//      own reads (the rings are read through plain, not read-only, loads);
+//   5. scores over the W slots, one warp per (head, slot), scaled by
+//      1/sqrt(F*E) (the model's dk is the flattened F*E row);
+//   6. a softmax over the W slots with no mask (slots not written yet hold
+//      zeros and are attended, as the model attends its zero K_buf);
+//   7. the probability-weighted sum of the value planes, head-minor [F, D]
+//      (channel l*vd + j), one thread per (channel, frequency) so that a
+//      warp reads consecutive frequencies of one slot;
+//   8. the output Linear -> PReLU -> a LayerNorm over the whole [F, D] frame
+//      (a block-wide reduction, eps 1e-5) -> residual.
+// q, k, v and the attention output [F, D] live in that global scratch (it
+// stays in L1/L2), and only the scores [L, W] and the reduction scratch are
+// added to the block's shared memory (1.9 KB at W=100, L=4): on an H100 the
+// L1 and the shared memory share 256 KB an SM, and the flagship's W_hh
+// (256 KB a block, re-read at every recurrence step) is served partly from
+// L1. A first version that kept q, k, v and the output in shared memory
+// (+47 KB at the flagship width) ran the flagship attention step in 14.54 ms
+// against 6.95 ms for the kernel without attention, and the attention's own
+// work is a small part of that (chip_smoke.py phases 5 and 18, NVIDIA H100
+// 80GB HBM3, 700 W).
+// The rings are 13.9 MB at the flagship width (B=6, L=4, W=100, F=145,
+// E + vd = 10) and 5.57 MB at the Orange Pi width: too large for shared
+// memory (227 KB a block), they stay in global memory and sit in the 50 MB
+// L2. One SM reads them once per step; at the order of 100-200 GB/s for one
+// SM that is tens of us against a step of ~7 ms (the 876-update chain
+// above). The bound that chip_smoke.py computes adds the ring bytes (read
+// once, the new slot written once) and the attention FLOP to the stack
+// step's. Writing the rings across several blocks or clusters is later
+// work.
 #include <cuda_runtime.h>
 
 namespace {
@@ -100,7 +147,7 @@ __device__ void layer_norm_rows(const float* src, float* dst,
 // and without a taps buffer. Each thread updates the xs elements it reads,
 // from y and the weights only, so no element of xs is read by one thread
 // while another writes it.
-template <bool kConv>
+template <bool kConv, bool kAttn>
 __global__ void __launch_bounds__(1024) stack_step_kernel_t(
     const float* __restrict__ x, const float* __restrict__ film_w,
     const float* __restrict__ film_b, const float* __restrict__ down_cat,
@@ -114,7 +161,17 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
     const float* __restrict__ proj2_b, const float* __restrict__ h0,
     const float* __restrict__ c0, float* x_out, float* h0_out,
     float* c0_out, float* gx, float* y, float* g2, int n_blocks, int F,
-    int D, int H, int s, int use_film, float eps) {
+    int D, int H, int s, int use_film, float eps,
+    const float* __restrict__ q_w, const float* __restrict__ q_b,
+    const float* __restrict__ q_a, const float* __restrict__ q_ln,
+    const float* __restrict__ k_w, const float* __restrict__ k_b,
+    const float* __restrict__ k_a, const float* __restrict__ k_ln,
+    const float* __restrict__ v_w, const float* __restrict__ v_b,
+    const float* __restrict__ v_a, const float* __restrict__ v_ln,
+    const float* __restrict__ o_w, const float* __restrict__ o_b,
+    const float* __restrict__ o_a, const float* __restrict__ o_ln,
+    float* k_ring, float* v_ring, float* a_scr, int heads, int e_dim, int W,
+    int pos) {
   extern __shared__ float smem[];
   const int G = 8 * H, H2 = 2 * H, G2 = 4 * H, FD = F * D;
   const int n = kConv ? F / s : F;   // rows of the intra recurrence
@@ -286,12 +343,204 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
       }
     }
     __syncthreads();
+
+    // ---- local causal attention over the W ring slots (see the header).
+    if constexpr (kAttn) {
+      const int LE = heads * e_dim, vd = D / heads;
+      const int warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
+      float* qa = a_scr;              // [F, L*E] (global scratch)
+      float* ka = qa + F * LE;        // [F, L*E]
+      float* va = ka + F * LE;        // [F, D]
+      float* oa = va + FD;            // [F, D] attention output, head-minor
+      float* sc = cs + H2;            // [L, W] scores, then probabilities
+      float* red = sc + heads * W;    // [64] reduction scratch
+
+      // 1. q, k, v = PReLU(x W + b)
+      {
+        const int row = 2 * LE + D;
+        for (int idx = tid; idx < F * row; idx += nt) {
+          const int f = idx / row, c = idx - f * row;
+          const float *w, *bias;
+          float al, *dst;
+          int ld, col;
+          if (c < LE) {
+            w = q_w + (size_t)b * D * LE, bias = q_b + (size_t)b * LE;
+            al = q_a[b], ld = LE, col = c, dst = qa + f * LE + c;
+          } else if (c < 2 * LE) {
+            w = k_w + (size_t)b * D * LE, bias = k_b + (size_t)b * LE;
+            al = k_a[b], ld = LE, col = c - LE, dst = ka + f * LE + col;
+          } else {
+            w = v_w + (size_t)b * D * D, bias = v_b + (size_t)b * D;
+            al = v_a[b], ld = D, col = c - 2 * LE, dst = va + f * D + col;
+          }
+          const float* xr = xs + f * D;
+          float a = 0.f;
+          for (int d = 0; d < D; ++d) a += xr[d] * w[d * ld + col];
+          a += bias[col];
+          *dst = fmaxf(a, 0.f) + al * fminf(a, 0.f);
+        }
+      }
+      __syncthreads();
+
+      // 2. per head, a LayerNorm over its whole [F, e] slab: one warp a slab
+      for (int sl = warp; sl < 3 * heads; sl += n_warps) {
+        const int t = sl / heads, h = sl - t * heads;
+        const int w = t < 2 ? e_dim : vd, ld = t < 2 ? LE : D;
+        float* base = (t == 0 ? qa : t == 1 ? ka : va) + h * w;
+        const float* g = (t == 0 ? q_ln : t == 1 ? k_ln : v_ln) +
+                         (size_t)b * 2 * F * w;
+        const int n = F * w;
+        float sum = 0.f;
+        for (int i = lane; i < n; i += 32) {
+          const int f = i / w;
+          sum += base[f * ld + i - f * w];
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float mu = sum / n;
+        float var = 0.f;
+        for (int i = lane; i < n; i += 32) {
+          const int f = i / w;
+          const float dv = base[f * ld + i - f * w] - mu;
+          var += dv * dv;
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          var += __shfl_xor_sync(0xffffffffu, var, o);
+        const float inv = 1.0f / sqrtf(var / n + 1e-5f);
+        for (int i = lane; i < n; i += 32) {
+          const int f = i / w;
+          float* p = base + f * ld + i - f * w;
+          *p = (*p - mu) * inv * g[i] + g[n + i];
+        }
+      }
+      __syncthreads();
+
+      // 3. this frame's k, v to slot pos of the rings
+      for (int idx = tid; idx < (LE + D) * F; idx += nt) {
+        const int c = idx / F, f = idx - c * F;
+        if (c < LE)
+          k_ring[(((size_t)b * LE + c) * W + pos) * F + f] = ka[f * LE + c];
+        else
+          v_ring[(((size_t)b * D + c - LE) * W + pos) * F + f] =
+              va[f * D + c - LE];
+      }
+      // 4. the block's ring writes are visible to its reads below
+      __syncthreads();
+
+      // 5. scores, one warp per (head, slot)
+      const float scale = 1.0f / sqrtf((float)(F * e_dim));
+      for (int p = warp; p < heads * W; p += n_warps) {
+        const int h = p / W, w = p - h * W;
+        float a = 0.f;
+        for (int j = 0; j < e_dim; ++j) {
+          const float* kr =
+              k_ring + (((size_t)b * LE + h * e_dim + j) * W + w) * F;
+          const float* qc = qa + h * e_dim + j;
+          for (int f = lane; f < F; f += 32) a += qc[f * LE] * kr[f];
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane == 0) sc[p] = a * scale;
+      }
+      __syncthreads();
+
+      // 6. softmax over the W slots, no mask: one warp a head
+      for (int h = warp; h < heads; h += n_warps) {
+        float* sr = sc + h * W;
+        float m = __int_as_float(0xff800000);  // -inf
+        for (int w = lane; w < W; w += 32) m = fmaxf(m, sr[w]);
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float z = 0.f;
+        for (int w = lane; w < W; w += 32) {
+          const float ev = expf(sr[w] - m);
+          sr[w] = ev;
+          z += ev;
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          z += __shfl_xor_sync(0xffffffffu, z, o);
+        const float inv = 1.0f / z;
+        for (int w = lane; w < W; w += 32) sr[w] *= inv;
+      }
+      __syncthreads();
+
+      // 7. the probability-weighted values, head-minor
+      for (int idx = tid; idx < D * F; idx += nt) {
+        const int c = idx / F, f = idx - c * F;
+        const float* vr = v_ring + ((size_t)b * D + c) * W * F + f;
+        const float* pr = sc + (c / vd) * W;
+        float a = 0.f;
+        for (int w = 0; w < W; ++w) a += pr[w] * vr[(size_t)w * F];
+        oa[f * D + c] = a;
+      }
+      __syncthreads();
+
+      // 8. output Linear -> PReLU into zs (free since the inter gates)
+      {
+        const float* ow = o_w + (size_t)b * D * D;
+        const float* ob = o_b + (size_t)b * D;
+        const float al = o_a[b];
+        for (int idx = tid; idx < FD; idx += nt) {
+          const int f = idx / D, d = idx - f * D;
+          const float* orow = oa + f * D;
+          float a = 0.f;
+          for (int c = 0; c < D; ++c) a += orow[c] * ow[c * D + d];
+          a += ob[d];
+          zs[idx] = fmaxf(a, 0.f) + al * fminf(a, 0.f);
+        }
+      }
+      __syncthreads();
+      // ... -> LayerNorm over the whole [F, D] frame -> residual
+      float part = 0.f;
+      for (int i = tid; i < FD; i += nt) part += zs[i];
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) red[warp] = part;
+      __syncthreads();
+      if (warp == 0) {
+        float t = lane < n_warps ? red[lane] : 0.f;
+        for (int o = 16; o > 0; o >>= 1)
+          t += __shfl_xor_sync(0xffffffffu, t, o);
+        if (lane == 0) red[32] = t / FD;
+      }
+      __syncthreads();
+      const float mu = red[32];
+      part = 0.f;
+      for (int i = tid; i < FD; i += nt) {
+        const float dv = zs[i] - mu;
+        part += dv * dv;
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) red[warp] = part;
+      __syncthreads();
+      if (warp == 0) {
+        float t = lane < n_warps ? red[lane] : 0.f;
+        for (int o = 16; o > 0; o >>= 1)
+          t += __shfl_xor_sync(0xffffffffu, t, o);
+        if (lane == 0) red[33] = 1.0f / sqrtf(t / FD + 1e-5f);
+      }
+      __syncthreads();
+      const float inv = red[33];
+      const float* g = o_ln + (size_t)b * 2 * FD;
+      for (int i = tid; i < FD; i += nt)
+        xs[i] += (zs[i] - mu) * inv * g[i] + g[FD + i];
+      __syncthreads();
+    }
   }
 
   for (int i = tid; i < FD; i += nt) x_out[i] = xs[i];
 }
 
-template <bool kConv>
+// Attention operands (nullptr / 0 for kAttn = false), in the kernel's order.
+struct AttnArgs {
+  const float *q_w, *q_b, *q_a, *q_ln, *k_w, *k_b, *k_a, *k_ln;
+  const float *v_w, *v_b, *v_a, *v_ln, *o_w, *o_b, *o_a, *o_ln;
+  float *k_ring, *v_ring, *a_scr;
+  int heads, e_dim, window, pos;
+};
+
+template <bool kConv, bool kAttn>
 int launch(const float* x, const float* film_w, const float* film_b,
            const float* down_cat, const float* down_b, const float* alpha,
            const float* i_ln, const float* wih_f, const float* wih_b,
@@ -301,22 +550,27 @@ int launch(const float* x, const float* film_w, const float* film_b,
            const float* proj2_b, const float* h0, const float* c0,
            float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
            float* g2, int n_blocks, int f_len, int d, int hidden, int s,
-           int use_film, float eps, void* stream) {
+           int use_film, float eps, const AttnArgs& at, void* stream) {
   const int threads = 8 * hidden;
-  const size_t smem =
-      (size_t)(2 * f_len * d + 12 * hidden) * sizeof(float);
+  size_t smem = (size_t)(2 * f_len * d + 12 * hidden) * sizeof(float);
+  if (kAttn)  // the scores [L, W] and 64 floats of reduction scratch
+    smem += (size_t)(at.heads * at.window + 64) * sizeof(float);
   cudaGetLastError();  // clear an error left by an earlier call
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stack_step_kernel_t<kConv>,
+        stack_step_kernel_t<kConv, kAttn>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  stack_step_kernel_t<kConv><<<1, threads, smem, (cudaStream_t)stream>>>(
-      x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
-      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
-      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, s,
-      use_film, eps);
+  stack_step_kernel_t<kConv, kAttn>
+      <<<1, threads, smem, (cudaStream_t)stream>>>(
+          x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b,
+          whh, b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b,
+          h0, c0, x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d,
+          hidden, s, use_film, eps, at.q_w, at.q_b, at.q_a, at.q_ln, at.k_w,
+          at.k_b, at.k_a, at.k_ln, at.v_w, at.v_b, at.v_a, at.v_ln, at.o_w,
+          at.o_b, at.o_a, at.o_ln, at.k_ring, at.v_ring, at.a_scr, at.heads,
+          at.e_dim, at.window, at.pos);
   return (int)cudaGetLastError();
 }
 
@@ -337,11 +591,11 @@ extern "C" int sbt_stack_step(
     float* h0_out, float* c0_out, float* gx, float* y, float* g2,
     int n_blocks, int f_len, int d, int hidden, int use_film, float eps,
     void* stream) {
-  return launch<false>(x, film_w, film_b, nullptr, nullptr, nullptr, i_ln,
-                       wih_f, wih_b, whh, b8, proj_w, proj_b, t_ln, wih2,
-                       whh2, b2, proj2_w, proj2_b, h0, c0, x_out, h0_out,
-                       c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
-                       use_film, eps, stream);
+  return launch<false, false>(
+      x, film_w, film_b, nullptr, nullptr, nullptr, i_ln, wih_f, wih_b, whh,
+      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
+      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
+      use_film, eps, AttnArgs{}, stream);
 }
 
 // The conv_lstm branch: the conv operands of `pack_stack_params` in place of
@@ -357,9 +611,62 @@ extern "C" int sbt_stack_step_conv(
     float* h0_out, float* c0_out, float* gx, float* y, float* g2,
     int n_blocks, int f_len, int d, int hidden, int lstm_down, int use_film,
     float eps, void* stream) {
-  return launch<true>(x, film_w, film_b, down_cat, down_b, alpha, i_ln,
-                      wih_f, wih_b, whh, b8, up_flat, up_b, t_ln, wih2, whh2,
-                      b2, proj2_w, proj2_b, h0, c0, x_out, h0_out, c0_out,
-                      gx, y, g2, n_blocks, f_len, d, hidden, lstm_down,
-                      use_film, eps, stream);
+  return launch<true, false>(
+      x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
+      b8, up_flat, up_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
+      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden,
+      lstm_down, use_film, eps, AttnArgs{}, stream);
+}
+
+// The attention branches: the 16 operands of `pack_attn_params`, the rings
+// (updated in place at slot `pos`) and the q/k/v/output scratch
+// [F * (2 L E + 2 D)] after the weights; heads L, e_dim E, window W and pos
+// after the dims.
+#define SBT_ATTN_PARAMS                                                      \
+  const float *q_w, const float *q_b, const float *q_a, const float *q_ln,  \
+      const float *k_w, const float *k_b, const float *k_a,                 \
+      const float *k_ln, const float *v_w, const float *v_b,                \
+      const float *v_a, const float *v_ln, const float *o_w,                \
+      const float *o_b, const float *o_a, const float *o_ln, float *k_ring, \
+      float *v_ring, float *a_scr
+#define SBT_ATTN_ARGS                                                        \
+  AttnArgs {                                                                 \
+    q_w, q_b, q_a, q_ln, k_w, k_b, k_a, k_ln, v_w, v_b, v_a, v_ln, o_w, o_b, \
+        o_a, o_ln, k_ring, v_ring, a_scr, heads, e_dim, window, pos          \
+  }
+
+extern "C" int sbt_stack_step_attn(
+    const float* x, const float* film_w, const float* film_b,
+    const float* i_ln, const float* wih_f, const float* wih_b,
+    const float* whh, const float* b8, const float* proj_w,
+    const float* proj_b, const float* t_ln, const float* wih2,
+    const float* whh2, const float* b2, const float* proj2_w,
+    const float* proj2_b, SBT_ATTN_PARAMS, const float* h0, const float* c0,
+    float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
+    float* g2, int n_blocks, int f_len, int d, int hidden, int heads,
+    int e_dim, int window, int pos, int use_film, float eps, void* stream) {
+  return launch<false, true>(
+      x, film_w, film_b, nullptr, nullptr, nullptr, i_ln, wih_f, wih_b, whh,
+      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
+      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
+      use_film, eps, SBT_ATTN_ARGS, stream);
+}
+
+extern "C" int sbt_stack_step_conv_attn(
+    const float* x, const float* film_w, const float* film_b,
+    const float* down_cat, const float* down_b, const float* alpha,
+    const float* i_ln, const float* wih_f, const float* wih_b,
+    const float* whh, const float* b8, const float* up_flat,
+    const float* up_b, const float* t_ln, const float* wih2,
+    const float* whh2, const float* b2, const float* proj2_w,
+    const float* proj2_b, SBT_ATTN_PARAMS, const float* h0, const float* c0,
+    float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
+    float* g2, int n_blocks, int f_len, int d, int hidden, int lstm_down,
+    int heads, int e_dim, int window, int pos, int use_film, float eps,
+    void* stream) {
+  return launch<true, true>(
+      x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
+      b8, up_flat, up_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
+      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden,
+      lstm_down, use_film, eps, SBT_ATTN_ARGS, stream);
 }

@@ -1,13 +1,15 @@
 """Causal TF-GridNet with FiLM distance conditioning (port of
 `sound_bubble_tpu/models/tfgridnet/model.py`).
 
-Covers the production configuration (`syn_experiments/finetune_stage.json`,
-`runs/finetune_r5/config.json`: plain intra BLSTM, `dis_type` conv3) and the
-edge configurations (`real_experiments/*.json`: `conv_lstm=True`,
-unconditioned), in fp32 and with the bf16 trunk (`compute_dtype="bf16"`).
-Attention, STFT look-back and the linear `dis_type`s raise
-NotImplementedError (ROADMAP Queue 1). `remat` changes only memory and is
-accepted and ignored.
+Covers every field of the JAX `NetConfig`: the production configuration
+(`syn_experiments/finetune_stage.json`, `runs/finetune_r5/config.json`: plain
+intra BLSTM, `dis_type` conv3), the edge configurations
+(`real_experiments/*.json`: `conv_lstm=True`, unconditioned), local causal
+attention (`use_attn=True`, K/V buffers in the streaming state), the STFT
+look-back decode (`stft_back_pad > 0`) and the linear `dis_type`s, in fp32 and
+with the bf16 trunk (`compute_dtype="bf16"`). The bf16 trunk with attention
+raises NotImplementedError (ROADMAP Queue 1). `remat` changes only memory
+and is accepted and ignored.
 
 The bf16 trunk follows the JAX package's mixed precision: the STFT, the
 spatial features and the iSTFT run in float32; the features, the streaming
@@ -31,12 +33,13 @@ LSTM `w_ih` [C, 4H] / `w_hh` [H, 4H] / folded `b` [4H]), so a module's
 
 The streaming state is an explicit dict threaded through `forward`, with the
 reference `init_buffers` key names (conv_buf / deconv_buf / istft_buf /
-gridnet_bufs.bufN.{h0,c0}); offline and streaming share one forward
-(streaming = the same call with T=1).
+gridnet_bufs.bufN.{h0,c0,K_buf,V_buf}); offline and streaming share one
+forward (streaming = the same call with T=1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -50,7 +53,6 @@ from sound_bubble_tpu_torch.ops.rnn import blstm, lstm, matmul
 from sound_bubble_tpu_torch.ops.stft import (
     STFT, istft, make_stft, mod_pad, stft)
 
-_VARIANTS_LATER = "is not ported yet (ROADMAP Queue 1 item 9)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,13 +121,12 @@ class NetConfig:
 
 
 def check_supported(cfg: NetConfig) -> None:
-    """Raise NotImplementedError for the variants this port does not cover."""
-    if cfg.use_attn:
-        raise NotImplementedError(f"use_attn=True {_VARIANTS_LATER}")
-    if cfg.stft_back_pad > 0:
-        raise NotImplementedError(f"stft_back_pad>0 {_VARIANTS_LATER}")
-    if cfg.conditional and not cfg.dis_type.startswith("conv"):
-        raise NotImplementedError(f"dis_type={cfg.dis_type} {_VARIANTS_LATER}")
+    """Raise for the one variant this port does not cover (the bf16 trunk
+    with attention) and for an unknown `compute_dtype`."""
+    if cfg.compute_dtype == "bf16" and cfg.use_attn:
+        raise NotImplementedError(
+            "the bf16 trunk with use_attn=True is not ported yet (ROADMAP "
+            "Queue 1 item 15); train or serve an attention net in float32")
     if cfg.compute_dtype not in (None, "bf16"):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: None or "
                          "'bf16'")
@@ -147,14 +148,21 @@ def init_state(cfg: NetConfig, batch_size: int, device="cpu",
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    def block_bufs():
+        b = {"h0": zeros(batch_size, F, cfg.H),
+             "c0": zeros(batch_size, F, cfg.H)}
+        if cfg.use_attn:
+            # the W-1 past frames of each head's keys and values
+            w = cfg.local_atten_len - 1
+            b["K_buf"] = zeros(batch_size, cfg.L, w, F * cfg.E)
+            b["V_buf"] = zeros(batch_size, cfg.L, w, F * (D // cfg.L))
+        return b
+
     return {
         "conv_buf": zeros(batch_size, 2, F, cfg.conv_in),
         "deconv_buf": zeros(batch_size, 2, F, D),
         "istft_buf": zeros(batch_size, cfg.num_src, cfg.istft_lookback, 2 * F),
-        "gridnet_bufs": {
-            f"buf{i}": {"h0": zeros(batch_size, F, cfg.H),
-                        "c0": zeros(batch_size, F, cfg.H)}
-            for i in range(cfg.B)},
+        "gridnet_bufs": {f"buf{i}": block_bufs() for i in range(cfg.B)},
     }
 
 
@@ -279,18 +287,28 @@ class CausalDeconv2d(CausalConv2d):
 
 
 class DisEmbed(nn.Module):
-    """Distance embedding, conv dis_types: one-hot [B, 3] -> [B, F, D_in]."""
+    """Distance embedding: one-hot [B, 3] -> [B, F, D_in]. The conv
+    dis_types normalise each frequency's D_in channels; linear1 normalises
+    the F values of its one channel; linear2 projects to [D, F] (channel
+    major) and normalises all F*D values together."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
+        self.kind = cfg.dis_type
         self.F, self.d_in = cfg.n_freqs, cfg.embed_width
         self.proj = Linear(len(BUBBLE_RADII), self.F * self.d_in,
                            use_bias=False)
-        self.norm = LayerNorm(self.d_in)
+        conv = self.kind.startswith("conv")
+        self.norm = LayerNorm(self.d_in if conv else self.F * self.d_in)
 
     def forward(self, e):
-        e = self.proj(e).reshape(e.shape[0], self.F, self.d_in)
-        return self.norm(e)
+        n = e.shape[0]
+        if self.kind.startswith("conv"):
+            return self.norm(self.proj(e).reshape(n, self.F, self.d_in))
+        e = self.norm(self.proj(e))
+        if self.kind == "linear1":
+            return e[..., None]                           # [B, F, 1]
+        return e.reshape(n, self.d_in, self.F).transpose(1, 2)
 
 
 class FiLM(nn.Module):
@@ -367,8 +385,69 @@ class IntraBand(nn.Module):
         return z.reshape(B, T, F, C)
 
 
+class AttnProj(nn.Module):
+    """Q/K/V projection: Linear -> PReLU -> head split -> LayerNorm over the
+    head's F*e values (the default eps, 1e-5, not cfg.eps, as in JAX).
+    x: [B, T, F, C] -> [B, heads, T, F*e] (row f*e + j: frequency f,
+    channel j of the head)."""
+
+    def __init__(self, C: int, F: int, heads: int, e: int):
+        super().__init__()
+        self.heads, self.e = heads, e
+        self.proj = Linear(C, heads * e)
+        self.act = PReLU()
+        self.norm = LayerNorm(F * e)
+
+    def forward(self, x):
+        B, T, F, _ = x.shape
+        z = self.act(self.proj(x)).reshape(B, T, F, self.heads, self.e)
+        z = z.permute(0, 3, 1, 2, 4).reshape(B, self.heads, T, F * self.e)
+        return self.norm(z)
+
+
+def local_attention(q, k_full, v_full, window):
+    """Banded causal local attention (JAX `_local_attention`).
+
+    q: [B, h, T, dk]; k_full/v_full: [B, h, T+W-1, d*] where index j holds
+    frame j-(W-1); query t attends k_full[t .. t+W-1] (the W frames up to
+    and including its own), scores scaled by 1/sqrt(dk) with dk = F*E.
+    T <= W: one [T, T+W-1] score matrix with a band mask; T > W: queries in
+    blocks of W (T padded up), block n attending the 2W-wide slab
+    k_full[nW : nW+2W] with the band mask of each row. Masked scores are
+    -1e9, as in JAX. Returns [B, h, T, dv]."""
+    B, h, T, dk = q.shape
+    W = window
+    scale = 1.0 / math.sqrt(dk)
+    if T <= W:
+        scores = torch.einsum("bhtd,bhjd->bhtj", q, k_full) * scale
+        j = torch.arange(k_full.shape[2], device=q.device)[None, :]
+        t = torch.arange(T, device=q.device)[:, None]
+        mask = (j >= t) & (j <= t + W - 1)
+        scores = torch.where(mask, scores, scores.new_tensor(-1e9))
+        return torch.einsum("bhtj,bhjd->bhtd", scores.softmax(dim=-1),
+                            v_full)
+    nb = -(-T // W)
+    qb = TF.pad(q, (0, 0, 0, nb * W - T)).reshape(B, h, nb, W, dk)
+    kv_len = nb * W + W            # the last block's slab ends at (nb+1)W
+
+    def slabs(a):
+        a = TF.pad(a, (0, 0, 0, kv_len - a.shape[2]))
+        # [B, h, nb, 2W, d]: block n's rows nW .. nW+2W-1
+        return a.unfold(2, 2 * W, W).transpose(-1, -2)
+
+    k_slab, v_slab = slabs(k_full), slabs(v_full)
+    scores = torch.einsum("bhnrd,bhnjd->bhnrj", qb, k_slab) * scale
+    r = torch.arange(W, device=q.device)[:, None]
+    j = torch.arange(2 * W, device=q.device)[None, :]
+    mask = (j >= r) & (j <= r + W - 1)                  # W keys per row
+    scores = torch.where(mask, scores, scores.new_tensor(-1e9))
+    out = torch.einsum("bhnrj,bhnjd->bhnrd", scores.softmax(dim=-1), v_slab)
+    return out.reshape(B, h, nb * W, -1)[:, :, :T]
+
+
 class GridNetBlock(nn.Module):
-    """One TF-GridNet block: intra-frequency BLSTM + stateful inter-time LSTM."""
+    """One TF-GridNet block: intra-frequency BLSTM + stateful inter-time
+    LSTM + (use_attn) local causal attention over the past W frames."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
@@ -377,16 +456,46 @@ class GridNetBlock(nn.Module):
         self.inter_norm = LayerNorm(C, eps=cfg.eps)
         self.inter_lstm = _lstm_params(C, cfg.H)
         self.inter_proj = Linear(cfg.H, C)
+        self.use_attn = cfg.use_attn
+        if cfg.use_attn:
+            F, L = cfg.n_freqs, cfg.L
+            self.window = cfg.local_atten_len
+            self.attn_q = AttnProj(C, F, L, cfg.E)
+            self.attn_k = AttnProj(C, F, L, cfg.E)
+            self.attn_v = AttnProj(C, F, L, C // L)
+            self.attn_out_proj = Linear(C, C)
+            self.attn_out_act = PReLU()
+            # over the whole [F, C] frame, default eps as in JAX
+            self.attn_out_norm = LayerNorm(F * C)
 
     def reset_parameters(self, generator):
         _init_lstm(self.inter_lstm, generator)
+
+    def attend(self, x, state):
+        """The attention section: x [B, T, F, C] and the block's K_buf /
+        V_buf [B, L, W-1, F*e] -> (x + attention output, K_buf', V_buf').
+        The output's channel l*vd + j is head l's value channel j."""
+        B, T, F, C = x.shape
+        W = self.window
+        q, k, v = self.attn_q(x), self.attn_k(x), self.attn_v(x)
+        k_full = torch.cat([state["K_buf"], k], dim=2)
+        v_full = torch.cat([state["V_buf"], v], dim=2)
+        heads = q.shape[1]
+        o = local_attention(q, k_full, v_full, W)        # [B, L, T, F*vd]
+        o = o.reshape(B, heads, T, F, C // heads).permute(0, 2, 3, 1, 4)
+        o = self.attn_out_act(self.attn_out_proj(o.reshape(B, T, F, C)))
+        o = self.attn_out_norm(o.reshape(B, T, F * C)).reshape(B, T, F, C)
+        return (x + o, k_full[:, :, -(W - 1):], v_full[:, :, -(W - 1):])
 
     def forward(self, x, state):
         x = x + self.intra(x)
         z = self.inter_norm(x).transpose(1, 2)            # [B, F, T, C]
         z, (hT, cT) = lstm(self.inter_lstm, z, state["h0"], state["c0"])
         x = x + self.inter_proj(z).transpose(1, 2)
-        return x, {"h0": hT, "c0": cT}
+        new_state = {"h0": hT, "c0": cT}
+        if self.use_attn:
+            x, new_state["K_buf"], new_state["V_buf"] = self.attend(x, state)
+        return x, new_state
 
 
 class Net(nn.Module):
@@ -499,9 +608,26 @@ class Net(nn.Module):
         # the carried state keeps its dtype
         next_state["istft_buf"] = full_spec[:, :, -cfg.istft_lookback:].to(
             state["istft_buf"].dtype)
-        y = istft(self.filterbank(), full_spec)
-        y = y[..., :-(cfg.n_fft - cfg.stft_chunk_size)]
-        return y[..., cfg.istft_lookback * cfg.stft_chunk_size:]
+        chunk = cfg.stft_chunk_size
+        if cfg.stft_back_pad == 0:
+            y = istft(self.filterbank(), full_spec)
+            y = y[..., :-(cfg.n_fft - chunk)]
+        else:
+            y = self._lookback_decode(full_spec)
+        return y[..., cfg.istft_lookback * chunk:]
+
+    def _lookback_decode(self, full_spec):
+        """The look-back synthesis (JAX `_core`, reference
+        `causal_decoder`): each frame's samples from `stft_back_pad` on, the
+        previous frame's last back+pad samples added onto its head, the
+        first `chunk` samples kept. [B, S, T', 2F] -> [B, S, T'*chunk]."""
+        cfg = self.cfg
+        chunk, la = cfg.stft_chunk_size, cfg.n_fft - cfg.stft_chunk_size
+        B, S, Tp, _ = full_spec.shape
+        frames = (full_spec @ self.stft_filters)[..., cfg.stft_back_pad:]
+        prev_tail = TF.pad(frames[:, :, :-1, -la:], (0, 0, 1, 0))
+        frames = frames + TF.pad(prev_tail, (0, frames.shape[-1] - la))
+        return frames[..., :chunk].reshape(B, S, Tp * chunk)
 
     def core(self, x, emb, state):
         next_state = dict(state)

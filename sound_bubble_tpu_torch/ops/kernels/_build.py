@@ -78,6 +78,12 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step_conv.argtypes = (
                 [ptr] * 27 + [i32] * 6 + [ctypes.c_float, ptr])
             lib.sbt_stack_step_conv.restype = i32
+            lib.sbt_stack_step_attn.argtypes = (
+                [ptr] * 43 + [i32] * 9 + [ctypes.c_float, ptr])
+            lib.sbt_stack_step_attn.restype = i32
+            lib.sbt_stack_step_conv_attn.argtypes = (
+                [ptr] * 46 + [i32] * 10 + [ctypes.c_float, ptr])
+            lib.sbt_stack_step_conv_attn.restype = i32
             lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
             lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]

@@ -1,17 +1,22 @@
 """The whole GridNet block stack in ONE kernel for a streaming step (T=1,
 batch 1): port of `sound_bubble_tpu/ops/pallas/stack_kernel.py`
-(`pack_stack_params`, `gridnet_stack_step`, the non-attention branches:
-the plain intra BLSTM, `_kernel`, and the conv_lstm intra, `_kernel_conv`).
+(`pack_stack_params`, `pack_attn_params`, `attn_ring_bytes`,
+`gridnet_stack_step` with the plain intra BLSTM, `_kernel`, and the
+conv_lstm intra, `_kernel_conv`; `gridnet_stack_step_attn`, the same with
+local causal attention after each block's inter step, `_kernel_attn` and
+`_kernel_conv_attn`).
 
-`gridnet_stack_step` launches a hand-written CUDA kernel of
-`sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the card
-(`stack_step_kernel_t<false>`, or `<true>` for a conv_lstm pack) and runs
-`gridnet_stack_step_ref`, its plain PyTorch version, for tensors on the CPU.
-There is no fallback between the two: a CUDA tensor goes to the kernel or the
-call raises. The design notes and the bounds of the kernels are in their
-source.
+`gridnet_stack_step` and `gridnet_stack_step_attn` launch hand-written CUDA
+kernels of `sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the
+card (`stack_step_kernel_t<kConv, kAttn>`) and run `gridnet_stack_step_ref`
+/ `gridnet_stack_step_attn_ref`, their plain PyTorch versions, for tensors
+on the CPU. There is no fallback between the two: a CUDA tensor goes to the
+kernel or the call raises. The design notes and the bounds of the kernels
+are in their source.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -108,12 +113,64 @@ def lstm_down(packed):
     return sd // d
 
 
+def pack_attn_params(cfg, params) -> dict:
+    """Attention weights (block{i}.attn_* subtrees) -> stacked [B, ...]
+    float32 operands of the attention stack step, on the CPU. The JAX
+    package's keys and layouts: per projection (q, k: width E per head; v:
+    D // L) the Linear kernel [B, D, L*width], its bias, the PReLU slope
+    [B, 1] and the per-head LayerNorm affine [B, 2, F, width] (scale, bias;
+    shared by the heads); the output Linear [B, D, D], its bias, PReLU and
+    the LayerNorm over the [F, D] frame as [B, 2, F, D]."""
+    B, F, vd = cfg.B, cfg.n_freqs, cfg.D // cfg.L
+
+    def gather(name, *path):
+        out = []
+        for i in range(B):
+            node = params[f"block{i}"][name]
+            for k in path:
+                node = node[k]
+            out.append(_np(node))
+        return np.stack(out)
+
+    packed = {}
+    for tag, width in (("q", cfg.E), ("k", cfg.E), ("v", vd)):
+        nm = f"attn_{tag}"
+        packed[f"{tag}_w"] = gather(nm, "proj", "kernel")
+        packed[f"{tag}_b"] = gather(nm, "proj", "bias")
+        packed[f"{tag}_a"] = gather(nm, "act", "alpha").reshape(B, 1)
+        packed[f"{tag}_ln"] = np.stack(
+            [gather(nm, "norm", "scale"), gather(nm, "norm", "bias")],
+            axis=1).reshape(B, 2, F, width)
+    packed["o_w"] = gather("attn_out_proj", "kernel")
+    packed["o_b"] = gather("attn_out_proj", "bias")
+    packed["o_a"] = gather("attn_out_act", "alpha").reshape(B, 1)
+    packed["o_ln"] = np.stack(
+        [gather("attn_out_norm", "scale"), gather("attn_out_norm", "bias")],
+        axis=1).reshape(B, 2, F, cfg.D)
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in packed.items()}
+
+
+def attn_ring_bytes(cfg, f_len: int) -> int:
+    """fp32 bytes of the whole stack's K/V rings: B blocks x L heads x W
+    slots x F x (E + D // L) floats (13.9 MB at the flagship width, 5.57 MB
+    at the Orange Pi width)."""
+    vd = cfg.D // cfg.L
+    return cfg.B * cfg.L * cfg.local_atten_len * f_len * (cfg.E + vd) * 4
+
+
 # operand order of the kernels' C entry points (after x, film_w, film_b)
 _WEIGHTS = ("i_ln", "wih_f", "wih_b", "whh", "b8", "proj_w", "proj_b",
             "t_ln", "wih2", "whh2", "b2", "proj2_w", "proj2_b")
 _WEIGHTS_CONV = ("down_cat", "down_b", "alpha", "i_ln", "wih_f", "wih_b",
                  "whh", "b8", "up_flat", "up_b", "t_ln", "wih2", "whh2", "b2",
                  "proj2_w", "proj2_b")
+# the attention operands, after the weights
+_ATTN = ("q_w", "q_b", "q_a", "q_ln", "k_w", "k_b", "k_a", "k_ln",
+         "v_w", "v_b", "v_a", "v_ln", "o_w", "o_b", "o_a", "o_ln")
+# the attention LayerNorms take flax's default eps, not cfg.eps (JAX model
+# `AttnProj.norm`, `attn_out_norm`; Pallas `_attn_step`)
+ATTN_LN_EPS = 1e-5
 
 
 # ------------------------------------------------------ plain PyTorch ----
@@ -191,12 +248,72 @@ def _inter_step(p, b, x, h0, c0, hidden, eps):
     return x + h_new @ p["proj2_w"][b] + p["proj2_b"][b], h_new, c_new
 
 
+def _prelu(z, alpha):
+    return torch.clamp(z, min=0) + alpha * torch.clamp(z, max=0)
+
+
+def _ln2d(x, s, b):
+    """LayerNorm whose statistics span the whole 2-D slab (the model's
+    LayerNorm over a flattened [F*e] row), affine [F, e]."""
+    mu = x.mean()
+    var = (x - mu).square().mean()
+    return (x - mu) * torch.rsqrt(var + ATTN_LN_EPS) * s + b
+
+
+def _attn_step(pa, b, x, pos, k_ring, v_ring, heads):
+    """Local causal attention of block b at streaming T=1 (the Pallas
+    `_attn_step`): q, k, v = PReLU(x @ W + b) with a per-head LayerNorm over
+    the [F, e] slab; this frame's k, v written to slot `pos` of the rings
+    (in place); each head's scores over the W slots, scaled by
+    1/sqrt(F*E), and a softmax with no mask (slots not written yet hold
+    zeros and are attended, as the model attends its zero K_buf); the
+    probability-weighted values, head-minor ([F, D], channel l*vd + j);
+    output Linear -> PReLU -> LayerNorm over the [F, D] frame ->
+    residual. x: [F, D]; k_ring [B, L*E, W, F], v_ring [B, D, W, F]."""
+    F, C = x.shape
+    e, vd = k_ring.shape[1] // heads, C // heads
+    scale = 1.0 / math.sqrt(F * e)
+    zq, zk, zv = (_prelu(x @ pa[f"{t}_w"][b] + pa[f"{t}_b"][b],
+                         pa[f"{t}_a"][b, 0]) for t in "qkv")
+    outs = []
+    for h in range(heads):
+        qh = _ln2d(zq[:, h * e:(h + 1) * e], *pa["q_ln"][b])     # [F, e]
+        kh = _ln2d(zk[:, h * e:(h + 1) * e], *pa["k_ln"][b])
+        vh = _ln2d(zv[:, h * vd:(h + 1) * vd], *pa["v_ln"][b])  # [F, vd]
+        k_ring[b, h * e:(h + 1) * e, pos] = kh.T
+        v_ring[b, h * vd:(h + 1) * vd, pos] = vh.T
+        scores = torch.einsum("fj,jwf->w", qh,
+                              k_ring[b, h * e:(h + 1) * e]) * scale
+        outs.append(torch.einsum("w,jwf->fj", scores.softmax(dim=0),
+                                 v_ring[b, h * vd:(h + 1) * vd]))
+    o = _prelu(torch.cat(outs, dim=-1) @ pa["o_w"][b] + pa["o_b"][b],
+               pa["o_a"][b, 0])
+    return x + _ln2d(o, *pa["o_ln"][b])
+
+
 def gridnet_stack_step_ref(packed, x, h0, c0, film_w=None, film_b=None,
                            eps: float = 1e-5):
     """Plain PyTorch version of the kernel, the same math step by step.
 
     x: [F, D]; h0/c0: [B, F, H]; film_w/film_b: [B-1, F, D] or None.
     Returns (x_out [F, D], h0' [B, F, H], c0' [B, F, H])."""
+    x, h0, c0, _, _ = _stack_ref(packed, None, x, h0, c0, film_w, film_b,
+                                 eps)
+    return x, h0, c0
+
+
+def gridnet_stack_step_attn_ref(packed, packed_attn, x, h0, c0, k_ring,
+                                v_ring, pos, heads, film_w=None, film_b=None,
+                                eps: float = 1e-5):
+    """Plain PyTorch version of the attention stack step: each block's
+    intra and inter parts as in `gridnet_stack_step_ref`, then
+    `_attn_step`. Writes slot `pos` of k_ring / v_ring in place and returns
+    (x_out, h0', c0', k_ring, v_ring)."""
+    return _stack_ref(packed, (packed_attn, k_ring, v_ring, int(pos), heads),
+                      x, h0, c0, film_w, film_b, eps)
+
+
+def _stack_ref(packed, attn, x, h0, c0, film_w, film_b, eps):
     n_blocks, _, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     intra = _intra_blstm if lstm_down(packed) is None else _intra_conv
@@ -206,9 +323,13 @@ def gridnet_stack_step_ref(packed, x, h0, c0, film_w=None, film_b=None,
             x = x * film_w[b - 1] + film_b[b - 1]
         x = intra(packed, b, x, hidden, eps)
         x, h_new, c_new = _inter_step(packed, b, x, h0, c0, hidden, eps)
+        if attn is not None:
+            pa, k_ring, v_ring, pos, heads = attn
+            x = _attn_step(pa, b, x, pos, k_ring, v_ring, heads)
         hs.append(h_new)
         cs.append(c_new)
-    return x, torch.stack(hs), torch.stack(cs)
+    rings = (None, None) if attn is None else attn[1:3]
+    return (x, torch.stack(hs), torch.stack(cs), *rings)
 
 
 # --------------------------------------------------------- CUDA kernel ----
@@ -256,19 +377,41 @@ def _operands(packed):
     return "sbt_stack_step_conv", "conv_launches", _WEIGHTS_CONV, shapes, s
 
 
-def check_packed(packed, device):
+def _attn_shapes(n_blocks, f_len, d, heads, e_dim):
+    vd = d // heads
+    shapes = {}
+    for tag, width in (("q", e_dim), ("k", e_dim), ("v", vd)):
+        shapes.update({f"{tag}_w": (n_blocks, d, heads * width),
+                       f"{tag}_b": (n_blocks, heads * width),
+                       f"{tag}_a": (n_blocks, 1),
+                       f"{tag}_ln": (n_blocks, 2, f_len, width)})
+    shapes.update(o_w=(n_blocks, d, d), o_b=(n_blocks, d), o_a=(n_blocks, 1),
+                  o_ln=(n_blocks, 2, f_len, d))
+    return shapes
+
+
+def check_packed(packed, device, packed_attn=None, heads=None):
     """Check the kernel's weight operands once: on `device`, float32,
-    contiguous, of the shapes `pack_stack_params` gives. `gridnet_stack_step`
-    runs this at every call unless the caller passes `checked=True`."""
+    contiguous, of the shapes `pack_stack_params` (and `pack_attn_params`
+    for `heads` heads) give. The wrappers run this at every call unless the
+    caller passes `checked=True`."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     _, _, names, shapes, _ = _operands(packed)
     for k in names:
         _check(k, packed[k], shapes[k], device)
+    if packed_attn is not None:
+        n_blocks, d, _ = packed["wih2"].shape
+        _, f_len, e_dim = packed_attn["q_ln"].shape[1:]
+        if heads is None or heads < 1 or d % heads:
+            raise ValueError(f"heads={heads}: must divide D={d}")
+        shapes = _attn_shapes(n_blocks, f_len, d, heads, e_dim)
+        for k in _ATTN:
+            _check(k, packed_attn[k], shapes[k], device)
 
 
-def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
+def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
     dev = x.device
     entry, counter, names, _, s = _operands(packed)
     n_blocks, d, hidden4 = packed["wih2"].shape
@@ -279,6 +422,20 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
         raise ValueError(f"H={hidden}: the kernel needs 8H threads, a "
                          "multiple of 32 and at most 1024")
     smem = (2 * f_len * d + 12 * hidden) * 4
+    if attn is not None:
+        packed_attn, k_ring, v_ring, pos, heads = attn
+        if heads < 1 or d % heads or k_ring.dim() != 4 or \
+                k_ring.shape[1] % heads:
+            raise ValueError(f"heads={heads}: must divide D={d} and "
+                             "k_ring's L*E planes")
+        e_dim = k_ring.shape[1] // heads
+        window = k_ring.shape[2]
+        if not 0 <= pos < window:
+            raise ValueError(f"pos={pos}: outside the ring's {window} slots")
+        # the scores [L, W] and 64 floats of reduction scratch; q, k, v and
+        # the attention output live in a global scratch, so that the L1
+        # keeps its share of the SM (csrc/stack_step.cu)
+        smem += 4 * (heads * window + 64)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT_BYTES}")
@@ -290,8 +447,13 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
     _check("x", x, (f_len, d), dev)
     _check("h0", h0, (n_blocks, f_len, hidden), dev)
     _check("c0", c0, (n_blocks, f_len, hidden), dev)
+    if attn is not None:
+        _check("k_ring", k_ring, (n_blocks, heads * e_dim, window, f_len),
+               dev)
+        _check("v_ring", v_ring, (n_blocks, d, window, f_len), dev)
     if not checked:
-        check_packed(packed, dev)
+        check_packed(packed, dev, *(() if attn is None
+                                    else (packed_attn, heads)))
     use_film = film_w is not None
     if use_film:
         film_shape = (n_blocks - 1, f_len, d)
@@ -306,22 +468,36 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked):
     y = torch.empty((n_rows, H2), dtype=torch.float32, device=dev)
     g2 = torch.empty((f_len, 4 * hidden), dtype=torch.float32, device=dev)
     dims = (n_blocks, f_len, d, hidden) + (() if s is None else (s,))
+    attn_ptrs, attn_dims = (), ()
+    if attn is not None:
+        entry, counter = {"launches": ("sbt_stack_step_attn",
+                                       "attn_launches"),
+                          "conv_launches": ("sbt_stack_step_conv_attn",
+                                            "conv_attn_launches")}[counter]
+        # q, k [F, L*E]; v and the attention output [F, D]
+        a_scr = torch.empty((f_len * (2 * heads * e_dim + 2 * d),),
+                            dtype=torch.float32, device=dev)
+        attn_ptrs = (*[packed_attn[k].data_ptr() for k in _ATTN],
+                     k_ring.data_ptr(), v_ring.data_ptr(), a_scr.data_ptr())
+        attn_dims = (heads, e_dim, window, pos)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
             x.data_ptr(),
             film_w.data_ptr() if use_film else None,
             film_b.data_ptr() if use_film else None,
-            *[packed[k].data_ptr() for k in names],
+            *[packed[k].data_ptr() for k in names], *attn_ptrs,
             h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
             h0_out.data_ptr(), c0_out.data_ptr(), gx.data_ptr(),
-            y.data_ptr(), g2.data_ptr(), *dims, int(use_film), float(eps),
-            stream)
+            y.data_ptr(), g2.data_ptr(), *dims, *attn_dims, int(use_film),
+            float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     setattr(gridnet_stack_step, counter,
             getattr(gridnet_stack_step, counter) + 1)
-    return x_out, h0_out, c0_out
+    if attn is None:
+        return x_out, h0_out, c0_out
+    return x_out, h0_out, c0_out, k_ring, v_ring
 
 
 def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
@@ -332,9 +508,9 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
     inter-LSTM state; film_w/film_b: [B-1, F, D] precomputed FiLM affines
     (None for unconditional models). Returns (x_out [F, D], h0', c0').
 
-    CUDA tensors launch `stack_step_kernel_t<false>`
+    CUDA tensors launch `stack_step_kernel_t<false, false>`
     (`gridnet_stack_step.launches` counts its launches), or
-    `stack_step_kernel_t<true>` for a conv_lstm pack
+    `stack_step_kernel_t<true, false>` for a conv_lstm pack
     (`gridnet_stack_step.conv_launches`); CPU tensors run
     `gridnet_stack_step_ref`. `checked=True` skips the weight checks for a
     `packed` that already passed `check_packed` on this device."""
@@ -345,5 +521,36 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
     raise ValueError(f"gridnet_stack_step: unsupported device {x.device}")
 
 
+def gridnet_stack_step_attn(packed, packed_attn, x, h0, c0, k_ring, v_ring,
+                            pos, heads, film_w=None, film_b=None,
+                            eps: float = 1e-5, checked: bool = False):
+    """One streaming step of the full block stack with local causal
+    attention after each block's inter step (use_attn=True nets).
+
+    x, h0, c0, film_w, film_b as for `gridnet_stack_step`; packed_attn from
+    `pack_attn_params`; k_ring [B, L*E, W, F] / v_ring [B, D, W, F]: the
+    K/V rings as per-(head, channel) planes over W slots; pos: the slot this
+    frame's k, v go to (an int; the caller advances it as (pos + 1) % W);
+    heads: cfg.L. The rings are updated IN PLACE (slot pos of every plane)
+    and returned: (x_out, h0', c0', k_ring, v_ring).
+
+    CUDA tensors launch `stack_step_kernel_t<false, true>`
+    (`gridnet_stack_step.attn_launches`), or `<true, true>` for a conv_lstm
+    pack (`gridnet_stack_step.conv_attn_launches`); CPU tensors run
+    `gridnet_stack_step_attn_ref`. `checked=True` skips the weight checks
+    for packs that already passed `check_packed` on this device."""
+    attn = (packed_attn, k_ring, v_ring, int(pos), int(heads))
+    if x.device.type == "cuda":
+        return _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn)
+    if x.device.type == "cpu":
+        return gridnet_stack_step_attn_ref(packed, packed_attn, x, h0, c0,
+                                           k_ring, v_ring, pos, heads,
+                                           film_w, film_b, eps)
+    raise ValueError(
+        f"gridnet_stack_step_attn: unsupported device {x.device}")
+
+
 gridnet_stack_step.launches = 0
 gridnet_stack_step.conv_launches = 0
+gridnet_stack_step.attn_launches = 0
+gridnet_stack_step.conv_attn_launches = 0

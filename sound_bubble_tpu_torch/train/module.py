@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from sound_bubble_tpu_torch.metrics.metrics import Metrics, compute_decay
+from sound_bubble_tpu_torch.models.tfgridnet.model import check_supported
 from sound_bubble_tpu_torch.train.checkpoint import (
     load_checkpoint, model_tree, save_checkpoint)
 from sound_bubble_tpu_torch.train.optim import ReduceLROnPlateau
@@ -74,7 +75,9 @@ class PLModule:
         """Run the net's trunk in bf16 (`compute_dtype="bf16"`) with the
         float32 params as they are (`train_pt --bf16`; `train_stream --bf16`
         casts the params too)."""
-        self.net.cfg = dataclasses.replace(self.net.cfg, compute_dtype="bf16")
+        cfg = dataclasses.replace(self.net.cfg, compute_dtype="bf16")
+        check_supported(cfg)
+        self.net.cfg = cfg
 
     def _build_optimizer(self):
         self.optimizer = import_attr(self.optim_name)(

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-stack-step kernels (plain intra BLSTM and conv_lstm), and the slab LSTM
-scans (forward and backward).
+stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
+the attention step), and the slab LSTM scans (forward and backward).
 
 Marked `gpu`: each test decides inside itself whether a card is present and
 skips here with a reason. This file imports neither JAX nor the JAX package,
@@ -10,7 +10,8 @@ repo's conftest, which imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
 Tolerance 1e-4 absolute: fp32 kernel vs fp32 plain version, which differ only
-in summation order over D and 2H terms. The slab backward is held to 1e-4
+in summation order over D and 2H terms (the attention steps also over the
+W ring slots and the [F, e] / [F, D] LayerNorm slabs). The slab backward is held to 1e-4
 of each output's peak: its weight gradients sum over all T*R rows, in
 another order than the plain version's matrix products. The mixed slab
 kernels (bf16 x with bf16 or fp32 weights) are held to their plain versions
@@ -164,6 +165,140 @@ def test_kernel_rejects_bad_operands():
     with pytest.raises(ValueError, match="whh: on cpu"):
         sk.gridnet_stack_step({**packed, "whh": packed["whh"].cpu()}, x, h0,
                               c0)
+
+
+# attention widths: the flagship's and the Orange Pi's (L=4, E=2, W=100) at
+# the stack's full depth, and a ragged small case (W=5, F=25, conv s=4)
+ATTN_SIZES = {
+    "flagship": dict(stft_chunk_size=192, stft_pad_size=96, D=32, H=64, B=6,
+                     conv_lstm=False),
+    "orangepi": dict(stft_chunk_size=192, stft_pad_size=96, D=24, H=64, B=3,
+                     conv_lstm=True, lstm_down=5),
+    "small": dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3, L=2,
+                  local_atten_len=5, conv_lstm=False),
+    "small_conv": dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3,
+                       L=2, local_atten_len=5, conv_lstm=True, lstm_down=4)}
+
+
+@pytest.mark.parametrize("size", list(ATTN_SIZES))
+def test_attn_kernels_match_plain(size):
+    """W + 5 chained steps, so that pos wraps the ring: x, h0, c0 and both
+    rings against the plain version; one launch of the attention kernel
+    (conv or plain branch) a step and none of the other kernels. The
+    weights are the model's initial distribution with every leaf moved by
+    0.05 N(0, 1) (LayerNorm affines and PReLU slopes away from their
+    constants): larger random weights make the 105-step recurrence grow its
+    cell state, and the two summation orders drift apart with it."""
+    dev = _card()
+    cfg = NetConfig(use_attn=True, **ATTN_SIZES[size])
+    rng = np.random.default_rng(0)
+    net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.from_numpy(np.asarray(
+                rng.standard_normal(tuple(p.shape)) * 0.05, np.float32)))
+    tree = param_tree(net)
+    packed = {k: v.to(dev) for k, v in sk.pack_stack_params(
+        cfg, tree).items()}
+    pa = {k: v.to(dev) for k, v in sk.pack_attn_params(cfg, tree).items()}
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+
+    def draw(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    hk, ck = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    kk = torch.zeros((B, cfg.L * cfg.E, W, F), device=dev)
+    vk = torch.zeros((B, D, W, F), device=dev)
+    hr, cr, kr, vr = hk, ck, kk.clone(), vk.clone()
+    counter = "conv_attn_launches" if cfg.conv_lstm else "attn_launches"
+    names = ("launches", "conv_launches", "attn_launches",
+             "conv_attn_launches")
+    before = {n: getattr(sk.gridnet_stack_step, n) for n in names}
+    for step in range(W + 5):
+        x = draw(F, D)
+        xk, hk, ck, kk, vk = sk.gridnet_stack_step_attn(
+            packed, pa, x, hk, ck, kk, vk, step % W, cfg.L, fw, fb,
+            eps=cfg.eps)
+        torch.cuda.synchronize()
+        xr, hr, cr, kr, vr = sk.gridnet_stack_step_attn_ref(
+            packed, pa, x, hr, cr, kr, vr, step % W, cfg.L, fw, fb,
+            eps=cfg.eps)
+        for g, w, name in ((xk, xr, "x"), (hk, hr, "h0"), (ck, cr, "c0"),
+                           (kk, kr, "k_ring"), (vk, vr, "v_ring")):
+            err = float((g - w).abs().max())
+            assert err <= TOL, f"step {step} {name}: {err}"
+    grew = {n: getattr(sk.gridnet_stack_step, n) - before[n] for n in names}
+    assert grew == {n: W + 5 if n == counter else 0 for n in names}
+
+
+def test_attn_kernel_rejects_bad_operands():
+    dev = _card()
+    cfg = NetConfig(use_attn=True, **ATTN_SIZES["small"])
+    net = Net(cfg)
+    tree = param_tree(net)
+    packed = {k: v.to(dev) for k, v in sk.pack_stack_params(
+        cfg, tree).items()}
+    pa = {k: v.to(dev) for k, v in sk.pack_attn_params(cfg, tree).items()}
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+    x = torch.zeros((F, D), device=dev)
+    h0 = torch.zeros((B, F, H), device=dev)
+    kr = torch.zeros((B, cfg.L * cfg.E, W, F), device=dev)
+    vr = torch.zeros((B, D, W, F), device=dev)
+    with pytest.raises(ValueError, match="k_ring: on cpu"):
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr.cpu(), vr, 0,
+                                   cfg.L)
+    with pytest.raises(ValueError, match="v_ring: shape"):
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr[:, 1:], 0,
+                                   cfg.L)
+    with pytest.raises(ValueError, match="pos=5"):
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr, W, cfg.L)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        sk.gridnet_stack_step_attn(packed, {**pa, "o_w": pa["o_w"].bfloat16()},
+                                   x, h0, h0, kr, vr, 0, cfg.L)
+    with pytest.raises(ValueError, match="shared memory"):
+        # [L, W] scores of 4-byte floats alone: 2 x 40000 x 4 B = 320 KB
+        big = torch.zeros((B, cfg.L * cfg.E, 40000, F), device=dev)
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, big,
+                                   torch.zeros((B, D, 40000, F), device=dev),
+                                   0, cfg.L)
+
+
+def test_fused_streamer_attn_routes_agree_on_card():
+    """A seeded attention net at the flagship width (B cut to 2, W to 6),
+    FusedStreamer on the card: the in-kernel route against the per-block
+    route (row-1 kernel a block, attention in PyTorch), 8 chunks (pos
+    wraps), 1e-4 of the output's peak; one attention launch a chunk on the
+    first route, B launches of the plain stack kernel a chunk on the
+    second."""
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+
+    dev = _card()
+    cfg = NetConfig(use_attn=True, local_atten_len=6, **{
+        **ATTN_SIZES["flagship"], "B": 2})
+    net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
+    x = rng.standard_normal((1, 6, chunk * 8 + pad)).astype(np.float32)
+    outs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # full fp32 convolutions
+    try:
+        for in_kernel in (True, False):
+            fs = FusedStreamer(net, device=dev, attn_in_kernel=in_kernel)
+            before = (sk.gridnet_stack_step.attn_launches,
+                      sk.gridnet_stack_step.launches)
+            outs[in_kernel] = torch.cat(
+                [fs.feed(x[..., k * chunk:k * chunk + chunk + pad]).cpu()
+                 for k in range(8)], dim=-1)
+            grew = (sk.gridnet_stack_step.attn_launches - before[0],
+                    sk.gridnet_stack_step.launches - before[1])
+            assert grew == ((8, 0) if in_kernel else (0, 8 * cfg.B))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want, got = outs[False], outs[True]
+    assert float((got - want).abs().max() / want.abs().max()) <= TOL
 
 
 def test_fused_streamer_on_card_matches_cpu():

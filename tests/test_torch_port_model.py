@@ -93,19 +93,20 @@ def test_fused_streamer_resets_and_switches_embedding(rng):
                                     {"stft_back_pad": 8},
                                     {"dis_type": "linear2"}])
 def test_unported_variants_raise(change):
-    """The variants not ported yet raise, naming their ROADMAP item (Queue 1
-    item 9 for the model variants), where they would otherwise build another
-    model than the JAX package's. The bf16 trunk is ported (the model
-    builds); serving it through the stack kernels is not (Queue 2 item 3),
-    and FusedStreamer raises rather than serve it in fp32."""
-    cfg = make_config({**SMALL, **change})
+    """Every variant of the JAX `NetConfig` builds (attention, the
+    look-back decode and the linear dis_types are ported); the one corner
+    not ported yet, the bf16 trunk with attention, raises naming its
+    ROADMAP item (Queue 1 item 15) whatever else the config changes. The
+    bf16 trunk alone is ported (the model builds); serving it through the
+    stack kernels is not (Queue 2 item 3), and FusedStreamer raises rather
+    than serve it in fp32."""
+    net = Net(make_config({**SMALL, **change}))
     if "compute_dtype" in change:
-        net = Net(cfg)
         with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
             FusedStreamer(net, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Net(cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        Net(make_config({**SMALL, **change, "use_attn": True,
+                         "compute_dtype": "bf16"}))
 
 
 def test_remat_is_accepted_and_changes_nothing():
