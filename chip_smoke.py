@@ -95,6 +95,34 @@ W=100), seeded weights of the flagship and the Orange Pi configurations
    itself 1.5e-3 off in one PReLU slope's grad, see
    `tools/jax_train_step_golden.py`); ms per step, peak memory.
 
+Phases 20-24 drive the custom-VJP kernel route (`--lstm_scan seq`:
+`ops/kernels/lstm_train_kernel.py` on `csrc/lstm_seq.cu`, rows 6-9 of
+PERF.md's kernel table):
+
+20. the four kernels against their plain versions at the flagship training
+   shapes (intra [145, 1252, 32] both directions in one walk, inter
+   [313, 580, 32]) and a ragged R (37), with (x, weights) in (fp32, fp32),
+   (bf16, bf16) and (bf16, fp32); the two autograd Functions' outputs and
+   gradients, kernels against plain versions;
+21. `train_pt --lstm_scan seq` on the flagship pretrain config, 1 epoch
+   (the fp32 rows' main path; 6 launches of each row a step), and a resume
+   with `--lstm_scan slab` refused; one step from the flagship checkpoint
+   on the seq route against the slab route's and the JAX golden
+   (`runs/train_step_golden_jax.json`: in fp32 JAX's custom-VJP route and
+   its scans compute the same function);
+22. one bf16 recipe step on the seq route against the same step on JAX's
+   custom-VJP route (`runs/train_step_golden_bf16_seq_jax.json`,
+   `tools/jax_train_step_golden_seq.py`; the slab route's golden, another
+   rounding, printed beside it); `train_stream --lstm_scan seq`
+   with the recipe cut (the mixed rows' main path), a `--resume`, and a
+   resume with `--lstm_scan slab` refused;
+23. one Orange Pi finetune step on the seq route against the slab route's
+   and `runs/train_step_golden_edge_jax.json`;
+24. times of rows 6-9 (fp32 at the fp32 step's shapes, mixed at the
+   recipe's batch 8), their plain versions, bounds, cuDNN's LSTM (uni- and
+   bidirectional); ms per step and peak memory, seq route against slab
+   route, fp32 and the bf16 recipe.
+
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
 power limit, and the device line.
@@ -166,6 +194,11 @@ BF16_STEP_GOLDEN = os.path.join(REPO, "runs",
                                 "train_step_golden_bf16_jax.json")
 BF16_LOSS_REL_TOL = 1e-2
 BF16_NORM_REL_TOL = 3e-2
+# the same bf16 step on JAX's custom-VJP kernel route
+# (tools/jax_train_step_golden_seq.py): the seq route rounds otherwise than
+# the slab route, so its bf16 step is held to this golden, at the same bars
+BF16_SEQ_STEP_GOLDEN = os.path.join(REPO, "runs",
+                                    "train_step_golden_bf16_seq_jax.json")
 # phase 15's cuts of the flagship campaign (pool of 3000 scenarios, 180 for
 # validation, 8 validation batches, 20000 steps): the pool and the steps
 STREAM_CUTS = ["--pool", "24", "--val_pool", "8", "--val_batches", "1",
@@ -417,10 +450,11 @@ def check_adam_step(name, got, want, grad, lr):
     return err_big
 
 
-def run_train_pt(cfg, cfg_path, run_dir, epochs, ls):
+def run_train_pt(cfg, cfg_path, run_dir, epochs, ls, extra=()):
     """`train_pt` for `epochs` on the config dict `cfg` (written to
-    cfg_path); the slab launch counts are set to 0 just before. Returns (the
-    PLModule, seconds, forward launches, backward launches)."""
+    cfg_path), with the arguments `extra`; the slab launch counts are set to
+    0 just before. Returns (the PLModule, seconds, forward launches,
+    backward launches)."""
     from sound_bubble_tpu_torch import train_pt
 
     cfg["epochs"] = epochs
@@ -429,7 +463,8 @@ def run_train_pt(cfg, cfg_path, run_dir, epochs, ls):
     ls.lstm_slab_fwd.launches = ls.lstm_slab_bwd.launches = 0
     t = time.perf_counter()
     hl = train_pt.train(train_pt.parse_args(
-        ["--config", cfg_path, "--run_dir", run_dir, "--seed", str(SEED)]))
+        ["--config", cfg_path, "--run_dir", run_dir, "--seed", str(SEED),
+         *extra]))
     torch.cuda.synchronize()
     return (hl, time.perf_counter() - t, ls.lstm_slab_fwd.launches,
             ls.lstm_slab_bwd.launches)
@@ -630,15 +665,18 @@ def kernel_vs_plain_step(args, init_ckpt, batch, n_scans, dev, ls):
     return mod, loss_k, norm_k, grads_k
 
 
-def cudnn_lstm_ms(dev, a, n, dtype=torch.float32):
+def cudnn_lstm_ms(dev, a, n, dtype=torch.float32, bidirectional=False):
     """cuDNN's LSTM on the same shapes in `dtype` (fp32 with TF32 off, or
     bf16), the library yardstick; the port never calls it: (forward,
     backward) ms, the backward as forward+backward minus forward, both in
-    training mode."""
+    training mode. `bidirectional`: both directions from zero states, dy
+    [T, R, 2H]."""
     t_len, r, c = a["x"].shape
-    lstm = torch.nn.LSTM(c, SLAB_H).to(dev, dtype)
+    lstm = torch.nn.LSTM(c, SLAB_H, bidirectional=bidirectional).to(dev,
+                                                                     dtype)
     x = a["x"].to(dtype).clone().requires_grad_()
-    hc = (a["h0"][None].to(dtype), a["c0"][None].to(dtype))
+    hc = None if bidirectional else (a["h0"][None].to(dtype),
+                                     a["c0"][None].to(dtype))
     dy = a["dy"].to(dtype)
 
     def fwd():
@@ -1634,6 +1672,708 @@ def phase19_attn_train(dev, ls, card):
         f"steps), peak device memory {peak_gb:.2f} GB")
 
 
+# ---- phases 20-24: the custom-VJP kernel route (`--lstm_scan seq`, rows
+# 6-9: `ops/kernels/lstm_train_kernel.py`, `csrc/lstm_seq.cu`)
+
+# (name, T, R, C, directions): the route's recurrences at the flagship
+# training path's shapes (batch 4 x 2.5 s: the intra BLSTM [145, 1252, 32],
+# both directions in one walk, rows 8-9; the inter LSTM [313, 580, 32], rows
+# 6-7) and a ragged R (37 rows: not a multiple of the row tile, 8)
+SEQ_SHAPES = (("intra", 145, 1252, 32, 2), ("inter", 313, 580, 32, 1),
+              ("ragged_bi", 13, 37, 32, 2), ("ragged", 13, 37, 32, 1))
+# the mixed instantiations' main path is the campaign at the recipe's batch
+# 8: they are also checked and timed there (intra [145, 2504, 32], inter
+# [313, 1160, 32])
+SEQ_MIXED_R = {"intra": 2504, "inter": 1160}
+# (name, x dtype, weight dtype): the three operand pairs of the trainers
+SEQ_PAIRS = (("fp32", torch.float32, torch.float32),
+             ("bf16", torch.bfloat16, torch.bfloat16),
+             ("bf16_fp32w", torch.bfloat16, torch.float32))
+# kernel vs plain: fp32 outputs max-abs, the Functions' weight gradients
+# (sums over T*R rows in another order) max-abs over their peak; mixed:
+# every output within 1e-2 of its peak (the slab's mixed bar), and the bf16
+# outputs of the walks (y, gates, dgates; the Functions' y) equal to the
+# plain versions' bit for bit at all but 5% of their elements. The two
+# round at the same points: an fp32 sum in another order moves a value
+# across a bf16 rounding boundary now and then, and the recurrence carries
+# that on (up to 1% of the elements with the plain versions' products taken
+# in float64, at these T and C, on the CPU). A rounding point moved or
+# dropped (`rounding_controls`) changes 14-71% of them, with an error near
+# 1e-2 of the peak.
+SEQ_TOL = 1e-4
+SEQ_MIXED_REL_TOL = 1e-2
+SEQ_MIXED_SHARE = 0.05
+SEQ_NAMES = ("lstm_seq_fwd", "lstm_seq_bwd", "blstm_seq_fwd",
+             "blstm_seq_bwd")
+# the cut campaign on the seq route: steps, val_every, then a resume for
+# one more step
+SEQ_STREAM_STEPS = (2, 2)
+
+
+def seq_counts(lk):
+    """(fp32 launches of rows 6-9, mixed launches of rows 6-9)."""
+    fns = [getattr(lk, n) for n in SEQ_NAMES]
+    return (tuple(f.launches for f in fns),
+            tuple(f.mixed_launches for f in fns))
+
+
+def reset_seq_counts(lk):
+    for n in SEQ_NAMES:
+        getattr(lk, n).launches = getattr(lk, n).mixed_launches = 0
+
+
+def seq_grew(lk, before):
+    now = seq_counts(lk)
+    return tuple(tuple(a - b for a, b in zip(n, m))
+                 for n, m in zip(now, before))
+
+
+@contextlib.contextmanager
+def plain_seq(lk):
+    """Route the seq Functions to the plain versions of rows 6-9, on the
+    card: the reference the kernels are held against."""
+    saved = {n: getattr(lk, n) for n in SEQ_NAMES}
+    for n in SEQ_NAMES:
+        setattr(lk, n, getattr(lk, n + "_ref"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(lk, n, f)
+
+
+@contextlib.contextmanager
+def patched(module, **names):
+    """The module's attributes `names` replaced while inside."""
+    saved = {n: getattr(module, n) for n in names}
+    for n, f in names.items():
+        setattr(module, n, f)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+def rounding_controls(lk, ls):
+    """(forward, backward) contexts under which the plain versions of rows
+    6-9 round at one point otherwise: each sigmoid in float32 rounded once,
+    as the mixed slab kernels round it (`lstm_slab.sigmoid_q`), in place of
+    the Pallas bodies' three roundings; tanh of the cell state left in
+    float32 in the backward walk. A kernel that rounded so must fail the
+    mixed bar."""
+    return (patched(lk, sigmoid_x=ls.sigmoid_q),
+            patched(lk, tanh_q=lambda v: torch.tanh(v.float())))
+
+
+def differ_share(got, want):
+    """Share of the elements of each bf16 output that differ from want's."""
+    return [float((g != w).float().mean()) for g, w in zip(got, want)
+            if w.dtype == torch.bfloat16]
+
+
+def seq_case(dev, t_len, r, c, nd, xdt, wdt, seed):
+    """Operands of one recurrence (slab_case's draws) in the pair's dtypes:
+    (fwd params, bwd params, x, h0, c0, dy [T, R, nd*H], dhT, dcT)."""
+    a = slab_case(dev, t_len, r, c, seed)
+    b = slab_case(dev, t_len, r, c, seed + 50)
+    params = [{k: p[k].to(wdt) for k in ("w_ih", "w_hh", "b")}
+              for p in (a, b)]
+    dy = a["dy"] if nd == 1 else torch.cat([a["dy"], b["dy"]], dim=-1)
+    return (*params, a["x"].to(xdt), a["h0"], a["c0"], dy.to(xdt), a["dhT"],
+            a["dcT"])
+
+
+def seq_rows(lk, nd, case, controls=None):
+    """The forward and the backward of one route row pair on the case, each
+    against its plain version on the same inputs: ((got, want) forward,
+    (got, want) backward). `got` comes from the kernels or, given
+    `controls` (a forward and a backward context), from the plain versions
+    inside them."""
+    fwd, bwd, x, h0, c0, dy, dhT, dcT = case
+    if nd == 1:
+        fargs = (fwd["w_ih"], fwd["w_hh"], fwd["b"], x, h0, c0)
+        kf, pf = lk.lstm_seq_fwd, lk.lstm_seq_fwd_ref
+        kb, pb = lk.lstm_seq_bwd, lk.lstm_seq_bwd_ref
+    else:
+        fargs = (*lk._blstm_pack(fwd, bwd), x)
+        kf, pf = lk.blstm_seq_fwd, lk.blstm_seq_fwd_ref
+        kb, pb = (lambda *a: (lk.blstm_seq_bwd(*a),),
+                  lambda *a: (lk.blstm_seq_bwd_ref(*a),))
+    want = pf(*fargs)
+    bargs = ((want[1], want[2], c0, dy, dhT, dcT, fwd["w_hh"], x.dtype)
+             if nd == 1 else (fargs[2], want[1], want[2], dy, x.dtype))
+    want_b = pb(*bargs)
+    if controls is None:
+        got, got_b = kf(*fargs), kb(*bargs)
+    else:
+        with controls[0]:
+            got = pf(*fargs)
+        with controls[1]:
+            got_b = pb(*bargs)
+    torch.cuda.synchronize()
+    return (got, want), (got_b, want_b)
+
+
+def seq_function(lk, nd, case, plain):
+    """One Function's forward and backward (kernels, or with `plain` their
+    plain versions) on the case: (outputs, gradients), named."""
+    fwd, bwd, x, h0, c0, dy, dhT, dcT = case
+    leaf = {f"{d}.{k}": v.clone().requires_grad_()
+            for d, p in (("fwd", fwd), ("bwd", bwd)) for k, v in p.items()}
+    leaf.update(x=x.clone().requires_grad_(),
+                h0=h0.clone().requires_grad_(),
+                c0=c0.clone().requires_grad_())
+    p = [{k: leaf[f"{d}.{k}"] for k in ("w_ih", "w_hh", "b")}
+         for d in ("fwd", "bwd")]
+    with plain_seq(lk) if plain else contextlib.nullcontext():
+        if nd == 1:
+            outs = lk.lstm_seq(p[0]["w_ih"], p[0]["w_hh"], p[0]["b"],
+                               leaf["x"], leaf["h0"], leaf["c0"])
+            loss = ((outs[0].float() * dy.float()).sum()
+                    + (outs[1] * dhT).sum() + (outs[2] * dcT).sum())
+            names = ("fwd.w_ih", "fwd.w_hh", "fwd.b", "x", "h0", "c0")
+        else:
+            outs = (lk.blstm_seq(p[0], p[1], leaf["x"]),)
+            loss = (outs[0].float() * dy.float()).sum()
+            names = ("fwd.w_ih", "fwd.w_hh", "fwd.b", "bwd.w_ih",
+                     "bwd.w_hh", "bwd.b", "x")
+        loss.backward()
+    torch.cuda.synchronize()
+    return ([o.detach() for o in outs],
+            {n: leaf[n].grad for n in names})
+
+
+def phase20_seq_kernels(dev, lk, ls):
+    """Rows 6-9 against their plain versions on the card: fp32 and both
+    mixed pairs at the flagship's batch-4 shapes and a ragged R, the mixed
+    pairs again at the recipe's batch-8 shapes; the two Functions' outputs
+    and gradients, kernels against plain versions; in each mixed case the
+    rounding controls too, which must fail the mixed bar. Returns the worst
+    max-abs error of each row, fp32 and mixed."""
+    worst = {(n, m): 0.0 for n in SEQ_NAMES for m in (False, True)}
+    cases = [(name, t_len, r, c, nd, SEQ_PAIRS)
+             for name, t_len, r, c, nd in SEQ_SHAPES]
+    cases += [(name + " batch 8", t_len, SEQ_MIXED_R[name], c, nd,
+               SEQ_PAIRS[1:]) for name, t_len, _, c, nd in SEQ_SHAPES
+              if name in SEQ_MIXED_R]
+    for i, (name, t_len, r, c, nd, pairs) in enumerate(cases):
+        rows = SEQ_NAMES[:2] if nd == 1 else SEQ_NAMES[2:]
+        for pname, xdt, wdt in pairs:
+            mixed = pname != "fp32"
+            case = seq_case(dev, t_len, r, c, nd, xdt, wdt, SEED + 200 + i)
+            before = seq_counts(lk)
+            with torch.no_grad():
+                got = seq_rows(lk, nd, case)
+            errs = [rel_errs(g, w) for g, w in got]
+            fn_got, fn_want = (seq_function(lk, nd, case, plain)
+                               for plain in (False, True))
+            grew = seq_grew(lk, before)
+            fn_out = rel_errs(fn_got[0], fn_want[0])
+            fn_grad = {k: rel_errs([fn_got[1][k]], [fn_want[1][k]])[0]
+                       for k in fn_got[1]}
+            shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
+                      for s in differ_share(g, w)] if mixed else []
+            log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
+                f"{pname}: rows {'/'.join(rows)} max-abs (max-abs / peak) "
+                "forward " + ", ".join(
+                    f"{e[0]:.2e} ({e[1]:.2e})" for e in errs[0])
+                + "; backward " + ", ".join(
+                    f"{e[0]:.2e} ({e[1]:.2e})" for e in errs[1])
+                + "; the Function's outputs " + ", ".join(
+                    f"{e[0]:.2e}" for e in fn_out) + ", grads " + ", ".join(
+                    f"{k} {e[0]:.2e} ({e[1]:.2e})"
+                    for k, e in fn_grad.items())
+                + f"; launches {grew}")
+            want_grew = [0, 0, 0, 0]
+            for n in rows:
+                want_grew[SEQ_NAMES.index(n)] = 2   # the rows, the Function
+            want_grew = ((0,) * 4, tuple(want_grew)) if mixed else \
+                (tuple(want_grew), (0,) * 4)
+            if grew != want_grew:
+                fail(f"seq launches grew by {grew} at {name} {pname}, "
+                     f"expected {want_grew}")
+            dtypes = [(g.dtype, w.dtype) for gw in got for g, w in
+                      zip(*gw)]
+            if any(a != b for a, b in dtypes):
+                fail(f"seq kernels at {name} {pname}: dtypes {dtypes}")
+            if mixed:
+                with torch.no_grad():
+                    ctl = seq_rows(lk, nd, case, rounding_controls(lk, ls))
+                ctl_share = [max(differ_share(g, w)) for g, w in ctl]
+                ctl_err = max(e[1] for g, w in ctl for e in rel_errs(g, w))
+                log(f"    bf16 elements that differ from the plain "
+                    f"versions (y, gates, dgates, the Function's y): "
+                    + ", ".join(f"{s:.2e}" for s in shares)
+                    + f" (bar {SEQ_MIXED_SHARE}); the rounding controls: "
+                    f"forward {ctl_share[0]:.2e}, backward "
+                    f"{ctl_share[1]:.2e}, max-abs / peak {ctl_err:.2e}")
+                if min(ctl_share) <= SEQ_MIXED_SHARE:
+                    fail(f"the mixed bar does not catch the rounding "
+                         f"controls at {name} {pname}: {ctl_share}")
+                bad = max(e[1] for e in (*errs[0], *errs[1], *fn_out,
+                                         *fn_grad.values()))
+                ok = (bad <= SEQ_MIXED_REL_TOL
+                      and max(shares) <= SEQ_MIXED_SHARE)
+            else:
+                weights = [e[1] for k, e in fn_grad.items()
+                           if k.split(".")[-1] in ("w_ih", "w_hh", "b")]
+                others = [e[0] for k, e in fn_grad.items()
+                          if k.split(".")[-1] not in ("w_ih", "w_hh", "b")]
+                ok = (max(e[0] for e in (*errs[0], *errs[1], *fn_out))
+                      <= SEQ_TOL and max(weights) <= SEQ_TOL
+                      and max(others) <= SEQ_TOL)
+            if not ok:
+                fail(f"seq kernels disagree with their plain versions at "
+                     f"{name} {pname}")
+            for n, e in zip(rows, errs):
+                worst[n, mixed] = max(worst[n, mixed], *(x[0] for x in e))
+    log("phase 20 seq kernels vs plain: worst max-abs " + ", ".join(
+        f"{n}{' mixed' if m else ''} {e:.3e}" for (n, m), e in worst.items())
+        + f" (fp32 tol {SEQ_TOL} max-abs, the Functions' weight grads "
+        f"{SEQ_TOL} of their peak; mixed {SEQ_MIXED_REL_TOL} of the peak "
+        f"and at most {SEQ_MIXED_SHARE} of the bf16 elements differing)")
+    return worst
+
+
+def route_step(args, init_ckpt, batch, dev, lstm_scan):
+    """One PLModule train step from init_ckpt on batch, on `lstm_scan`:
+    (module, loss, pre-clip grad norm, clipped grads, updated weights)."""
+    from sound_bubble_tpu_torch.train.module import PLModule
+
+    mod = PLModule(**{**args, "init_ckpt": init_ckpt}, device=dev,
+                   lstm_scan=lstm_scan)
+    loss, _ = mod.training_step(batch)
+    torch.cuda.synchronize()
+    grads = {k: p.grad.cpu().numpy() for k, p in mod.net.named_parameters()}
+    weights = {k: v.cpu().numpy() for k, v in mod.net.state_dict().items()}
+    return mod, loss, float(mod.last_grad_norm), grads, weights
+
+
+def seq_vs_slab_step(args, init_ckpt, batch, dev, lk, golden_path):
+    """One step on the seq route and one on the slab route, from the same
+    weights on the same batch: the seq step launches rows 6-9 once a block
+    each and agrees with the slab step (the same function in fp32) and
+    with the JAX golden. Returns (seq module, loss, grad norm)."""
+    n_blocks = args["model_params"]["B"]
+    before = seq_counts(lk)
+    mod, loss_q, norm_q, grads_q, w_q = route_step(args, init_ckpt, batch,
+                                                   dev, "seq")
+    grew = seq_grew(lk, before)
+    _, loss_s, norm_s, _, w_s = route_step(args, init_ckpt, batch, dev,
+                                           "slab")
+    rel_loss = abs(loss_q - loss_s) / abs(loss_s)
+    rel_norm = abs(norm_q - norm_s) / norm_s
+    w_err = max(check_adam_step(k, w_q[k], w_s[k], grads_q[k],
+                                mod.get_current_lr()) for k in w_q)
+    log(f"  one step from {os.path.relpath(init_ckpt, REPO)}, seq route vs "
+        f"slab route on the card: loss {loss_q:.6f} vs {loss_s:.6f} (rel "
+        f"{rel_loss:.2e}, tol {STEP_LOSS_REL_TOL}); pre-clip grad norm "
+        f"{norm_q:.6f} vs {norm_s:.6f} (rel {rel_norm:.2e}, tol "
+        f"{STEP_NORM_REL_TOL}); updated weights max-abs {w_err:.2e} where "
+        f"|g| > 1e-3 of the leaf's peak; seq launches in the step {grew}")
+    if grew != ((n_blocks,) * 4, (0,) * 4):
+        fail(f"seq step launches {grew}, expected {n_blocks} of each fp32 "
+             "row")
+    if not (rel_loss <= STEP_LOSS_REL_TOL and rel_norm <= STEP_NORM_REL_TOL):
+        fail("the seq route and the slab route disagree on one train step")
+    check_step_golden(loss_q, norm_q, grads_q, args["grad_clip"],
+                      golden_path)
+    return mod
+
+
+def phase21_seq_train(dev, lk, ls):
+    """fp32 training on the seq route: `train_pt --lstm_scan seq`, 1 epoch
+    (the main path of the fp32 instantiations of rows 6-9), a resume on the
+    slab route refused; one flagship step from best.pt on the golden batch
+    against the slab route's and the JAX golden. Returns (the main path's
+    fp32 launches of rows 6-9, the seq module, the batch)."""
+    from sound_bubble_tpu_torch import train_pt
+    from sound_bubble_tpu_torch.data.synth import (
+        golden_batch, write_sample_dirs)
+
+    with open(TRAIN_CONFIG) as fh:
+        cfg = json.load(fh)
+    args = cfg["pl_module_args"]
+    n_blocks = args["model_params"]["B"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    try:
+        n_train, n_val = 4, 2
+        dirs = write_sample_dirs(os.path.join(tmp, "data"), SEED + 21,
+                                 n_train, n_val)
+        point_at_scenes(cfg, dirs)
+        cfg["num_workers"] = 2
+        steps = math.ceil(3 * n_train / cfg["batch_size"])
+        val_batches = math.ceil(3 * n_val / cfg["eval_batch_size"])
+        cfg_path, run_dir = (os.path.join(tmp, "config.json"),
+                             os.path.join(tmp, "run"))
+        # ---- the main path: train_pt on the seq route
+        reset_seq_counts(lk)
+        _, secs, slab_f, slab_b = run_train_pt(
+            cfg, cfg_path, run_dir, 1, ls, ["--lstm_scan", "seq"])
+        counts = seq_counts(lk)
+        per = ((steps + val_batches) * n_blocks, steps * n_blocks)
+        want = ((per[0], per[1], per[0], per[1]), (0,) * 4)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        with open(os.path.join(run_dir, train_pt.ARGS_FILE)) as fh:
+            recorded = json.load(fh)
+        log(f"phase 21 seq training: train_pt --lstm_scan seq, 1 epoch x "
+            f"{steps} steps + {val_batches} val batch(es) in {secs:.2f} s; "
+            f"seq launches (fp32 rows 6-9, mixed) {counts} (expected "
+            f"{want}); slab launches {slab_f}, {slab_b}; recorded "
+            f"{recorded}; log {logged}")
+        if counts != want or (slab_f, slab_b) != (0, 0):
+            fail(f"train_pt on the seq route: launches {counts}, slab "
+                 f"{(slab_f, slab_b)}")
+        losses = [e[k] for e in logged for k in ("train/loss", "val/loss")]
+        if (len(logged) != 1 or not np.isfinite(losses).all()
+                or recorded != {"lstm_scan": "seq"}):
+            fail(f"train_pt on the seq route: log {logged}, args {recorded}")
+        # ---- a resume on the other route is refused
+        try:
+            train_pt.train(train_pt.parse_args(
+                ["--config", cfg_path, "--run_dir", run_dir, "--seed",
+                 str(SEED), "--lstm_scan", "slab"]))
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        log(f"  resume with --lstm_scan slab: {refused!r}")
+        if "refused" not in refused:
+            fail("train_pt resumed a seq run on the slab route")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    batch = golden_batch(SEED)
+    mod = seq_vs_slab_step(args, os.path.join(RUN_DIR, "checkpoints",
+                                              "best.pt"), batch, dev, lk,
+                           TRAIN_STEP_GOLDEN)
+    return counts[0], mod, batch
+
+
+def stream_argv(recipe, cfg_path, run_dir):
+    """train_stream's arguments for the flagship recipe, cut (STREAM_CUTS)."""
+    return ["--config", cfg_path, "--run_dir", run_dir,
+            "--bf16" if recipe["bf16"] else "--no-bf16",
+            "--voice", recipe["voice"], "--batch", str(recipe["batch"]),
+            "--clip_seconds", str(recipe["clip_seconds"]),
+            "--snr_min", str(recipe["snr_range"][0]),
+            "--snr_max", str(recipe["snr_range"][1]),
+            "--bg_noise", str(recipe["bg_noise"]), "--seed", str(SEED),
+            *STREAM_CUTS]
+
+
+def phase22_seq_bf16(dev, lk, ls):
+    """The bf16 recipe on the seq route: one step (cast_bf16, the bf16
+    trunk) from best.pt on the golden batch against the JAX bf16 golden;
+    then `train_stream --lstm_scan seq` cut (the main path of the mixed
+    instantiations), a --resume, and a resume on the slab route refused.
+    Returns the main path's mixed launches of rows 6-9."""
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+    from sound_bubble_tpu_torch.train.module import PLModule
+
+    # the step as the golden took it: the pretrain config's module
+    with open(TRAIN_CONFIG) as fh:
+        args = json.load(fh)["pl_module_args"]
+    flagship = os.path.join(RUN_DIR, "checkpoints", "best.pt")
+    n_blocks = args["model_params"]["B"]
+    batch = golden_batch(SEED)
+    steps = {}
+    for scan in ("seq", "slab"):
+        mod = PLModule(**{**args, "init_ckpt": flagship}, device=dev,
+                       lstm_scan=scan)
+        mod.set_bf16_trunk()
+        model_in = mod._model_inputs(batch[0])
+        gt = torch.from_numpy(batch[1]["target"]).to(dev)
+        before = seq_counts(lk)
+        loss, _ = train_stream.train_step(mod, model_in, gt, True)
+        torch.cuda.synchronize()
+        steps[scan] = (float(loss), float(mod.last_grad_norm),
+                       seq_grew(lk, before))
+    goldens = {}
+    for path in (BF16_SEQ_STEP_GOLDEN, BF16_STEP_GOLDEN):
+        with open(path) as fh:
+            goldens[path] = json.load(fh)
+    golden = goldens[BF16_SEQ_STEP_GOLDEN]
+    loss_q, norm_q, grew = steps["seq"]
+
+    def rel_to(g, loss, norm):
+        return (abs(loss - g["loss"]) / abs(g["loss"]),
+                abs(norm - g["grad_norm"]) / g["grad_norm"])
+
+    rel = rel_to(golden, loss_q, norm_q)
+    slab_g = goldens[BF16_STEP_GOLDEN]
+    log(f"phase 22 bf16 step on the seq route (train_stream.train_step, "
+        f"cast_bf16) from {os.path.relpath(flagship, REPO)} on the golden "
+        f"batch: loss {loss_q:.6f}, pre-clip grad norm {norm_q:.6f}; JAX "
+        f"golden on the same route "
+        f"({os.path.basename(BF16_SEQ_STEP_GOLDEN)}) {golden['loss']:.6f}, "
+        f"{golden['grad_norm']:.6f} (rel {rel[0]:.2e}, {rel[1]:.2e}; tol "
+        f"{BF16_LOSS_REL_TOL}, {BF16_NORM_REL_TOL}). For information, the "
+        f"slab route: the port's {steps['slab'][0]:.6f}, "
+        f"{steps['slab'][1]:.6f}; JAX's "
+        f"({os.path.basename(BF16_STEP_GOLDEN)}) {slab_g['loss']:.6f}, "
+        f"{slab_g['grad_norm']:.6f}; the port's seq step against it rel "
+        "%.2e, %.2e; JAX's two routes apart rel %.2e, %.2e; seq launches "
+        % (*rel_to(slab_g, loss_q, norm_q),
+           *rel_to(slab_g, golden["loss"], golden["grad_norm"]))
+        + str(grew))
+    if grew != ((0,) * 4, (n_blocks,) * 4):
+        fail(f"bf16 seq step launches {grew}, expected {n_blocks} of each "
+             "mixed row")
+    if not (rel[0] <= BF16_LOSS_REL_TOL and rel[1] <= BF16_NORM_REL_TOL):
+        fail(f"the bf16 seq step disagrees with the JAX golden: {rel}")
+
+    with open(os.path.join(RUN_DIR, "train_stream_args.json")) as fh:
+        recipe = json.load(fh)
+    with open(os.path.join(RUN_DIR, "config.json")) as fh:
+        cfg = json.load(fh)
+    cfg["pl_module_args"]["init_ckpt"] = flagship
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_stream_")
+    try:
+        cfg_path, run_dir = (os.path.join(tmp, "config.json"),
+                             os.path.join(tmp, "run"))
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        argv = stream_argv(recipe, cfg_path, run_dir) + ["--lstm_scan",
+                                                         "seq"]
+        n, every = SEQ_STREAM_STEPS
+        # ---- the main path: the campaign's first steps and validation
+        reset_seq_counts(lk)
+        ls.lstm_slab_fwd.mixed_launches = ls.lstm_slab_bwd.mixed_launches = 0
+        t = time.perf_counter()
+        mod = train_stream.main(train_stream.parse_args(
+            argv + ["--steps", str(n), "--val_every", str(every)]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = seq_counts(lk)
+        per = ((n + 1) * n_blocks, n * n_blocks)
+        want = ((0,) * 4, (per[0], per[1], per[0], per[1]))
+        slab = (ls.lstm_slab_fwd.mixed_launches,
+                ls.lstm_slab_bwd.mixed_launches)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        log(f"  train_stream --lstm_scan seq, the recipe cut to "
+            f"{' '.join(STREAM_CUTS)} --steps {n} --val_every {every}: "
+            f"{run_s:.2f} s incl. the pool build; seq launches {counts} "
+            f"(expected {want}); mixed slab launches {slab}; log {logged}")
+        if counts != want or slab != (0, 0):
+            fail(f"train_stream on the seq route: launches {counts}, slab "
+                 f"{slab}")
+        vals = [r["val_loss"] for r in logged if "val_loss" in r]
+        if (len(vals) != 1 or not np.isfinite(vals).all()
+                or mod.net.cfg.compute_dtype != "bf16"
+                or mod.net.lstm_scan != "seq"):
+            fail(f"train_stream on the seq route: validations {vals}")
+        # ---- resume for one more step on the same route
+        before = seq_counts(lk)
+        mod = train_stream.main(train_stream.parse_args(
+            argv + ["--steps", str(n + 1), "--val_every", str(every),
+                    "--resume"]))
+        torch.cuda.synchronize()
+        grew = seq_grew(lk, before)
+        last = load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                            "last.pt"))
+        # ---- and on the other route: refused
+        slab_argv = argv[:-1] + ["slab"]
+        try:
+            train_stream.main(train_stream.parse_args(
+                slab_argv + ["--steps", str(n + 2), "--resume"]))
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        log(f"  resumed at step {n} for one step: seq launches {grew}, "
+            f"last.pt at epoch {last['current_epoch']}; a resume with "
+            f"--lstm_scan slab: {refused!r}")
+        if (grew != ((0,) * 4, (2 * n_blocks, n_blocks) * 2)
+                or "refused" not in refused):
+            fail("the seq campaign's resume took another route or length")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts[1]
+
+
+def phase23_seq_edge(dev, lk):
+    """One Orange Pi finetune step (conv_lstm intra BLSTM over k = 29
+    frames) on the seq route from the seeded weights, against the slab
+    route's and the JAX golden."""
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+
+    with open(EDGE_CONFIG.format("orangpi", "finetune")) as fh:
+        args = json.load(fh)["pl_module_args"]
+    log("phase 23 edge finetune step on the seq route:")
+    seq_vs_slab_step(args, os.path.join(EDGE_RUN_DIR, "checkpoints",
+                                        "best.pt"), golden_batch(SEED), dev,
+                     lk, EDGE_STEP_GOLDEN)
+
+
+def seq_bound_ms(t_len, r, c, h, nd, kind, xb=4, wb=4):
+    """Least time for one launch of rows 6-9 on an H100: the larger of the
+    bytes the function must move (each input read once, each output written
+    once) over 3.35 TB/s and its matrix-product FLOPs over the fp32 rate
+    (the mixed mode, xb = 2 for x, y, dy, dgates and the saved gates, wb for
+    the weights: at the bf16 tensor-core rate). Forward: x, the weights
+    (each direction's own, not the pack's zero blocks), h0 and c0 in; y,
+    gates and c out; the input projection and the recurrence. Backward:
+    gates, c, dy, W_hh (and c0, dhT, dcT) in; dgates (and dh0, dc0) out;
+    the dh chain. The entering c is c shifted by one step, not an input of
+    its own. Gate nonlinearities and the elementwise gradient are not
+    counted."""
+    n, g = t_len * r, 4 * h
+    state = 4 * r * h if nd == 1 else 0        # one [R, H] fp32 tensor
+    if kind == "fwd":
+        flops = 2 * n * nd * (c + h) * g
+        n_bytes = (xb * n * c + wb * nd * ((c + h) * g + g) + 2 * state
+                   + xb * n * nd * h + xb * n * nd * g + 4 * n * nd * h)
+    else:
+        flops = 2 * n * nd * g * h
+        n_bytes = (xb * n * nd * g + 4 * n * nd * h + xb * n * nd * h
+                   + wb * nd * h * g + 3 * state
+                   + xb * n * nd * g + 2 * state)
+    peak = PEAK_FP32_FLOPS if xb == 4 and wb == 4 else PEAK_BF16_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), flops, n_bytes
+
+
+def seq_backward_ms(lk, nd, case, n):
+    """ms of the row pair's whole Function backward: the walk and the
+    products outside it (dW_ih, dW_hh, db, dx; dh0 and dc0 come from the
+    walk). cuDNN's LSTM backward computes the same gradients, so this, and
+    not the walk alone, is the port's side of that comparison."""
+    fwd, bwd, x, h0, c0, dy, dhT, dcT = case
+    p = [{k: v.clone().requires_grad_() for k, v in q.items()}
+         for q in (fwd, bwd)]
+    xg = x.clone().requires_grad_()
+    if nd == 1:
+        outs = lk.lstm_seq(p[0]["w_ih"], p[0]["w_hh"], p[0]["b"], xg, h0,
+                           c0)
+        grads, leaves = (dy, dhT, dcT), [*p[0].values(), xg]
+    else:
+        outs, grads = (lk.blstm_seq(p[0], p[1], xg),), (dy,)
+        leaves = [*p[0].values(), *p[1].values(), xg]
+    return cuda_ms(lambda: torch.autograd.grad(outs, leaves, grads,
+                                               retain_graph=True), n)
+
+
+def phase24_seq_times(dev, lk, card, mod_seq, batch):
+    """Per-launch times of rows 6-9 (fp32 at the fp32 step's shapes, mixed
+    at the recipe's), their plain versions, bounds and cuDNN's LSTM
+    (unidirectional for rows 6-7, bidirectional for 8-9; its backward also
+    computes the weight and input gradients, so the Functions' whole
+    backward is timed beside it); ms per step and peak memory, seq route
+    against slab route, fp32 (batch 4) and the bf16 recipe (batch 8).
+    Returns the kernels-line numbers of each row, fp32 and mixed."""
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+    from sound_bubble_tpu_torch.train.module import PLModule
+
+    shapes = {name: rest for name, *rest in SEQ_SHAPES}
+    rows = {}
+    for mixed in (False, True):
+        xdt = torch.bfloat16 if mixed else torch.float32
+        nb = 2 if mixed else 4
+        for name in ("inter", "intra"):
+            t_len, r, c, nd = shapes[name]
+            if mixed:
+                r = SEQ_MIXED_R[name]
+            case = seq_case(dev, t_len, r, c, nd, xdt, xdt, SEED)
+            fwd, bwd, x, h0, c0, dy, dhT, dcT = case
+            pack = lk._blstm_pack(fwd, bwd)
+            if nd == 1:
+                fargs = (fwd["w_ih"], fwd["w_hh"], fwd["b"], x, h0, c0)
+                kf, pf = lk.lstm_seq_fwd, lk.lstm_seq_fwd_ref
+                kb, pb = lk.lstm_seq_bwd, lk.lstm_seq_bwd_ref
+            else:
+                fargs = (*pack, x)
+                kf, pf = lk.blstm_seq_fwd, lk.blstm_seq_fwd_ref
+                kb, pb = lk.blstm_seq_bwd, lk.blstm_seq_bwd_ref
+            with torch.no_grad():
+                out = kf(*fargs)
+                bargs = ((out[1], out[2], c0, dy, dhT, dcT, fwd["w_hh"],
+                          xdt) if nd == 1 else
+                         (pack[2], out[1], out[2], dy, xdt))
+                fwd_ms = cuda_ms(lambda: kf(*fargs), 20)
+                bwd_ms = cuda_ms(lambda: kb(*bargs), 20)
+                fwd_plain = cuda_ms(lambda: pf(*fargs), 1)
+                bwd_plain = cuda_ms(lambda: pb(*bargs), 1)
+            lib_fwd, lib_bwd = cudnn_lstm_ms(
+                dev, dict(x=x, h0=h0, c0=c0, dy=dy), 10, xdt,
+                bidirectional=nd == 2)
+            whole_bwd = seq_backward_ms(lk, nd, case, 10)
+            b_f, ff, fbytes = seq_bound_ms(t_len, r, c, SLAB_H, nd, "fwd",
+                                           xb=nb, wb=nb)
+            b_b, bf, bbytes = seq_bound_ms(t_len, r, c, SLAB_H, nd, "bwd",
+                                           xb=nb, wb=nb)
+            tag = "mixed " if mixed else ""
+            names = SEQ_NAMES[:2] if nd == 1 else SEQ_NAMES[2:]
+            for kname, ms, plain, (bound, by), lib in (
+                    (names[0], fwd_ms, fwd_plain, b_f, lib_fwd),
+                    (names[1], bwd_ms, bwd_plain, b_b, lib_bwd)):
+                rows[kname, mixed] = dict(ms=ms, plain_ms=plain,
+                                          bound_ms=bound, bound_by=by,
+                                          library_ms=lib)
+            log(f"  {tag}{names[0]} / {names[1]} [T={t_len}, R={r}, C={c}] "
+                f"x{nd} on {card}: fwd {fwd_ms:.4f} ms (plain "
+                f"{fwd_plain:.2f}, cuDNN {'bi' if nd == 2 else 'uni'}"
+                f"directional {xdt} LSTM fwd {lib_fwd:.4f}, bound "
+                f"{b_f[0]:.6f} {b_f[1]}: {ff} FLOP, {fbytes} B); bwd "
+                f"{bwd_ms:.4f} ms (plain {bwd_plain:.2f}, cuDNN bwd "
+                f"{lib_bwd:.4f}, bound {b_b[0]:.6f} {b_b[1]}: {bf} FLOP, "
+                f"{bbytes} B); the Function's whole backward (the walk, "
+                f"dW_ih, dW_hh, db, dx: what cuDNN's bwd computes) "
+                f"{whole_bwd:.4f} ms")
+
+    # ms per step and peak memory: the fp32 step (batch 4) and the bf16
+    # recipe (batch 8), each on the seq and the slab route, in turns
+    with open(TRAIN_CONFIG) as fh:
+        args = json.load(fh)["pl_module_args"]
+    flagship = os.path.join(RUN_DIR, "checkpoints", "best.pt")
+    mods = {"seq": mod_seq,
+            "slab": PLModule(**{**args, "init_ckpt": flagship}, device=dev)}
+    fp32 = {}
+    for scan in ("seq", "slab", "slab", "seq"):
+        fp32.setdefault(scan, []).append(train_step_ms(mods[scan], batch,
+                                                       dev))
+    del mods
+    b0, b1 = golden_batch(SEED), golden_batch(SEED + 1)
+    inputs = {k: np.concatenate([b0[0][k], b1[0][k]]) for k in b0[0]
+              if k in ("mixture", "dis_embed")}
+    gt8 = np.concatenate([b0[1]["target"], b1[1]["target"]])
+    bf16 = {}
+    for scan in ("seq", "slab"):
+        mod = bf16_module({**args, "lstm_scan": scan}, flagship, dev)
+        model_in = mod._model_inputs(inputs)
+        gt = torch.from_numpy(gt8).to(dev)
+        train_stream.train_step(mod, model_in, gt, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(5):
+            train_stream.train_step(mod, model_in, gt, True)
+        torch.cuda.synchronize()
+        bf16[scan] = ((time.perf_counter() - t) / 5 * 1e3,
+                      torch.cuda.max_memory_allocated() / 1e9)
+        del mod
+    in_step = {m: sum(6 * (rows[k, m]["ms"]) for k in SEQ_NAMES)
+               for m in (False, True)}
+    log(f"phase 24 seq times on {card}: fp32 train step (PLModule."
+        f"train_step, batch 4 x 2.5 s, host clock, 5 steps, seq, slab, "
+        f"slab, seq) seq " + ", ".join(f"{ms:.2f} ms / {gb:.2f} GB" for
+                                       ms, gb in fp32["seq"])
+        + "; slab " + ", ".join(f"{ms:.2f} ms / {gb:.2f} GB" for ms, gb in
+                                fp32["slab"])
+        + f"; rows 6-9 x 6 launches each {in_step[False]:.2f} ms. bf16 "
+        f"recipe step (train_stream.train_step, batch 8 x 2.5 s): seq "
+        f"{bf16['seq'][0]:.2f} ms / {bf16['seq'][1]:.2f} GB, slab "
+        f"{bf16['slab'][0]:.2f} ms / {bf16['slab'][1]:.2f} GB; mixed rows "
+        f"6-9 x 6 launches each {in_step[True]:.2f} ms")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1858,6 +2598,36 @@ def main():
     # ---- 19. training the attention flagship (train_pt)
     phase19_attn_train(dev, ls, card)
 
+    # ---- 20. the custom-VJP route's kernels (rows 6-9) vs plain
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+    seq_errs = phase20_seq_kernels(dev, lk, ls)
+
+    # ---- 21. fp32 training on the seq route (the main path of the fp32
+    # instantiations: train_pt --lstm_scan seq)
+    seq_fp32_n, seq_mod, seq_batch = phase21_seq_train(dev, lk, ls)
+
+    # ---- 22. the bf16 recipe on the seq route (the main path of the mixed
+    # instantiations: train_stream --lstm_scan seq)
+    seq_mixed_n = phase22_seq_bf16(dev, lk, ls)
+
+    # ---- 23. the edge finetune step on the seq route
+    phase23_seq_edge(dev, lk)
+
+    # ---- 24. times
+    seq_times = phase24_seq_times(dev, lk, card, seq_mod, seq_batch)
+    seq_src = "sound_bubble_tpu_torch/csrc/lstm_seq.cu"
+    seq_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_kernel.py"
+    # the Pallas body of each row, and its mixed branch
+    seq_lines = {"lstm_seq_fwd": (61, 75), "lstm_seq_bwd": (173, 204),
+                 "blstm_seq_fwd": (360, 374), "blstm_seq_bwd": (410, 443)}
+    seq_entries = [{
+        "name": name + ("_mixed" if mixed else ""), "route": "cuda",
+        "source": seq_src,
+        "replaces": f"{seq_tpu}:{seq_lines[name][int(mixed)]}",
+        "launches": (seq_mixed_n if mixed else seq_fp32_n)[i],
+        "max_abs_err": seq_errs[name, mixed], **seq_times[name, mixed]}
+        for mixed in (False, True) for i, name in enumerate(SEQ_NAMES)]
+
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
@@ -1893,8 +2663,8 @@ def main():
         "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:491",
         "launches": served["orangpi"][2],
-        "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]}]}),
-        flush=True)
+        "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]},
+        *seq_entries]}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,482 @@
+// LSTM training recurrences with one timestep per step, forward and
+// backward, one direction or both directions in one walk, in fp32 and in the
+// mixed mode (bf16 activations with bf16 or fp32 weights).
+//
+// Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
+// lstm_train_kernel.py`, the JAX package's custom-VJP kernel route:
+// - `sbt_lstm_seq_fwd`, nd = 1 <- `lstm_seq_fwd` (body `_fwd_kernel`):
+//   the LSTM (PyTorch cell, gate order [i, f, g, o], w_ih [C, 4H],
+//   w_hh [H, 4H], one folded bias b [4H]) over scan-major x [T, R, C] from
+//   (h0, c0), x@W_ih + b fused into each step; writes y [T, R, H], the
+//   post-activation gates [T, R, 4H] and the cell states c [T, R, H].
+// - `sbt_lstm_seq_fwd`, nd = 2 <- `_blstm_fwd` (body `_blstm_fwd_kernel`):
+//   both directions of a BLSTM from zero states in one walk, on the pack of
+//   `_blstm_pack` (w_hh [2H, 8H] block-diagonal, direction-major; b [8H]).
+//   Only the two diagonal H x 4H blocks are read and multiplied. At step n
+//   the forward direction reads x at time n and the backward one at
+//   T-1-n (no flipped copy); y [T, R, 2H] = [y_f | y_b] in original time,
+//   gates [T, R, 8H] gate-major with the direction inside and c [T, R, 2H]
+//   at the walk's step.
+// - `sbt_lstm_seq_bwd`, nd = 1 <- `lstm_seq_bwd` (body `_bwd_kernel`): the
+//   backward walk from the saved gates and c: per step the gate gradients
+//   dgates [T, R, 4H] and the carried (dh, dc), from (dhT, dcT) down to
+//   (dh0, dc0). dh = dgates @ W_hh^T.
+// - `sbt_lstm_seq_bwd`, nd = 2 <- the walk of `_bpt_bwd` (body
+//   `_blstm_bwd_kernel`): the same for both directions from zero, dy of the
+//   backward direction read at the mirrored time; dgates [T, R, 8H]
+//   direction-major at the walk's step.
+// The weight and input gradients (dW_ih, dW_hh, db, dx) are large products
+// outside these kernels, as in the JAX package (`_lpt_bwd`, `_bpt_bwd`).
+//
+// What bounds them on an H100 (the flagship's training shapes in fp32,
+// batch 4 x 2.5 s): the fused-direction forward (intra, T = 145,
+// R = 1252, C = 32, H = 64) does 2*T*R*2*(C+H)*4H = 17.8 GFLOP, 0.27 ms at
+// 67 TFLOP/s, and must move ~0.58 GB (x in; y, gates, c out), 0.17 ms at
+// 3.35 TB/s: operations. Its backward walk does 2*T*R*2*4H*H = 11.9 GFLOP,
+// 0.18 ms, and must move ~0.93 GB (gates, c, dy in; dgates out), 0.28 ms:
+// bytes. The single-direction pair at the inter shape (T = 313, R = 580)
+// is half of each. In practice the recurrence bounds them all: T dependent
+// steps per row tile, each a [rows, K] x [K, 4H] product.
+//
+// Design (simple first; tensor cores, bf16 weights in shared memory and
+// wider row tiles are later work):
+// - One thread block owns a tile of RT = 8 rows and walks all T steps
+//   itself, for nd directions at once; no block ever waits on another (no
+//   grid sync, no flags, no clusters). Thread (d, grp, j) computes unit j of
+//   direction d for RPT = 2 rows, so the state of those cells stays in its
+//   registers; the h (or the gate gradients) the next step needs go through
+//   shared memory, double-buffered: one __syncthreads a step.
+// - Forward: each direction's [w_ih; w_hh] lives in shared memory as fp32,
+//   gate-interleaved float4 (w_i, w_f, w_g, w_o) per (input k, unit j):
+//   96 KB a direction at C = 32, H = 64. The next step's x tile is loaded
+//   into registers while this step computes.
+// - Backward: each direction's W_hh^T in shared memory (64 KB at H = 64);
+//   the gates, c, the entering c and dy stream from global memory, read
+//   once each (the entering c is the previous step's c, or c0).
+// No TF32 and no fast-math: fp32 FMA throughout, expf / tanhf.
+//
+// The mixed mode (`mixed=True` in the Pallas bodies, the instantiations the
+// JAX package's bf16 trunk launches) is the same code, templated on the
+// activation type XT (x, y, dy, dgates) and the weight type WT: bf16 values
+// are widened on load and sums are taken in fp32, and values are rounded to
+// bf16 exactly where the Pallas body rounds: gx = bf16(x W_ih), then + b
+// (rounded again when b is bf16); the gates bf16(gx + bf16(h) W_hh); each
+// sigmoid as the body's `jax.nn.sigmoid` lowers on bf16, 1 / (1 + exp(-v))
+// with each of the three ops rounded; each tanh and tanh's input c_t; i*g;
+// the output h_t. The carried c stays fp32. The backward rounds the gate
+// gradients to bf16 for the dh chain and for their store. The bound of a
+// mixed launch counts 2 bytes for each bf16 tensor and its products at the
+// bf16 tensor-core rate (989 TFLOP/s dense), the rate the work could reach;
+// this first instantiation does fp32 FMA on the CUDA cores.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ldf(const bf16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void stf(bf16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+// round to bf16 and back (the mixed mode's rounding points)
+__device__ __forceinline__ float rb(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename XT, typename WT>
+constexpr bool kMixed =
+    std::is_same<XT, bf16>::value || std::is_same<WT, bf16>::value;
+
+template <typename XT, typename WT>
+using GateT = typename std::conditional<kMixed<XT, WT>, bf16, float>::type;
+
+constexpr int G = 4;      // row groups per direction
+constexpr int RPT = 2;    // rows per thread
+constexpr int RT = G * RPT;
+constexpr int PRE = 4;    // x values a thread prefetches per step
+
+// sigmoid in fp32, or on a bf16 value with each op rounded
+template <bool M>
+__device__ __forceinline__ float sig(float v) {
+  if constexpr (M) {
+    return rb(1.f / rb(1.f + rb(expf(-v))));
+  } else {
+    return 1.f / (1.f + expf(-v));
+  }
+}
+
+template <int ND, typename XT, typename WT>
+__global__ void __launch_bounds__(512) seq_fwd_kernel(
+    const XT* __restrict__ x, const WT* __restrict__ w_ih_f,
+    const WT* __restrict__ w_ih_b, const WT* __restrict__ w_hh,
+    const WT* __restrict__ b, const float* __restrict__ h0,
+    const float* __restrict__ c0, XT* __restrict__ y,
+    GateT<XT, WT>* __restrict__ gates, float* __restrict__ cseq, int T,
+    int R, int C, int H) {
+  constexpr bool M = kMixed<XT, WT>;
+  extern __shared__ float4 smem4[];
+  const int H4 = 4 * H, NH = ND * H, NH4 = ND * H4, K = C + H;
+  float4* wp = smem4;                                      // [ND][K*H]
+  float* xbuf = reinterpret_cast<float*>(wp + ND * K * H);  // [2][ND][RT][C]
+  float* hbuf = xbuf + 2 * ND * RT * C;                     // [2][ND][RT][H]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int j = tid % H, grp = (tid / H) % G, d = tid / (G * H);
+  const int r0 = blockIdx.x * RT;
+
+  // wp[dd][k*H + u] = (W[k][u], W[k][H+u], W[k][2H+u], W[k][3H+u]) with
+  // W = [w_ih; w_hh] of direction dd (w_hh: its diagonal block of the pack)
+  for (int i = tid; i < ND * K * H; i += nt) {
+    const int dd = i / (K * H), rem = i - dd * K * H;
+    const int k = rem / H, u = rem - k * H;
+    const WT* row = k < C ? (dd ? w_ih_b : w_ih_f) + (size_t)k * H4
+                          : w_hh + (size_t)(dd * H + k - C) * NH4 + dd * H4;
+    wp[i] = make_float4(ldf(row, u), ldf(row, H + u), ldf(row, 2 * H + u),
+                        ldf(row, 3 * H + u));
+  }
+  const WT* bd = b + d * H4;
+  const float4 bias = make_float4(ldf(bd, j), ldf(bd, H + j),
+                                  ldf(bd, 2 * H + j), ldf(bd, 3 * H + j));
+  float c[RPT];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int row = grp * RPT + q, r = r0 + row;
+    // the mixed mode's recurrence product takes bf16(h)
+    const float h = ND == 1 && r < R ? h0[(size_t)r * H + j] : 0.f;
+    hbuf[d * RT * H + row * H + j] = M ? rb(h) : h;
+    c[q] = ND == 1 && r < R ? c0[(size_t)r * H + j] : 0.f;
+  }
+  // step 0's x tile: direction dd reads time dd ? T-1 : 0
+  for (int i = tid; i < ND * RT * C; i += nt) {
+    const int dd = i / (RT * C), rem = i - dd * RT * C;
+    const int row = rem / C, r = r0 + row, t = dd ? T - 1 : 0;
+    xbuf[i] = r < R ? ldf(x, ((size_t)t * R + r) * C + (rem - row * C)) : 0.f;
+  }
+  __syncthreads();
+
+  const float4* wd = wp + d * K * H;
+  for (int n = 0; n < T; ++n) {
+    const int cur = n & 1, nxt = cur ^ 1;
+    // prefetch the next step's x tile into registers (stored after compute)
+    float pre[PRE];
+    const bool more = n + 1 < T;
+#pragma unroll
+    for (int u = 0; u < PRE; ++u) {
+      const int i = tid + u * nt;
+      pre[u] = 0.f;
+      if (more && i < ND * RT * C) {
+        const int dd = i / (RT * C), rem = i - dd * RT * C;
+        const int row = rem / C, r = r0 + row;
+        const int t = dd ? T - 2 - n : n + 1;
+        if (r < R)
+          pre[u] = ldf(x, ((size_t)t * R + r) * C + (rem - row * C));
+      }
+    }
+    const float* xr = xbuf + (cur * ND + d) * RT * C + grp * RPT * C;
+    const float* hr = hbuf + (cur * ND + d) * RT * H + grp * RPT * H;
+    float4 acc[RPT];
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < C; ++k) {
+      const float4 w = wd[k * H + j];
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        const float v = xr[q * C + k];
+        acc[q].x += v * w.x; acc[q].y += v * w.y;
+        acc[q].z += v * w.z; acc[q].w += v * w.w;
+      }
+    }
+    // gx = x W_ih + b: bf16(x W_ih) + b in the mixed mode, rounded again
+    // when b is bf16
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      if constexpr (M) {
+        constexpr bool WB = std::is_same<WT, bf16>::value;
+        acc[q].x = rb(acc[q].x) + bias.x; acc[q].y = rb(acc[q].y) + bias.y;
+        acc[q].z = rb(acc[q].z) + bias.z; acc[q].w = rb(acc[q].w) + bias.w;
+        if (WB) {
+          acc[q].x = rb(acc[q].x); acc[q].y = rb(acc[q].y);
+          acc[q].z = rb(acc[q].z); acc[q].w = rb(acc[q].w);
+        }
+      } else {
+        acc[q].x += bias.x; acc[q].y += bias.y;
+        acc[q].z += bias.z; acc[q].w += bias.w;
+      }
+    }
+    for (int m = 0; m < H; ++m) {
+      const float4 w = wd[(C + m) * H + j];
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        const float v = hr[q * H + m];
+        acc[q].x += v * w.x; acc[q].y += v * w.y;
+        acc[q].z += v * w.z; acc[q].w += v * w.w;
+      }
+    }
+    const int t_y = d ? T - 1 - n : n;   // original time of this output
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int row = grp * RPT + q, r = r0 + row;
+      float ig, fg, gg, og, h;
+      if constexpr (M) {
+        ig = sig<true>(rb(acc[q].x)); fg = sig<true>(rb(acc[q].y));
+        gg = rb(tanhf(rb(acc[q].z))); og = sig<true>(rb(acc[q].w));
+        c[q] = fg * c[q] + rb(ig * gg);
+        h = rb(og * rb(tanhf(rb(c[q]))));
+      } else {
+        ig = sig<false>(acc[q].x); fg = sig<false>(acc[q].y);
+        gg = tanhf(acc[q].z); og = sig<false>(acc[q].w);
+        c[q] = fg * c[q] + ig * gg;
+        h = og * tanhf(c[q]);
+      }
+      hbuf[(nxt * ND + d) * RT * H + row * H + j] = h;
+      if (r < R) {
+        stf(y, ((size_t)t_y * R + r) * NH + d * H + j, h);
+        const size_t go = ((size_t)n * R + r) * NH4 + d * H + j;
+        stf(gates, go, ig); stf(gates, go + NH, fg);
+        stf(gates, go + 2 * NH, gg); stf(gates, go + 3 * NH, og);
+        cseq[((size_t)n * R + r) * NH + d * H + j] = c[q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PRE; ++u) {
+      const int i = tid + u * nt;
+      if (more && i < ND * RT * C) xbuf[nxt * ND * RT * C + i] = pre[u];
+    }
+    __syncthreads();
+  }
+}
+
+template <int ND, typename XT, typename WT>
+__global__ void __launch_bounds__(512) seq_bwd_kernel(
+    const GateT<XT, WT>* __restrict__ gates, const float* __restrict__ cseq,
+    const float* __restrict__ c0, const XT* __restrict__ dy,
+    const WT* __restrict__ w_hh, const float* __restrict__ dhT,
+    const float* __restrict__ dcT, XT* __restrict__ dg,
+    float* __restrict__ dh0, float* __restrict__ dc0, int T, int R, int H) {
+  constexpr bool M = kMixed<XT, WT>;
+  extern __shared__ float sm[];
+  const int H4 = 4 * H, NH = ND * H, NH4 = ND * H4;
+  float* whhT = sm;                       // [ND][4H][H]
+  float* dgs = whhT + ND * H4 * H;        // [2][ND][RT][4H]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int j = tid % H, grp = (tid / H) % G, d = tid / (G * H);
+  const int r0 = blockIdx.x * RT;
+
+  // whhT[dd][col][m] = W_hh of direction dd at (m, col): its diagonal block
+  for (int i = tid; i < ND * H4 * H; i += nt) {
+    const int dd = i / (H4 * H), rem = i - dd * H4 * H;
+    const int col = rem / H, m = rem - col * H;
+    whhT[i] = ldf(w_hh, (size_t)(dd * H + m) * NH4 + dd * H4 + col);
+  }
+  float dh[RPT], dc[RPT];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int r = r0 + grp * RPT + q;
+    dh[q] = ND == 1 && r < R ? dhT[(size_t)r * H + j] : 0.f;
+    dc[q] = ND == 1 && r < R ? dcT[(size_t)r * H + j] : 0.f;
+  }
+  __syncthreads();
+
+  const float* wT = whhT + d * H4 * H;
+  for (int n = 0; n < T; ++n) {
+    const int k = T - 1 - n;           // the walk's step
+    const int t_dy = d ? n : k;        // original time of this step's dy
+    float* dgb = dgs + ((n & 1) * ND + d) * RT * H4;
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int row = grp * RPT + q, r = r0 + row;
+      float gi = 0.f, gf = 0.f, gg = 0.f, go = 0.f, ct = 0.f, cp = 0.f,
+            dyv = 0.f;
+      if (r < R) {
+        const size_t o = ((size_t)k * R + r) * NH4 + d * H + j;
+        gi = ldf(gates, o); gf = ldf(gates, o + NH);
+        gg = ldf(gates, o + 2 * NH); go = ldf(gates, o + 3 * NH);
+        const size_t oc = ((size_t)k * R + r) * NH + d * H + j;
+        ct = cseq[oc];
+        if (k > 0) cp = cseq[oc - (size_t)R * NH];
+        else if (ND == 1) cp = c0[(size_t)r * H + j];
+        dyv = ldf(dy, ((size_t)t_dy * R + r) * NH + d * H + j);
+      }
+      // the primal took tanh of the gate-dtype cell state
+      const float tc = M ? rb(tanhf(rb(ct))) : tanhf(ct);
+      const float dd_ = dyv + dh[q];
+      const float dO = dd_ * tc;
+      const float dC = dc[q] + dd_ * go * (1.f - tc * tc);
+      const float di = dC * gg * gi * (1.f - gi);
+      const float df = dC * cp * gf * (1.f - gf);
+      const float dgg = dC * gi * (1.f - gg * gg);
+      const float dog = dO * go * (1.f - go);
+      // the dh chain takes the gate gradients in bf16 in the mixed mode
+      dgb[row * H4 + j] = M ? rb(di) : di;
+      dgb[row * H4 + H + j] = M ? rb(df) : df;
+      dgb[row * H4 + 2 * H + j] = M ? rb(dgg) : dgg;
+      dgb[row * H4 + 3 * H + j] = M ? rb(dog) : dog;
+      if (r < R) {
+        const size_t o = ((size_t)k * R + r) * NH4 + d * H4 + j;
+        stf(dg, o, di); stf(dg, o + H, df);
+        stf(dg, o + 2 * H, dgg); stf(dg, o + 3 * H, dog);
+      }
+      dc[q] = dC * gf;
+    }
+    __syncthreads();
+    // dh entering this step = dgates @ W_hh^T, unit j of my rows
+    float acc[RPT];
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
+    for (int col = 0; col < H4; ++col) {
+      const float w = wT[col * H + j];
+#pragma unroll
+      for (int q = 0; q < RPT; ++q)
+        acc[q] += dgb[(grp * RPT + q) * H4 + col] * w;
+    }
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) dh[q] = acc[q];
+  }
+  if (ND == 1) {
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int r = r0 + grp * RPT + q;
+      if (r < R) {
+        dh0[(size_t)r * H + j] = dh[q];
+        dc0[(size_t)r * H + j] = dc[q];
+      }
+    }
+  }
+}
+
+int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+size_t fwd_smem(int C, int H, int nd) {
+  return (size_t)nd * (C + H) * H * 16 + (size_t)2 * nd * RT * (C + H) * 4;
+}
+
+size_t bwd_smem(int H, int nd) {
+  return (size_t)nd * 4 * H * H * 4 + (size_t)2 * nd * RT * 4 * H * 4;
+}
+
+template <int ND, typename XT, typename WT>
+int seq_fwd(const void* x, const void* w_ih_f, const void* w_ih_b,
+            const void* w_hh, const void* b, const float* h0,
+            const float* c0, void* y, void* gates, float* cseq, int T, int R,
+            int C, int H, cudaStream_t st) {
+  const size_t smem = fwd_smem(C, H, ND);
+  int err = set_smem((const void*)seq_fwd_kernel<ND, XT, WT>, smem);
+  if (err) return err;
+  seq_fwd_kernel<ND, XT, WT><<<(R + RT - 1) / RT, ND * G * H, smem, st>>>(
+      (const XT*)x, (const WT*)w_ih_f, (const WT*)w_ih_b, (const WT*)w_hh,
+      (const WT*)b, h0, c0, (XT*)y, (GateT<XT, WT>*)gates, cseq, T, R, C, H);
+  return (int)cudaGetLastError();
+}
+
+template <int ND, typename XT, typename WT>
+int seq_bwd(const void* gates, const float* cseq, const float* c0,
+            const void* dy, const void* w_hh, const float* dhT,
+            const float* dcT, void* dg, float* dh0, float* dc0, int T, int R,
+            int H, cudaStream_t st) {
+  const size_t smem = bwd_smem(H, ND);
+  int err = set_smem((const void*)seq_bwd_kernel<ND, XT, WT>, smem);
+  if (err) return err;
+  seq_bwd_kernel<ND, XT, WT><<<(R + RT - 1) / RT, ND * G * H, smem, st>>>(
+      (const GateT<XT, WT>*)gates, cseq, c0, (const XT*)dy, (const WT*)w_hh,
+      dhT, dcT, (XT*)dg, dh0, dc0, T, R, H);
+  return (int)cudaGetLastError();
+}
+
+template <int ND>
+int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
+               const void* w_ih_b, const void* w_hh, const void* b,
+               const float* h0, const float* c0, void* y, void* gates,
+               float* cseq, int T, int R, int C, int H, cudaStream_t st) {
+  switch (dtypes) {
+    case 0:
+      return seq_fwd<ND, float, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0,
+                                       y, gates, cseq, T, R, C, H, st);
+    case 1:
+      return seq_fwd<ND, bf16, bf16>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
+                                     gates, cseq, T, R, C, H, st);
+    case 2:
+      return seq_fwd<ND, bf16, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
+                                      gates, cseq, T, R, C, H, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int ND>
+int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
+               const float* c0, const void* dy, const void* w_hh,
+               const float* dhT, const float* dcT, void* dg, float* dh0,
+               float* dc0, int T, int R, int H, cudaStream_t st) {
+  switch (dtypes) {
+    case 0:
+      return seq_bwd<ND, float, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
+                                       dg, dh0, dc0, T, R, H, st);
+    case 1:
+      return seq_bwd<ND, bf16, bf16>(gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
+                                     dh0, dc0, T, R, H, st);
+    case 2:
+      return seq_bwd<ND, bf16, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
+                                      dg, dh0, dc0, T, R, H, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
+// 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); y, dy and dgates
+// have the activations' type, the saved gates bf16 in the mixed mode. nd = 1:
+// w_ih_b is unused; nd = 2: h0, c0 (forward) and c0, dhT, dcT, dh0, dc0
+// (backward) are unused (zero states), and may be null.
+extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H, int nd) {
+  return fwd_smem(C, H, nd);
+}
+
+extern "C" size_t sbt_lstm_seq_bwd_smem(int H, int nd) {
+  return bwd_smem(H, nd);
+}
+
+extern "C" int sbt_lstm_seq_fwd(const void* x, const void* w_ih_f,
+                                const void* w_ih_b, const void* w_hh,
+                                const void* b, const float* h0,
+                                const float* c0, void* y, void* gates,
+                                float* cseq, int T, int R, int C, int H,
+                                int nd, int dtypes, void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nd == 1)
+    return fwd_dtypes<1>(dtypes, x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
+                         gates, cseq, T, R, C, H, st);
+  if (nd == 2)
+    return fwd_dtypes<2>(dtypes, x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
+                         gates, cseq, T, R, C, H, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int sbt_lstm_seq_bwd(const void* gates, const float* cseq,
+                                const float* c0, const void* dy,
+                                const void* w_hh, const float* dhT,
+                                const float* dcT, void* dg, float* dh0,
+                                float* dc0, int T, int R, int H, int nd,
+                                int dtypes, void* stream) {
+  cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nd == 1)
+    return bwd_dtypes<1>(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
+                         dh0, dc0, T, R, H, st);
+  if (nd == 2)
+    return bwd_dtypes<2>(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
+                         dh0, dc0, T, R, H, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -49,7 +49,7 @@ from torch import nn
 from sound_bubble_tpu_torch.constants import BUBBLE_RADII
 from sound_bubble_tpu_torch.ops.features import spatial_features
 from sound_bubble_tpu_torch.ops.init import lstm_init, uniform_fan
-from sound_bubble_tpu_torch.ops.rnn import blstm, lstm, matmul
+from sound_bubble_tpu_torch.ops.rnn import SCANS, blstm, lstm, matmul
 from sound_bubble_tpu_torch.ops.stft import (
     STFT, istft, make_stft, mod_pad, stft)
 
@@ -335,11 +335,13 @@ class IntraBand(nn.Module):
     conv_lstm=True: strided Conv1d down (k = F // s frames of stride s) ->
     PReLU -> LN -> BLSTM over k -> ConvTranspose1d up, zero-padded back to
     F rows (rows from k*s on get nothing, not even the bias).
-    x: [B, T, F, C] -> [B, T, F, C] (residual added by the caller)."""
+    x: [B, T, F, C] -> [B, T, F, C] (residual added by the caller).
+    `scan`: the BLSTM's kernel route (`ops.rnn.blstm`)."""
 
-    def __init__(self, cfg: NetConfig):
+    def __init__(self, cfg: NetConfig, scan: str = "slab"):
         super().__init__()
         C, H = cfg.D, cfg.H
+        self.scan = scan
         self.conv_lstm, self.s = cfg.conv_lstm, cfg.lstm_down
         if cfg.conv_lstm:
             # Conv1d(C, C, kernel=s, stride=s) as a Linear over s*C; the JAX
@@ -370,14 +372,14 @@ class IntraBand(nn.Module):
         B, T, F, C = x.shape
         if not self.conv_lstm:
             z = self.norm(x).reshape(B * T, F, C)
-            z = self.proj(blstm(self.blstm, z))
+            z = self.proj(blstm(self.blstm, z, scan=self.scan))
             return z.reshape(B, T, F, C)
         s = self.s
         k = F // s
         # non-overlapping stride-s framing of the first k*s rows
         z = x.reshape(B * T, F, C)[:, :k * s].reshape(B * T, k, s * C)
         z = self.norm(self.act(self.down(z)))
-        z = blstm(self.blstm, z)                          # [BT, k, 2H]
+        z = blstm(self.blstm, z, scan=self.scan)          # [BT, k, 2H]
         dt = torch.promote_types(z.dtype, self.up_kernel.dtype)
         z = torch.einsum("btH,Hsc->btsc", z.to(dt),
                          self.up_kernel.to(dt)) + self.up_bias
@@ -447,12 +449,14 @@ def local_attention(q, k_full, v_full, window):
 
 class GridNetBlock(nn.Module):
     """One TF-GridNet block: intra-frequency BLSTM + stateful inter-time
-    LSTM + (use_attn) local causal attention over the past W frames."""
+    LSTM + (use_attn) local causal attention over the past W frames. `scan`:
+    the kernel route of both LSTMs (`ops.rnn`)."""
 
-    def __init__(self, cfg: NetConfig):
+    def __init__(self, cfg: NetConfig, scan: str = "slab"):
         super().__init__()
         C = cfg.D
-        self.intra = IntraBand(cfg)
+        self.scan = scan
+        self.intra = IntraBand(cfg, scan)
         self.inter_norm = LayerNorm(C, eps=cfg.eps)
         self.inter_lstm = _lstm_params(C, cfg.H)
         self.inter_proj = Linear(cfg.H, C)
@@ -490,7 +494,8 @@ class GridNetBlock(nn.Module):
     def forward(self, x, state):
         x = x + self.intra(x)
         z = self.inter_norm(x).transpose(1, 2)            # [B, F, T, C]
-        z, (hT, cT) = lstm(self.inter_lstm, z, state["h0"], state["c0"])
+        z, (hT, cT) = lstm(self.inter_lstm, z, state["h0"], state["c0"],
+                           scan=self.scan)
         x = x + self.inter_proj(z).transpose(1, 2)
         new_state = {"h0": hT, "c0": cT}
         if self.use_attn:
@@ -503,19 +508,23 @@ class Net(nn.Module):
 
     forward(inputs, input_state=None, pad=True) -> {'output', 'next_state'}
     with inputs = {'mixture': [B, M, N], 'dis_embed': [B, 3]} (dis_embed
-    ignored when cfg.conditional is False)."""
+    ignored when cfg.conditional is False). `lstm_scan`: the kernel route
+    of every LSTM scan ("slab" or "seq", `ops.rnn`), handed to each block."""
 
-    def __init__(self, cfg: NetConfig):
+    def __init__(self, cfg: NetConfig, lstm_scan: str = "slab"):
         super().__init__()
         check_supported(cfg)
+        if lstm_scan not in SCANS:
+            raise ValueError(f"lstm_scan={lstm_scan!r}: one of {SCANS}")
         self.cfg = cfg
+        self.lstm_scan = lstm_scan
         if cfg.conditional:
             self.dis_embed = DisEmbed(cfg)
         self.conv = CausalConv2d(cfg.conv_in, cfg.D)
         if cfg.use_first_ln:
             self.first_ln = LayerNorm(cfg.D)
         for i in range(cfg.B):
-            self.add_module(f"block{i}", GridNetBlock(cfg))
+            self.add_module(f"block{i}", GridNetBlock(cfg, lstm_scan))
             if i > 0 and cfg.conditional:
                 self.add_module(f"film{i - 1}",
                                 FiLM(cfg.embed_width, cfg.D))
@@ -641,13 +650,13 @@ class Net(nn.Module):
         return self.decode(h, spec, state, next_state), next_state
 
 
-def net_from_params(**model_params) -> Net:
+def net_from_params(lstm_scan: str = "slab", **model_params) -> Net:
     """Config-system entry point: the distance-conditioned production model
-    (JAX `net_from_params`). Its weights are zeros until
-    `init_weights` or `load_state_dict`."""
-    return Net(make_config(model_params, conditional=True))
+    (JAX `net_from_params`), its scans on the route `lstm_scan`. Its weights
+    are zeros until `init_weights` or `load_state_dict`."""
+    return Net(make_config(model_params, conditional=True), lstm_scan)
 
 
-def net_optim_from_params(**model_params) -> Net:
+def net_optim_from_params(lstm_scan: str = "slab", **model_params) -> Net:
     """Config-system entry point: the unconditioned edge variant."""
-    return Net(make_config(model_params, conditional=False))
+    return Net(make_config(model_params, conditional=False), lstm_scan)

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels: plain `nvcc` into a shared library
 with a C interface, loaded with `ctypes`.
 
-No PyTorch headers and no `torch.utils.cpp_extension`: the whole build is one
-`nvcc` call over `sound_bubble_tpu_torch/csrc/*.cu` that takes seconds, leaves
-no lock file behind and cannot wait on one. The library goes to
+No PyTorch headers and no `torch.utils.cpp_extension`: each source of
+`sound_bubble_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` process, all
+started together, and one more `nvcc` links the objects; that takes seconds,
+leaves no lock file behind and cannot wait on one. The library goes to
 `sound_bubble_tpu_torch/_build/libsbt_kernels.so` (listed in `.gitignore`). It
 is built at first use, once per process, and never at import.
 """
@@ -39,28 +40,63 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands at once; (command, return code, output) of each.
+    Every process is waited for, or killed at the time limit."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    done = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            done.append((cmd, proc.returncode, out))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
 def build() -> tuple[Path, str]:
-    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME. Returns (path, compiler
-    output incl. the -Xptxas -v register/shared-memory/spill lines)."""
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME, one nvcc a source in
+    parallel, then link. Returns (path, compiler output incl. the
+    -Xptxas -v register/shared-memory/spill lines)."""
+    sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / LIB_NAME
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
     # build beside the target and rename, so another process never loads a
     # half-written library
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *sources]
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    compile_cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                     "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"[nvcc rc={proc.returncode} in {time.perf_counter() - t0:.2f} s]")
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed:\n{log}")
-    os.replace(tmp, out)
+    logs = []
+    try:
+        steps = [compile_cmds,
+                 [[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]]]
+        for cmds in steps:
+            results = _run_all(cmds)
+            logs += [f"$ {' '.join(cmd)}\n{text}[nvcc rc={rc}]"
+                     for cmd, rc, text in results]
+            if any(rc != 0 for _, rc, _ in results):
+                raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    log = "\n".join(logs) + (f"\n[{len(sources)} sources compiled in "
+                             f"parallel and linked in "
+                             f"{time.perf_counter() - t0:.2f} s]")
     return out, log
 
 
@@ -88,9 +124,16 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_lstm_slab_fwd.restype = i32
             lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_bwd.restype = i32
-            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_slab_bwd_smem):
+            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_slab_bwd_smem,
+                       lib.sbt_lstm_seq_bwd_smem):
                 fn.argtypes = [i32, i32]
                 fn.restype = ctypes.c_size_t
+            lib.sbt_lstm_seq_fwd_smem.argtypes = [i32] * 3
+            lib.sbt_lstm_seq_fwd_smem.restype = ctypes.c_size_t
+            lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.sbt_lstm_seq_fwd.restype = i32
+            lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+            lib.sbt_lstm_seq_bwd.restype = i32
             _lib = lib
         return _lib
 

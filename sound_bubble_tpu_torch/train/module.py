@@ -37,9 +37,10 @@ class PLModule:
                  use_dp=True,               # one device: accepted, unused
                  val_log_interval=10,       # unused, kept for config parity
                  samples_per_speaker_number=3,   # audio logging: not ported
-                 device="cuda"):
+                 device="cuda", lstm_scan="slab"):
         self.device = resolve_device(device)
-        self.net = import_attr(model)(**model_params)
+        # the LSTM scans' kernel route ("slab" or "seq", ops/rnn.py)
+        self.net = import_attr(model)(**model_params, lstm_scan=lstm_scan)
         self.sr = sr
         self.metrics = [Metrics(m) for m in metrics]
         self.metric_values = {}

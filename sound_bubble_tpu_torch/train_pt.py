@@ -2,7 +2,7 @@
 
     python -m sound_bubble_tpu_torch.train_pt \
         --config syn_experiments/pretrain_stage.json --run_dir runs/<name> \
-        [--seed 0] [--device cuda|cpu] [--bf16]
+        [--seed 0] [--device cuda|cpu] [--bf16] [--lstm_scan slab|seq]
 
 Same arguments and config schema as the JAX trainer (the config's
 `sound_bubble_tpu.*` and `torch.optim.*` names resolve to the port through
@@ -15,11 +15,17 @@ one device (`--device`, default `cuda`; no card raises). In float32, with
 TF32 off for matrix products and cuDNN convolutions; `--bf16` runs the
 model's trunk in bf16 with float32 master params and a float32 STFT
 front-end (the JAX trainer's `--bf16`, which records it nowhere but the
-log). An error ends the run with its traceback.
+log). `--lstm_scan` picks the LSTM scans' kernel route (`ops/rnn.py`): the
+slab kernels, or the JAX package's custom-VJP kernel route ("seq"); its
+default is "seq" exactly when the JAX package's environment selects that
+route (`SB_LSTM_FUSED=0 SB_LSTM_CUSTOM_VJP=1 SB_LSTM_PALLAS_TRAIN=1`). The
+route is recorded in the run dir (`train_pt_args.json`), and resuming a run
+on the other route is refused. An error ends the run with its traceback.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shutil
 import time
@@ -27,12 +33,32 @@ import time
 import torch
 
 from sound_bubble_tpu_torch.data.loader import SeedWorkers, make_loader
+from sound_bubble_tpu_torch.ops.rnn import SCANS, scan_from_env
 from sound_bubble_tpu_torch.train.logging import init_run
 from sound_bubble_tpu_torch.train.loop import test_epoch, train_epoch
 from sound_bubble_tpu_torch.utils import (
     import_attr, read_json, resolve_device, seed_all)
 
 VAL_SEED = 0
+ARGS_FILE = "train_pt_args.json"
+
+
+def check_route(args: argparse.Namespace):
+    """The LSTM route is part of a run: record it in a new run dir, and
+    refuse to resume a run (its `last.pt`) on the other route. A run dir
+    from before the route was recorded trained on the slab kernels."""
+    path = os.path.join(args.run_dir, ARGS_FILE)
+    if os.path.exists(os.path.join(args.run_dir, "checkpoints", "last.pt")):
+        recorded = (read_json(path)["lstm_scan"] if os.path.exists(path)
+                    else "slab")
+        if recorded != args.lstm_scan:
+            raise SystemExit(
+                f"{args.run_dir} trains on --lstm_scan {recorded}: resuming "
+                f"it with --lstm_scan {args.lstm_scan} is refused")
+        return
+    os.makedirs(args.run_dir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"lstm_scan": args.lstm_scan}, f)
 
 
 def train(args: argparse.Namespace):
@@ -45,6 +71,7 @@ def train(args: argparse.Namespace):
         torch.backends.cudnn.benchmark = False
     seed_all(args.seed)
     params = read_json(args.config)
+    check_route(args)
 
     data_train = import_attr(params["train_dataset"])(
         **params["train_data_args"], split="train")
@@ -59,7 +86,7 @@ def train(args: argparse.Namespace):
                               num_workers, SeedWorkers(VAL_SEED))
 
     hl_module = import_attr(params["pl_module"])(
-        **params["pl_module_args"], device=device)
+        **params["pl_module_args"], device=device, lstm_scan=args.lstm_scan)
     if args.bf16:
         hl_module.set_bf16_trunk()
         print("bf16 trunk enabled (fp32 master params / front-end)")
@@ -117,6 +144,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 trunk (fp32 master params); off by "
                              "default")
+    parser.add_argument("--lstm_scan", choices=SCANS, default=scan_from_env(),
+                        help="the LSTM scans' kernel route: slab, or seq "
+                             "(the custom-VJP route); default from the "
+                             "SB_LSTM_* environment, as the JAX trainer")
     return parser.parse_args(argv)
 
 

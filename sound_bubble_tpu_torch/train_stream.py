@@ -3,7 +3,7 @@
     python -m sound_bubble_tpu_torch.train_stream --run_dir runs/campaign \
         --config syn_experiments/pretrain_stage.json \
         [--steps 20000] [--pool 3000] [--clip_seconds 3.0] [--bf16 | --no-bf16]
-        [--device cuda|cpu] [--resume] ...
+        [--device cuda|cpu] [--lstm_scan slab|seq] [--resume] ...
 
 A pool of room acoustics is built once on the host (`datagen.campaign.
 build_pool`: scenario geometry and image-source RIRs, numpy) and moved to
@@ -24,7 +24,10 @@ bf16 (`compute_dtype="bf16"`) on the params cast by `utils.cast_bf16`, float32
 master params, STFT front-end and loss. Every `val_every` steps a validation
 on the validation pool with a fixed generator, the checkpoints, and the
 plateau LR scheduler. One process on one device (`--device`, default
-`cuda`; no card raises), TF32 off.
+`cuda`; no card raises), TF32 off. `--lstm_scan` picks the LSTM scans'
+kernel route as `train_pt` does (default from the JAX package's SB_LSTM_*
+environment); it is part of the recorded recipe, and a `--resume` on the
+other route is refused.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from sound_bubble_tpu_torch.datagen import campaign
+from sound_bubble_tpu_torch.ops.rnn import SCANS, scan_from_env
 from sound_bubble_tpu_torch.train.optim import ReduceLROnPlateau
 from sound_bubble_tpu_torch.utils import (
     cast_bf16, import_attr, read_json, resolve_device)
@@ -44,13 +48,14 @@ from sound_bubble_tpu_torch.utils import (
 VAL_SEED = 500
 
 
-def build_module(cfg: dict, device):
+def build_module(cfg: dict, device, lstm_scan: str = "slab"):
     """The PLModule of the config (optimizer, scheduler, checkpoints, model
-    handle), without its datasets."""
+    handle), without its datasets, its LSTM scans on `lstm_scan`."""
     pl_args = dict(cfg["pl_module_args"])
     if "grad_clip" in cfg:
         pl_args["grad_clip"] = cfg["grad_clip"]
-    return import_attr(cfg["pl_module"])(**pl_args, device=device)
+    return import_attr(cfg["pl_module"])(**pl_args, device=device,
+                                         lstm_scan=lstm_scan)
 
 
 def forward(net, model_in: dict, bf16: bool) -> torch.Tensor:
@@ -145,7 +150,7 @@ def _recipe(args) -> dict:
     return {"bf16": args.bf16, "voice": args.voice, "batch": args.batch,
             "clip_seconds": args.clip_seconds,
             "snr_range": [args.snr_min, args.snr_max],
-            "bg_noise": args.bg_noise}
+            "bg_noise": args.bg_noise, "lstm_scan": args.lstm_scan}
 
 
 def main(args: argparse.Namespace):
@@ -174,11 +179,18 @@ def main(args: argparse.Namespace):
             print(f"RESUME: honoring the run's recorded bg_noise={rec_bg} "
                   f"(flag said {args.bg_noise})", flush=True)
             args.bg_noise = rec_bg
+        # the route is part of the run too; a run recorded before the
+        # route was trained on the slab kernels
+        rec_scan = recorded.get("lstm_scan", "slab")
+        if rec_scan != args.lstm_scan:
+            raise SystemExit(
+                f"{run_dir} trains on --lstm_scan {rec_scan}: resuming it "
+                f"with --lstm_scan {args.lstm_scan} is refused")
     else:
         with open(args_path, "w") as f:
             json.dump(_recipe(args), f)
 
-    module = build_module(cfg, device)
+    module = build_module(cfg, device, args.lstm_scan)
     net = module.net
     if args.bf16:
         # the bf16 trunk; the waveform, STFT front-end and loss stay float32
@@ -357,6 +369,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "of building it")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--lstm_scan", choices=SCANS, default=scan_from_env(),
+                   help="the LSTM scans' kernel route: slab, or seq (the "
+                        "custom-VJP route); default from the SB_LSTM_* "
+                        "environment, as the JAX trainer")
     return p.parse_args(argv)
 
 

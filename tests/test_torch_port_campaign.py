@@ -263,7 +263,7 @@ def test_train_stream_cli_runs_resumes_and_jax_reads_it(tmp_path, capsys):
         recipe = json.load(f)
     assert recipe == {"bf16": True, "voice": "mix", "batch": 2,
                       "clip_seconds": 0.25, "snr_range": [-10.0, 5.0],
-                      "bg_noise": 0.5}
+                      "bg_noise": 0.5, "lstm_scan": "slab"}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     assert [r["step"] for r in logged] == [1, 2, 2]

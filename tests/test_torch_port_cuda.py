@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
-the attention step), and the slab LSTM scans (forward and backward).
+the attention step), the slab LSTM scans (forward and backward), and the
+custom-VJP route's recurrences (rows 6-9: one direction and both
+directions, forward and backward, and the two autograd Functions).
 
 Marked `gpu`: each test decides inside itself whether a card is present and
 skips here with a reason. This file imports neither JAX nor the JAX package,
@@ -18,7 +20,14 @@ kernels (bf16 x with bf16 or fp32 weights) are held to their plain versions
 as chip_smoke.py holds them: every output within 1e-2 of its peak and ys
 within one bf16 ulp of its peak at all but 1e-3 of its elements (the two
 round at the same points; fp32 sums in another order can move a gate across
-a bf16 rounding boundary, and the recurrence carries that on)."""
+a bf16 rounding boundary, and the recurrence carries that on). The seq
+recurrences (rows 6-9) and their Functions are held to 1e-4 (fp32) and 1e-2
+(mixed) of each output's peak; in the mixed mode the walks' bf16 outputs
+(y, gates, dgates; the Functions' y) are also bit-equal to the plain
+versions' at all but 5% of the elements, a bar that the slab's rounding
+of the sigmoid fails (see chip_smoke.py's SEQ_MIXED_SHARE). The Functions'
+bf16 gradients are not held to it: each rounds a sum of T*R products, and
+a walk's rare one-ulp differences move 6-8% of them by one ulp."""
 from pathlib import Path
 
 import numpy as np
@@ -487,3 +496,182 @@ def test_slab_kernels_reject_bad_operands():
     with pytest.raises(ValueError, match="not contiguous"):
         ls.lstm_slab_fwd(*args[:3], a["x"].transpose(0, 1).contiguous()
                          .transpose(0, 1), *args[4:])
+
+
+# ---- the custom-VJP kernel route (ops/kernels/lstm_train_kernel.py):
+# (T, R, C, H) with R ragged against the row tile (8), T = 1, the training
+# widths and a narrow C and H; the three (x, weights) pairs
+SEQ_SHAPES = {"ragged": (13, 37, 32, 64), "one": (1, 9, 32, 64),
+              "narrow": (11, 5, 8, 8)}
+SEQ_PAIRS = {"fp32": (torch.float32, torch.float32),
+             "bf16": (torch.bfloat16, torch.bfloat16),
+             "bf16_fp32w": (torch.bfloat16, torch.float32)}
+
+
+def _seq_case(shape, dev, pair, seed=0):
+    a = _slab_case(shape, dev, seed)
+    xdt, wdt = SEQ_PAIRS[pair]
+    b = _slab_case(shape, dev, seed + 1)
+    a.update(w_ih_b=b["w_ih"], w_hh_b=b["w_hh"], b_b=b["b"],
+             dy2=torch.cat([a["dy"], b["dy"]], dim=-1))
+    for k in ("x", "dy", "dy2"):
+        a[k] = a[k].to(xdt)
+    for k in ("w_ih", "w_hh", "b", "w_ih_b", "w_hh_b", "b_b"):
+        a[k] = a[k].to(wdt)
+    return a
+
+
+def _seq_counts(lk):
+    return [(f.launches, f.mixed_launches) for f in
+            (lk.lstm_seq_fwd, lk.lstm_seq_bwd, lk.blstm_seq_fwd,
+             lk.blstm_seq_bwd)]
+
+
+# mixed seq kernels: the share of bf16 elements that may differ from the
+# plain version's
+SEQ_MIXED_SHARE = 0.05
+
+
+def _close(got, want, name, tol, walk=True):
+    """got within tol of want's peak; a bf16 output of a walk (`walk`: y,
+    gates, dgates, not the gradients' products, which round sums of T*R
+    terms) also bit-equal at all but SEQ_MIXED_SHARE of its elements."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = _rel(got.float(), want.float())
+    assert err <= tol, (name, err)
+    if walk and got.dtype == torch.bfloat16:
+        share = float((got.cpu() != want.cpu()).float().mean())
+        assert share <= SEQ_MIXED_SHARE, (name, share)
+
+
+@pytest.mark.parametrize("pair", list(SEQ_PAIRS))
+@pytest.mark.parametrize("shape", list(SEQ_SHAPES))
+def test_seq_kernels_match_plain(shape, pair):
+    """Rows 6-9 against their plain versions: fp32 within 1e-4 of each
+    output's peak, mixed within 1e-2 (the slab's mixed bar) and bf16
+    outputs bit-equal at all but SEQ_MIXED_SHARE of the elements."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    a = _seq_case(SEQ_SHAPES[shape], dev, pair)
+    tol = TOL if pair == "fp32" else 1e-2
+    before = _seq_counts(lk)
+    fargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
+    got = lk.lstm_seq_fwd(*fargs)
+    torch.cuda.synchronize()
+    want = lk.lstm_seq_fwd_ref(*fargs)
+    for g, w, name in zip(got, want, ("y", "gates", "c")):
+        _close(g, w, f"row 6 {name}", tol)
+    bargs = (want[1], want[2], a["c0"], a["dy"], a["dhT"], a["dcT"],
+             a["w_hh"], a["x"].dtype)
+    got = lk.lstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, lk.lstm_seq_bwd_ref(*bargs),
+                          ("dgates", "dh0", "dc0")):
+        _close(g, w, f"row 7 {name}", tol)
+    pack = lk._blstm_pack(
+        {"w_ih": a["w_ih"], "w_hh": a["w_hh"], "b": a["b"]},
+        {"w_ih": a["w_ih_b"], "w_hh": a["w_hh_b"], "b": a["b_b"]})
+    got = lk.blstm_seq_fwd(*pack, a["x"])
+    torch.cuda.synchronize()
+    want = lk.blstm_seq_fwd_ref(*pack, a["x"])
+    for g, w, name in zip(got, want, ("y", "gates", "c")):
+        _close(g, w, f"row 8 {name}", tol)
+    bargs = (pack[2], want[1], want[2], a["dy2"], a["x"].dtype)
+    got = lk.blstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    _close(got, lk.blstm_seq_bwd_ref(*bargs), "row 9 dgates", tol)
+    k = 1 if pair != "fp32" else 0
+    grew = [tuple(n - m for n, m in zip(x, y))
+            for x, y in zip(_seq_counts(lk), before)]
+    assert grew == [(1 - k, k)] * 4, grew
+
+
+@pytest.mark.parametrize("pair", list(SEQ_PAIRS))
+def test_seq_functions_match_plain(pair):
+    """The two autograd Functions on the card (the kernels) against the same
+    Functions on the CPU (the plain versions): outputs and every gradient
+    (dW_ih, dW_hh, db, dx, dh0, dc0)."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    a = _seq_case(SEQ_SHAPES["ragged"], dev, pair)
+    tol = TOL if pair == "fp32" else 1e-2
+    rng = np.random.default_rng(5)
+    t_len, r, _, h = SEQ_SHAPES["ragged"]
+    weights = [rng.standard_normal(s).astype(np.float32) for s in
+               ((t_len, r, h), (r, h), (r, h), (t_len, r, 2 * h))]
+    results = []
+    for where in (dev, torch.device("cpu")):
+        t = {k: v.to(where).clone().requires_grad_(v.is_floating_point())
+             for k, v in a.items()}
+        y, hT, cT = lk.lstm_seq(t["w_ih"], t["w_hh"], t["b"], t["x"],
+                                t["h0"], t["c0"])
+        yb = lk.blstm_seq({"w_ih": t["w_ih"], "w_hh": t["w_hh"],
+                           "b": t["b"]},
+                          {"w_ih": t["w_ih_b"], "w_hh": t["w_hh_b"],
+                           "b": t["b_b"]}, t["x"])
+        loss = sum((v.float() * torch.from_numpy(w).to(where)).sum()
+                   for v, w in zip((y, hT, cT, yb), weights))
+        loss.backward()
+        names = ("w_ih", "w_hh", "b", "x", "h0", "c0", "w_ih_b", "w_hh_b",
+                 "b_b")
+        results.append(([v.detach().cpu() for v in (y, hT, cT, yb)],
+                         [t[k].grad.cpu() for k in names]))
+    (got_o, got_g), (want_o, want_g) = results
+    for g, w, name in zip(got_o, want_o, ("y", "hT", "cT", "y_blstm")):
+        _close(g, w, name, tol)
+    for g, w, name in zip(got_g, want_g, ("dw_ih", "dw_hh", "db", "dx",
+                                          "dh0", "dc0", "dw_ih_b",
+                                          "dw_hh_b", "db_b")):
+        _close(g, w, name, tol, walk=False)
+
+
+def test_seq_route_on_card_goes_through_the_seq_kernels():
+    """ops.rnn on scan="seq": lstm launches rows 6 and 7 once each, blstm
+    rows 8 and 9, and no slab kernel; T == 1 of lstm launches nothing."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    a = _seq_case(SEQ_SHAPES["ragged"], dev, "fp32")
+    p = {k: a[k].clone().requires_grad_() for k in ("w_ih", "w_hh", "b")}
+    x = a["x"].permute(1, 0, 2).contiguous()          # [R, T, C]
+    before, slab = _seq_counts(lk), (ls.lstm_slab_fwd.launches,
+                                     ls.lstm_slab_bwd.launches)
+    y, _ = rnn.lstm(p, x, scan="seq")
+    yb = rnn.blstm({"fwd": p, "bwd": p}, x, scan="seq")
+    (y.square().sum() + yb.square().sum()).backward()
+    rnn.lstm(p, x[:, :1], scan="seq")
+    grew = [tuple(n - m for n, m in zip(u, v))
+            for u, v in zip(_seq_counts(lk), before)]
+    assert grew == [(1, 0)] * 4, grew
+    assert (ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches) == slab
+    with pytest.raises(NotImplementedError, match="reverse"):
+        rnn.lstm(p, x, reverse=True, scan="seq")
+
+
+def test_seq_kernels_reject_bad_operands():
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    a = _seq_case(SEQ_SHAPES["ragged"], dev, "fp32")
+    args = [a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"]]
+    with pytest.raises(TypeError, match="seq kernels take"):
+        lk.lstm_seq_fwd(*[t.bfloat16() for t in args[:3]], *args[3:])
+    with pytest.raises(TypeError, match="h0: dtype"):
+        lk.lstm_seq_fwd(*args[:3], a["x"].bfloat16(), a["h0"].bfloat16(),
+                        a["c0"])
+    with pytest.raises(ValueError, match="w_hh: on cpu"):
+        lk.lstm_seq_fwd(args[0], a["w_hh"].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="c0: shape"):
+        lk.lstm_seq_fwd(*args[:5], a["c0"][:-1])
+    pack = lk._blstm_pack({"w_ih": a["w_ih"], "w_hh": a["w_hh"],
+                           "b": a["b"]},
+                          {"w_ih": a["w_ih"], "w_hh": a["w_hh"],
+                           "b": a["b"]})
+    with pytest.raises(ValueError, match="w_hh: shape"):
+        lk.blstm_seq_fwd(pack[0], pack[1], a["w_hh"], pack[3], a["x"])
+    y, gates, c = lk.blstm_seq_fwd(*pack, a["x"])
+    with pytest.raises(ValueError, match="not contiguous"):
+        lk.blstm_seq_bwd(pack[2], gates, c, a["dy2"].transpose(0, 1)
+                         .contiguous().transpose(0, 1), torch.float32)
