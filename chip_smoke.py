@@ -123,11 +123,38 @@ PERF.md's kernel table):
    bidirectional); ms per step and peak memory, seq route against slab
    route, fp32 and the bf16 recipe.
 
+Phases 25-28 drive the rest of serving on row 5, the fused inference BLSTM
+(`ops/kernels/lstm_kernel.py` on `csrc/lstm_infer.cu`, the JAX package's
+`blstm_pallas`, `SB_PALLAS_BLSTM=1`):
+
+25. row 5 against its plain version at one stream (R = 1) and four at the
+   flagship's width ([R, 145, 32]), one stream at the conv_lstm width
+   ([1, 29, 24]) and the offline shape of a 2 s golden ([250, 145, 32]);
+26. the 9 goldens of `test_samples/` streamed through the model-level
+   `ModelWrapper` on the flagship's PLModule `model` handle with every intra
+   BLSTM on row 5 (its main path: B launches a chunk, no slab launch),
+   per sample against the JAX package's numbers; one clip against the same
+   weights on the slab kernels and through `FusedStreamer`, and
+   `streaming_inference_scan` (one CUDA graph of a chunk, replayed)
+   against the loop;
+27. `python -m sound_bubble_tpu_torch.eval_syn` on the three golden dirs
+   and `python -m sound_bubble_tpu_torch.eval --distance_threshold -1` on
+   the seeded Orange Pi run, as subprocesses at once with SB_PALLAS_BLSTM=1:
+   row 5's launches (each CLI's last line), every column of `results.csv`
+   against the JAX package's CLIs (`runs/goldens_eval_syn_jax.json`,
+   `tools/jax_goldens_eval_syn.py`) and SI-SDRi / decay against
+   `runs/goldens_test_samples_jax.json`;
+28. times of row 5, its plain version, its bound and cuDNN's bidirectional
+   LSTM at phase 25's shapes; ms a chunk of `ModelWrapper` on row 5 and on
+   the slab kernels and of `streaming_inference_scan`; the offline forward
+   and the eval CLIs' seconds a golden.
+
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
 power limit, and the device line.
 """
 import contextlib
+import csv
 import faulthandler
 import json
 import math
@@ -2374,6 +2401,395 @@ def phase24_seq_times(dev, lk, card, mod_seq, batch):
     return rows
 
 
+# ---- phases 25-28: the rest of serving: row 5, the fused inference BLSTM
+# (`ops/kernels/lstm_kernel.py`, `csrc/lstm_infer.cu`), on the model-level
+# streaming path and the offline eval CLIs
+
+# (name, R, T, C) at H = 64: one stream at the flagship's width (F = 145,
+# C = 32; the serving main path's shape), four streams, one stream at the
+# conv_lstm width (Orange Pi: k = 145 // 5 = 29 frames, C = 24), and the
+# offline forward of a 2 s golden (250 frames)
+ROW5_SHAPES = (("serve1", 1, 145, 32), ("serve4", 4, 145, 32),
+               ("conv1", 1, 29, 24), ("offline", 250, 145, 32))
+ROW5_H = 64
+# fp32 kernel vs fp32 plain version: another summation order over H terms
+# a direction (the plain version multiplies by the whole pack)
+ROW5_TOL = 1e-5
+# STOI and PESQ of the eval CLI on the card vs the JAX package's on the CPU.
+# runs/goldens_eval_syn_jax.json records their CPU sensitivity
+# (`sensitivity`): the port's CPU output moves them by at most 4.5e-6 from
+# JAX's, white noise at the whole-model bar (max-abs ~1e-4 of the output's
+# peak) by at most 1.5e-4; the bar is ~7x the latter
+EVAL_PERCEPTUAL_TOL = 1e-3
+EVAL_GOLDENS = os.path.join(REPO, "runs", "goldens_eval_syn_jax.json")
+EVAL_TIMEOUT_S = 600
+
+
+def row5_bound_ms(t_len, r, h):
+    """Least time for one row-5 launch: gx [R, T, 8H] in, y [R, T, 2H]
+    out and the two diagonal H x 4H blocks of W_hh, 4 bytes each, over
+    3.35 TB/s; the recurrence's 2*T*R*2H*4H FLOP over the fp32 rate."""
+    n_bytes = 4 * (t_len * r * 8 * h + 2 * h * 4 * h + t_len * r * 2 * h)
+    flops = 2 * t_len * r * 2 * h * 4 * h
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row5_cases(dev, nets):
+    """{name: (params, x)}: block 0's intra BLSTM of the flagship (C = 32)
+    or the Orange Pi net (C = 24), x [R, T, C] from SEED."""
+    rng = np.random.default_rng(SEED)
+    cases = {}
+    for name, r, t_len, c in ROW5_SHAPES:
+        net = nets["flagship" if c == 32 else "edge"]
+        params = net.block0.intra.blstm
+        x = torch.from_numpy(rng.standard_normal((r, t_len, c))
+                             .astype(np.float32)).to(dev)
+        cases[name] = (params, x)
+    return cases
+
+
+def phase25_row5_kernel(rk, cases):
+    """Row 5 against its plain version on the card at ROW5_SHAPES."""
+    errs = {}
+    before = rk.blstm_infer.launches
+    with torch.no_grad():
+        for name, (params, x) in cases.items():
+            got = rk.blstm_infer(params, x)
+            want = rk.blstm_infer_ref(params, x)
+            torch.cuda.synchronize()
+            if got.shape != x.shape[:2] + (2 * ROW5_H,):
+                fail(f"row 5 {name}: output shape {tuple(got.shape)}")
+            errs[name] = float((got - want).abs().max())
+    grew = rk.blstm_infer.launches - before
+    log(f"phase 25 row 5 (blstm_infer) vs plain: max-abs err "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol {ROW5_TOL}), "
+        f"launches +{grew}")
+    if not max(errs.values()) <= ROW5_TOL:
+        fail(f"row 5 disagrees with its plain version: {errs}")
+    if grew != len(cases):
+        fail(f"row 5 launches grew by {grew}, expected {len(cases)}")
+    return max(errs.values())
+
+
+def phase26_row5_serving(dev, rk, streamer):
+    """The main path of row 5: the 9 goldens streamed through the
+    model-level `ModelWrapper` (a PLModule's `model` handle,
+    `load_torch_pretrained(..., pallas_blstm=True)`), every intra BLSTM on
+    row 5, against the JAX package's numbers; one clip against the same
+    weights on the slab kernels and through `FusedStreamer`;
+    `streaming_inference_scan` (the CUDA graph) against the loop. Returns
+    (row-5 launches of the main path, chunks, the row-5 net)."""
+    from sound_bubble_tpu_torch import utils
+    from sound_bubble_tpu_torch.evaluation import (
+        load_testcase, one_hot, run_testcase)
+    from sound_bubble_tpu_torch.metrics.metrics import (
+        Metrics, compute_decay)
+    from sound_bubble_tpu_torch.ops import kernels
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
+    from sound_bubble_tpu_torch.ops.stft import mod_pad
+    from sound_bubble_tpu_torch.runtime.streaming import (
+        ModelWrapper, streaming_inference, streaming_inference_scan)
+
+    handle = utils.load_torch_pretrained(RUN_DIR, device=dev,
+                                         pallas_blstm=True).model
+    wrapper = ModelWrapper(handle, device=dev)
+    cfg = wrapper.cfg
+    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
+    with open(JAX_BASELINE) as fh:
+        jax_base = json.load(fh)
+    si_sdr_i = Metrics("si_sdr_i")
+
+    def stream(wrap, mixture, threshold):
+        xp, mod = mod_pad(torch.from_numpy(mixture)[None], chunk,
+                          (cfg.stft_back_pad, pad))
+        wrap.reset()
+        y = streaming_inference(wrap, xp, chunk, pad,
+                                dis_embed=one_hot(threshold))[0]
+        return (y[..., :-mod] if mod else y).cpu().numpy(), xp
+
+    failures, n_chunks, clip = [], 0, None
+    rk.blstm_infer.launches = 0
+    ls.lstm_slab_fwd.launches = 0
+    t = time.perf_counter()
+    for radius, threshold in RADII:
+        rdir = os.path.join(GOLDENS, f"syn_{radius}")
+        for name in sorted(os.listdir(rdir)):
+            _, mixture, gt, tgt, _ = load_testcase(
+                os.path.join(rdir, name), 24000, threshold)
+            out, xp = stream(wrapper, mixture, threshold)
+            n_chunks += (xp.shape[-1] - pad) // chunk
+            if out.shape != (cfg.num_src, mixture.shape[-1]) \
+                    or not np.isfinite(out).all():
+                fail(f"row-5 serving {radius}/{name}: output shape "
+                     f"{out.shape} or non-finite values")
+            if tgt:
+                key, v = "sisdri", float(si_sdr_i(est=out, gt=gt,
+                                                   mix=mixture[0:1]))
+            else:
+                key, v = "decay", float(compute_decay(est=out,
+                                                      mix=mixture[0:1]))
+            want = jax_base["samples"][f"{radius}/{name}"][key]
+            if not abs(v - want) <= PARITY_TOL_DB:
+                failures.append(f"{radius}/{name} {key} {v:.5f} vs JAX "
+                                f"{want:.5f}")
+            if (radius, name) == ("1m", "00002"):
+                clip = (mixture, out, xp)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches, slab_n = rk.blstm_infer.launches, ls.lstm_slab_fwd.launches
+    log(f"phase 26 row-5 serving (ModelWrapper + streaming_inference, "
+        f"pallas_blstm=True): 9 goldens, {n_chunks} chunks in "
+        f"{serve_s:.2f} s ({serve_s / n_chunks * 1e3:.3f} ms/chunk incl. "
+        f"metrics); row-5 launches {launches} ({cfg.B} a chunk expected), "
+        f"slab forward launches {slab_n}")
+    if failures:
+        fail("row-5 serving vs JAX (tol 0.01 dB): " + "; ".join(failures))
+    if launches != cfg.B * n_chunks or slab_n != 0:
+        fail(f"row 5 launched {launches} times (slab {slab_n}) for "
+             f"{n_chunks} chunks of {cfg.B} blocks")
+
+    mixture, row5, xp = clip
+    peak = np.abs(row5).max()
+    slab, _ = stream(ModelWrapper(streamer.net, device=dev), mixture, 1.0)
+    fused = run_testcase(streamer, mixture, 1.0)
+    before = kernels.launch_counts()
+    scan = streaming_inference_scan(handle._module.net, xp, chunk, pad,
+                                    dis_embed=one_hot(1.0), device=dev)[0]
+    torch.cuda.synchronize()
+    scan_grew = (kernels.launch_counts()["blstm_infer.launches"]
+                 - before["blstm_infer.launches"])
+    scan = scan.cpu().numpy()[..., :mixture.shape[-1]]
+    rels = {"slab": float(np.abs(slab - row5).max() / peak),
+            "fused": float(np.abs(fused - row5).max() / peak),
+            "scan": float(np.abs(scan - row5).max() / peak)}
+    n_clip = (xp.shape[-1] - pad) // chunk
+    log(f"  syn_1m/00002, {n_clip} chunks: row 5 vs the slab kernels "
+        f"{rels['slab']:.3e}, vs FusedStreamer {rels['fused']:.3e}, "
+        f"streaming_inference_scan (CUDA graph) vs the loop "
+        f"{rels['scan']:.3e} (max-abs / peak, tol {STREAM_REL_TOL}); the "
+        f"graph's row-5 count +{scan_grew} (warm-up + {n_clip} replays x "
+        f"{cfg.B})")
+    if not max(rels.values()) <= STREAM_REL_TOL:
+        fail(f"row-5 serving disagrees: {rels}")
+    if scan_grew != cfg.B * (n_clip + 1):
+        fail(f"the graph's row-5 count grew by {scan_grew}, expected "
+             f"{cfg.B * (n_clip + 1)}")
+    return launches, n_chunks, handle._module.net
+
+
+def read_results(path):
+    """results.csv -> {sample: {column: str}}."""
+    with open(path, newline="") as fh:
+        return {rec["sample"]: rec for rec in csv.DictReader(fh)}
+
+
+def phase27_eval_clis():
+    """`python -m sound_bubble_tpu_torch.eval_syn` on the three golden dirs
+    (flagship, each at its radius) and `eval --distance_threshold -1` on
+    the Orange Pi seeded run, as subprocesses at once, SB_PALLAS_BLSTM=1:
+    row 5 launched in each (the CLI's last line), per-sample SI-SDRi and
+    decay within 0.01 dB of the JAX package's, STOI and PESQ within
+    EVAL_PERCEPTUAL_TOL. Returns {job: wall seconds}."""
+    with open(JAX_BASELINE) as fh:
+        jax_base = json.load(fh)
+    with open(EVAL_GOLDENS) as fh:
+        golden = json.load(fh)
+    env = dict(os.environ, SB_PALLAS_BLSTM="1")
+    tmp = tempfile.mkdtemp(prefix="sbt_eval_")
+    jobs = {}
+    for radius, threshold in RADII:
+        jobs[f"eval_syn {radius}"] = (
+            "eval_syn", os.path.join(GOLDENS, f"syn_{radius}"), RUN_DIR,
+            ["--distance_threshold", str(threshold)], 6 * 3)
+    jobs["eval -1 1_5m"] = (
+        "eval", os.path.join(GOLDENS, "syn_1_5m"), EDGE_RUN_DIR,
+        ["--distance_threshold", "-1", "--gt_threshold", "1.5"], 3 * 3)
+    procs, walls, texts = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        for job, (cli, test_dir, run_dir, flags, _) in jobs.items():
+            out = os.path.join(tmp, job.replace(" ", "_"))
+            with open(out + ".log", "w") as log_f:
+                procs[job] = (out, subprocess.Popen(
+                    [sys.executable, "-m", f"sound_bubble_tpu_torch.{cli}",
+                     test_dir, run_dir, out, *flags], cwd=REPO, env=env,
+                    stdout=log_f, stderr=subprocess.STDOUT))
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > EVAL_TIMEOUT_S:
+                fail(f"eval CLIs still running after {EVAL_TIMEOUT_S} s")
+            for job, (out, proc) in procs.items():
+                if job not in walls and proc.poll() is not None:
+                    walls[job] = time.perf_counter() - t0
+            time.sleep(0.2)
+        for job, (out, proc) in procs.items():
+            with open(out + ".log") as log_f:
+                texts[job] = log_f.read()
+            if proc.returncode != 0:
+                fail(f"{job} exited {proc.returncode}:\n{texts[job][-3000:]}")
+        failures = []
+        for job, (cli, test_dir, run_dir, flags, n_launch) in jobs.items():
+            last = texts[job].strip().splitlines()[-1]
+            if last != f"blstm_infer launches: {n_launch}":
+                failures.append(f"{job}: last line {last!r}, expected "
+                                f"{n_launch} row-5 launches")
+            radius = job.split()[-1]
+            rows = read_results(os.path.join(procs[job][0], "results.csv"))
+            want_rows = golden["samples" if cli == "eval_syn"
+                               else "edge_samples"]
+            worst = {"dB": 0.0, "stoi": 0.0, "pesq": 0.0}
+            for name in sorted(os.listdir(test_dir)):
+                got, want = rows[name], want_rows[f"{radius}/{name}"]
+                if cli == "eval_syn":
+                    (k, v), = jax_base["samples"][f"{radius}/{name}"].items()
+                    if not abs(float(got[k]) - v) <= PARITY_TOL_DB:
+                        failures.append(f"{job} {name} {k} {got[k]} vs "
+                                        f"JAX {v:.5f}")
+                for col, w in want.items():
+                    kind = col if col in ("stoi", "pesq") else (
+                        col[:4] if col in ("stoi_in", "pesq_in") else "dB")
+                    if col == "n_tgt_speakers":
+                        if int(got[col]) != w:
+                            failures.append(f"{job} {name} {col}")
+                        continue
+                    err = abs(float(got[col]) - w)
+                    worst[kind] = max(worst[kind], err)
+                    tol = PARITY_TOL_DB if kind == "dB" else \
+                        EVAL_PERCEPTUAL_TOL
+                    if not err <= tol:
+                        failures.append(f"{job} {name} {col} {got[col]} vs "
+                                        f"JAX {w} (tol {tol})")
+            log(f"phase 27 {job}: {len(rows)} samples in {walls[job]:.1f} s "
+                f"wall (process start and kernel build included); {last}; "
+                f"worst |port - JAX| {worst['dB']:.2e} dB, STOI "
+                f"{worst['stoi']:.2e}, PESQ {worst['pesq']:.2e}")
+        if failures:
+            fail("eval CLIs: " + "; ".join(failures))
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
+def wrapper_chunk_ms(wrapper, n, rng):
+    """ms per ModelWrapper.feed, host clock, n chunks after 10."""
+    cfg = wrapper.cfg
+    wrapper.reset()
+    win = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_ch, cfg.n_fft)).astype(np.float32)).to(wrapper.device)
+    for _ in range(10):
+        wrapper.feed(win)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        wrapper.feed(win)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def cudnn_blstm(params, c, dev):
+    """torch.nn.LSTM(bidirectional) with row 5's weights (the library
+    yardstick; the port never calls it)."""
+    lstm = torch.nn.LSTM(c, ROW5_H, batch_first=True,
+                         bidirectional=True).to(dev)
+    with torch.no_grad():
+        for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(params[d]["w_ih"].T)
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(params[d]["w_hh"].T)
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(params[d]["b"])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lstm
+
+
+def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
+    """Row 5 at ROW5_SHAPES (CUDA events), its plain version, its bound,
+    cuDNN's bidirectional LSTM with the projection beside the port's
+    (projection + kernel); ms a chunk of ModelWrapper on row 5 and on the
+    slab kernels, in turns, and of streaming_inference_scan; the offline
+    forward a golden; the eval CLIs' seconds. Returns the kernel line's
+    numbers at the serving main path's shape."""
+    from sound_bubble_tpu_torch.evaluation import load_testcase, one_hot
+    from sound_bubble_tpu_torch.ops.stft import mod_pad
+    from sound_bubble_tpu_torch.runtime.streaming import (
+        ModelWrapper, streaming_inference_scan)
+
+    rows = {}
+    with torch.no_grad():
+        for name, (params, x) in cases.items():
+            r, t_len, c = x.shape
+            w_ih, w_hh, b = rk.pack_blstm_infer(params)
+            gx = rk._project(w_ih, b, x)
+            w_hh = w_hh.contiguous()
+            lstm = cudnn_blstm(params, c, dev)
+            lib_err = float((lstm(x)[0] - rk.blstm_infer(params, x))
+                            .abs().max())
+            for _ in range(10):
+                rk.blstm_recur(gx, w_hh)
+            kernel_ms = cuda_ms(lambda: rk.blstm_recur(gx, w_hh), 200)
+            rk.blstm_recur_ref(gx, w_hh)
+            plain_ms = cuda_ms(lambda: rk.blstm_recur_ref(gx, w_hh), 3)
+            fwd_ms = cuda_ms(lambda: rk.blstm_infer(params, x), 100)
+            lstm(x)
+            lib_ms = cuda_ms(lambda: lstm(x), 100)
+            bound_ms, bound_by = row5_bound_ms(t_len, r, ROW5_H)
+            rows[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms}
+            log(f"phase 28 row 5 {name} [R={r}, T={t_len}, C={c}] on "
+                f"{card}: kernel {kernel_ms:.4f} ms (200 launches), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+                f"port fwd (pack, projection, kernel) {fwd_ms:.4f} ms, "
+                f"cuDNN bidirectional LSTM {lib_ms:.4f} ms (max-abs "
+                f"{lib_err:.1e} from the port)")
+
+        rng = np.random.default_rng(SEED)
+        row5_w = ModelWrapper(net5, device=dev)
+        slab_w = ModelWrapper(slab_net, device=dev)
+        turns = [("row5", row5_w), ("slab", slab_w), ("slab", slab_w),
+                 ("row5", row5_w)]
+        chunk_ms = {"row5": [], "slab": []}
+        for name, wrap in turns:
+            chunk_ms[name].append(wrapper_chunk_ms(wrap, 100, rng))
+        cfg = net5.cfg
+        _, mixture, _, _, _ = load_testcase(
+            os.path.join(GOLDENS, "syn_1m", "00002"), 24000, 1.0)
+        xp, _ = mod_pad(torch.from_numpy(mixture)[None],
+                        cfg.stft_chunk_size, (0, cfg.stft_pad_size))
+        n_clip = (xp.shape[-1] - cfg.stft_pad_size) // cfg.stft_chunk_size
+        scan_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            streaming_inference_scan(net5, xp, cfg.stft_chunk_size,
+                                     cfg.stft_pad_size,
+                                     dis_embed=one_hot(1.0), device=dev)
+            torch.cuda.synchronize()
+            scan_ms.append((time.perf_counter() - t) / n_clip * 1e3)
+        xd = xp[..., :mixture.shape[-1]].to(dev)
+        offline_ms = {}
+        for name, net in (("row5", net5), ("slab", slab_net)):
+            inputs = {"mixture": xd, "dis_embed": torch.tensor(
+                one_hot(1.0), device=dev)}
+            net(inputs)
+            offline_ms[name] = cuda_ms(lambda: net(inputs), 10)
+    log(f"phase 28 serving on {card}: ModelWrapper.feed ms a chunk (host "
+        f"clock, 100 chunks, in turns) row 5 {np.round(chunk_ms['row5'], 4)}"
+        f", slab kernels {np.round(chunk_ms['slab'], 4)}; "
+        f"streaming_inference_scan (one CUDA graph of a chunk, {n_clip} "
+        f"replays, capture included) {np.round(scan_ms, 4)} ms a chunk; "
+        f"offline Net(pad=True) forward of a 2 s golden (CUDA events) row 5 "
+        f"{offline_ms['row5']:.3f} ms, slab {offline_ms['slab']:.3f} ms")
+    log(f"phase 28 eval CLIs on {card}: wall seconds a golden (3 a run, "
+        f"4 runs at once; process start, kernel build, STOI and PESQ on "
+        f"the host included) "
+        f"{ {k: round(v / 3, 2) for k, v in walls.items()} }")
+    return rows["serve1"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2620,6 +3036,20 @@ def main():
     # the Pallas body of each row, and its mixed branch
     seq_lines = {"lstm_seq_fwd": (61, 75), "lstm_seq_bwd": (173, 204),
                  "blstm_seq_fwd": (360, 374), "blstm_seq_bwd": (410, 443)}
+    # ---- 25. row 5, the fused inference BLSTM, vs its plain version
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+    cases5 = row5_cases(dev, {"flagship": net, "edge": edge_net})
+    row5_err = phase25_row5_kernel(rk, cases5)
+
+    # ---- 26. model-level serving on row 5 (the main path of row 5)
+    row5_n, _, net5 = phase26_row5_serving(dev, rk, streamer)
+
+    # ---- 27. the eval CLIs, offline, on row 5
+    walls = phase27_eval_clis()
+
+    # ---- 28. times
+    row5_times = phase28_times(dev, rk, cases5, net5, net, card, walls)
+
     seq_entries = [{
         "name": name + ("_mixed" if mixed else ""), "route": "cuda",
         "source": seq_src,
@@ -2664,7 +3094,12 @@ def main():
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:491",
         "launches": served["orangpi"][2],
         "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]},
-        *seq_entries]}), flush=True)
+        *seq_entries, {
+        "name": "blstm_infer", "route": "cuda",
+        "source": "sound_bubble_tpu_torch/csrc/lstm_infer.cu",
+        "replaces": "sound_bubble_tpu/ops/pallas/lstm_kernel.py:53",
+        "launches": row5_n, "max_abs_err": row5_err, **row5_times}]}),
+        flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

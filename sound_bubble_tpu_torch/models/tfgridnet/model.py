@@ -336,12 +336,15 @@ class IntraBand(nn.Module):
     PReLU -> LN -> BLSTM over k -> ConvTranspose1d up, zero-padded back to
     F rows (rows from k*s on get nothing, not even the bias).
     x: [B, T, F, C] -> [B, T, F, C] (residual added by the caller).
-    `scan`: the BLSTM's kernel route (`ops.rnn.blstm`)."""
+    `scan`: the BLSTM's kernel route (`ops.rnn.blstm`); `pallas_blstm`: the
+    fused inference BLSTM (row 5) instead, unless a call says otherwise."""
 
-    def __init__(self, cfg: NetConfig, scan: str = "slab"):
+    def __init__(self, cfg: NetConfig, scan: str = "slab",
+                 pallas_blstm: bool = False):
         super().__init__()
         C, H = cfg.D, cfg.H
         self.scan = scan
+        self.pallas_blstm = pallas_blstm
         self.conv_lstm, self.s = cfg.conv_lstm, cfg.lstm_down
         if cfg.conv_lstm:
             # Conv1d(C, C, kernel=s, stride=s) as a Linear over s*C; the JAX
@@ -368,18 +371,21 @@ class IntraBand(nn.Module):
             C = self.up_bias.shape[0]
             _init_uniform(generator, C * self.s, self.up_kernel, self.up_bias)
 
-    def forward(self, x):
+    def forward(self, x, pallas_blstm=None):
         B, T, F, C = x.shape
+        fused = self.pallas_blstm if pallas_blstm is None else pallas_blstm
         if not self.conv_lstm:
             z = self.norm(x).reshape(B * T, F, C)
-            z = self.proj(blstm(self.blstm, z, scan=self.scan))
+            z = self.proj(blstm(self.blstm, z, scan=self.scan,
+                                pallas_blstm=fused))
             return z.reshape(B, T, F, C)
         s = self.s
         k = F // s
         # non-overlapping stride-s framing of the first k*s rows
         z = x.reshape(B * T, F, C)[:, :k * s].reshape(B * T, k, s * C)
         z = self.norm(self.act(self.down(z)))
-        z = blstm(self.blstm, z, scan=self.scan)          # [BT, k, 2H]
+        z = blstm(self.blstm, z, scan=self.scan,
+                  pallas_blstm=fused)                     # [BT, k, 2H]
         dt = torch.promote_types(z.dtype, self.up_kernel.dtype)
         z = torch.einsum("btH,Hsc->btsc", z.to(dt),
                          self.up_kernel.to(dt)) + self.up_bias
@@ -450,13 +456,15 @@ def local_attention(q, k_full, v_full, window):
 class GridNetBlock(nn.Module):
     """One TF-GridNet block: intra-frequency BLSTM + stateful inter-time
     LSTM + (use_attn) local causal attention over the past W frames. `scan`:
-    the kernel route of both LSTMs (`ops.rnn`)."""
+    the kernel route of both LSTMs (`ops.rnn`); `pallas_blstm`: the intra
+    BLSTM's (`IntraBand`)."""
 
-    def __init__(self, cfg: NetConfig, scan: str = "slab"):
+    def __init__(self, cfg: NetConfig, scan: str = "slab",
+                 pallas_blstm: bool = False):
         super().__init__()
         C = cfg.D
         self.scan = scan
-        self.intra = IntraBand(cfg, scan)
+        self.intra = IntraBand(cfg, scan, pallas_blstm)
         self.inter_norm = LayerNorm(C, eps=cfg.eps)
         self.inter_lstm = _lstm_params(C, cfg.H)
         self.inter_proj = Linear(cfg.H, C)
@@ -491,8 +499,8 @@ class GridNetBlock(nn.Module):
         o = self.attn_out_norm(o.reshape(B, T, F * C)).reshape(B, T, F, C)
         return (x + o, k_full[:, :, -(W - 1):], v_full[:, :, -(W - 1):])
 
-    def forward(self, x, state):
-        x = x + self.intra(x)
+    def forward(self, x, state, pallas_blstm=None):
+        x = x + self.intra(x, pallas_blstm)
         z = self.inter_norm(x).transpose(1, 2)            # [B, F, T, C]
         z, (hT, cT) = lstm(self.inter_lstm, z, state["h0"], state["c0"],
                            scan=self.scan)
@@ -506,25 +514,32 @@ class GridNetBlock(nn.Module):
 class Net(nn.Module):
     """Reference `Net` wrapper: mod-pad + TFGridNet core.
 
-    forward(inputs, input_state=None, pad=True) -> {'output', 'next_state'}
-    with inputs = {'mixture': [B, M, N], 'dis_embed': [B, 3]} (dis_embed
-    ignored when cfg.conditional is False). `lstm_scan`: the kernel route
-    of every LSTM scan ("slab" or "seq", `ops.rnn`), handed to each block."""
+    forward(inputs, input_state=None, pad=True, pallas_blstm=None) ->
+    {'output', 'next_state'} with inputs = {'mixture': [B, M, N],
+    'dis_embed': [B, 3]} (dis_embed ignored when cfg.conditional is False).
+    `lstm_scan`: the kernel route of every LSTM scan ("slab" or "seq",
+    `ops.rnn`), handed to each block. `pallas_blstm`: every intra BLSTM on
+    the fused inference kernel (row 5; inference only, float32), the JAX
+    package's `SB_PALLAS_BLSTM=1`; a forward's `pallas_blstm` other than
+    None overrides it for that call."""
 
-    def __init__(self, cfg: NetConfig, lstm_scan: str = "slab"):
+    def __init__(self, cfg: NetConfig, lstm_scan: str = "slab",
+                 pallas_blstm: bool = False):
         super().__init__()
         check_supported(cfg)
         if lstm_scan not in SCANS:
             raise ValueError(f"lstm_scan={lstm_scan!r}: one of {SCANS}")
         self.cfg = cfg
         self.lstm_scan = lstm_scan
+        self.pallas_blstm = pallas_blstm
         if cfg.conditional:
             self.dis_embed = DisEmbed(cfg)
         self.conv = CausalConv2d(cfg.conv_in, cfg.D)
         if cfg.use_first_ln:
             self.first_ln = LayerNorm(cfg.D)
         for i in range(cfg.B):
-            self.add_module(f"block{i}", GridNetBlock(cfg, lstm_scan))
+            self.add_module(f"block{i}",
+                            GridNetBlock(cfg, lstm_scan, pallas_blstm))
             if i > 0 and cfg.conditional:
                 self.add_module(f"film{i - 1}",
                                 FiLM(cfg.embed_width, cfg.D))
@@ -560,7 +575,7 @@ class Net(nn.Module):
         """bf16 under `compute_dtype="bf16"`, else `dtype` (the input's)."""
         return torch.bfloat16 if self.cfg.compute_dtype == "bf16" else dtype
 
-    def forward(self, inputs, input_state=None, pad=True):
+    def forward(self, inputs, input_state=None, pad=True, pallas_blstm=None):
         cfg = self.cfg
         x = inputs["mixture"]
         if input_state is None:
@@ -575,7 +590,8 @@ class Net(nn.Module):
         if cfg.conditional:
             emb = self.dis_embed(inputs["dis_embed"]).to(
                 self.trunk_dtype(x.dtype))
-        y, next_state = self.core(x, emb, input_state)
+        fused = self.pallas_blstm if pallas_blstm is None else pallas_blstm
+        y, next_state = self.core(x, emb, input_state, fused)
         if mod:
             y = y[..., :-mod]
         return {"output": y, "next_state": next_state}
@@ -638,25 +654,31 @@ class Net(nn.Module):
         frames = frames + TF.pad(prev_tail, (0, frames.shape[-1] - la))
         return frames[..., :chunk].reshape(B, S, Tp * chunk)
 
-    def core(self, x, emb, state):
+    def core(self, x, emb, state, pallas_blstm=None):
         next_state = dict(state)
         h, spec = self.encode(x, state, next_state)
         bufs = {}
         for i, block in enumerate(self.blocks()):
             if i > 0 and emb is not None:
                 h = self.films()[i - 1](h, emb)
-            h, bufs[f"buf{i}"] = block(h, state["gridnet_bufs"][f"buf{i}"])
+            h, bufs[f"buf{i}"] = block(h, state["gridnet_bufs"][f"buf{i}"],
+                                       pallas_blstm)
         next_state["gridnet_bufs"] = bufs
         return self.decode(h, spec, state, next_state), next_state
 
 
-def net_from_params(lstm_scan: str = "slab", **model_params) -> Net:
+def net_from_params(lstm_scan: str = "slab", pallas_blstm: bool = False,
+                    **model_params) -> Net:
     """Config-system entry point: the distance-conditioned production model
-    (JAX `net_from_params`), its scans on the route `lstm_scan`. Its weights
-    are zeros until `init_weights` or `load_state_dict`."""
-    return Net(make_config(model_params, conditional=True), lstm_scan)
+    (JAX `net_from_params`), its scans on the route `lstm_scan`, its intra
+    BLSTMs on row 5 when `pallas_blstm`. Its weights are zeros until
+    `init_weights` or `load_state_dict`."""
+    return Net(make_config(model_params, conditional=True), lstm_scan,
+               pallas_blstm)
 
 
-def net_optim_from_params(lstm_scan: str = "slab", **model_params) -> Net:
+def net_optim_from_params(lstm_scan: str = "slab", pallas_blstm: bool = False,
+                          **model_params) -> Net:
     """Config-system entry point: the unconditioned edge variant."""
-    return Net(make_config(model_params, conditional=False), lstm_scan)
+    return Net(make_config(model_params, conditional=False), lstm_scan,
+               pallas_blstm)

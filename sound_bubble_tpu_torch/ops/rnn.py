@@ -20,6 +20,13 @@ CPU their plain PyTorch versions. T == 1 of `lstm` (the streaming step) is a
 single `_cell` on either route. `scan_from_env` gives the training CLIs'
 default route from the JAX package's environment switches.
 
+`blstm(..., pallas_blstm=True)` (the JAX package's `SB_PALLAS_BLSTM=1` /
+`set_pallas_blstm` branch, an argument here and never a module global)
+sends every 3-D input, whatever its size, to the fused inference BLSTM of
+`ops/kernels/lstm_kernel.py` (row 5's kernel): float32 only, no gradients.
+JAX's 8 MB VMEM gate does not carry over (see that module).
+`pallas_blstm_from_env` reads the switch from the environment.
+
 Mixed precision (the JAX package's rule): when the weights or the
 activations are bfloat16 the (h, c) carry is float32, the recurrence matmul
 takes bf16(h) with float32 accumulation, and the gates are rounded to bf16
@@ -39,6 +46,7 @@ import os
 
 import torch
 
+from sound_bubble_tpu_torch.ops.kernels.lstm_kernel import blstm_infer
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
     act, lstm_slab, tanh_q)
 from sound_bubble_tpu_torch.ops.kernels.lstm_train_kernel import (
@@ -56,6 +64,13 @@ def scan_from_env(env=None) -> str:
            and env.get("SB_LSTM_CUSTOM_VJP", "0") == "1"
            and env.get("SB_LSTM_PALLAS_TRAIN", "0") == "1")
     return "seq" if seq else "slab"
+
+
+def pallas_blstm_from_env(env=None) -> bool:
+    """The JAX package's opt-in fused inference BLSTM switch:
+    SB_PALLAS_BLSTM=1."""
+    env = os.environ if env is None else env
+    return env.get("SB_PALLAS_BLSTM", "0") == "1"
 
 
 def _check_scan(scan):
@@ -136,9 +151,13 @@ def lstm(params, x, h0=None, c0=None, reverse: bool = False,
                cT.reshape(lead + (hidden,)).to(state_dtype))
 
 
-def blstm(params, x, bf16_gates: bool = True, scan: str = "slab"):
-    """Bidirectional LSTM over axis -2; concat outputs -> [..., T, 2H]."""
+def blstm(params, x, bf16_gates: bool = True, scan: str = "slab",
+          pallas_blstm: bool = False):
+    """Bidirectional LSTM over axis -2; concat outputs -> [..., T, 2H].
+    `pallas_blstm` with a 3-D x: the fused inference kernel (row 5)."""
     _check_scan(scan)
+    if pallas_blstm and x.dim() == 3:
+        return blstm_infer(params, x)
     if scan == "slab":
         yf, _ = lstm(params["fwd"], x, bf16_gates=bf16_gates, scan=scan)
         yb, _ = lstm(params["bwd"], x, reverse=True, bf16_gates=bf16_gates,

@@ -37,10 +37,12 @@ class PLModule:
                  use_dp=True,               # one device: accepted, unused
                  val_log_interval=10,       # unused, kept for config parity
                  samples_per_speaker_number=3,   # audio logging: not ported
-                 device="cuda", lstm_scan="slab"):
+                 device="cuda", lstm_scan="slab", pallas_blstm=False):
         self.device = resolve_device(device)
-        # the LSTM scans' kernel route ("slab" or "seq", ops/rnn.py)
-        self.net = import_attr(model)(**model_params, lstm_scan=lstm_scan)
+        # the LSTM scans' kernel route ("slab" or "seq", ops/rnn.py); the
+        # fused inference BLSTM (row 5) for the eval CLIs' forward
+        self.net = import_attr(model)(**model_params, lstm_scan=lstm_scan,
+                                      pallas_blstm=pallas_blstm)
         self.sr = sr
         self.metrics = [Metrics(m) for m in metrics]
         self.metric_values = {}
@@ -243,6 +245,10 @@ class PLModule:
         self.log_metric(f"{step}/loss", loss_f, batch_size=batch_size,
                         on_step=(step == "train"), on_epoch=True)
         for metric in self.metrics:
+            # the host-side perceptual metrics are validation-only, as in
+            # the JAX package
+            if step == "train" and metric.name in ("PESQ", "STOI"):
+                continue
             vals = np.asarray(metric(est=est_np, gt=gt, mix=mix))
             for i in range(batch_size):
                 if n_speakers[i] > 0:

@@ -37,7 +37,7 @@ from sound_bubble_tpu_torch.ops.rnn import SCANS, scan_from_env
 from sound_bubble_tpu_torch.train.logging import init_run
 from sound_bubble_tpu_torch.train.loop import test_epoch, train_epoch
 from sound_bubble_tpu_torch.utils import (
-    import_attr, read_json, resolve_device, seed_all)
+    import_attr, no_tf32, read_json, resolve_device, seed_all)
 
 VAL_SEED = 0
 ARGS_FILE = "train_pt_args.json"
@@ -64,8 +64,7 @@ def check_route(args: argparse.Namespace):
 def train(args: argparse.Namespace):
     """Run the epochs the config asks for; returns the PLModule."""
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     if not args.use_nondeterministic_cudnn:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False

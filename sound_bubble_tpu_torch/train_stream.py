@@ -43,7 +43,7 @@ from sound_bubble_tpu_torch.datagen import campaign
 from sound_bubble_tpu_torch.ops.rnn import SCANS, scan_from_env
 from sound_bubble_tpu_torch.train.optim import ReduceLROnPlateau
 from sound_bubble_tpu_torch.utils import (
-    cast_bf16, import_attr, read_json, resolve_device)
+    cast_bf16, import_attr, no_tf32, read_json, resolve_device)
 
 VAL_SEED = 500
 
@@ -156,8 +156,7 @@ def _recipe(args) -> dict:
 def main(args: argparse.Namespace):
     """Run the campaign; returns the PLModule."""
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     cfg = read_json(args.config)
     run_dir = Path(args.run_dir)
     (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)

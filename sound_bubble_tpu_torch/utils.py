@@ -1,5 +1,5 @@
-"""Config plumbing, devices, seeding, JSON, WAV reading and the run-dir
-loader (port of `sound_bubble_tpu/utils.py`).
+"""Config plumbing, devices, seeding, JSON, WAV reading and writing and the
+run-dir loaders (port of `sound_bubble_tpu/utils.py`).
 
 The reference JSON configs name classes by dotted path: the JAX package's
 (`sound_bubble_tpu.train.module.PLModule`), the reference's own (`src.*`)
@@ -8,6 +8,8 @@ is ported to the port's class through `ALIASES`, and raises for the others:
 it never imports the JAX package. A run dir holds `config.json` (its
 `pl_module_args.model_params` is the model configuration) and
 `checkpoints/best.pt` (a pickled numpy tree, see `train/checkpoint.py`).
+`load_pretrained` gives the run's `Net`; `load_torch_pretrained` the run's
+`PLModule` (its `.model` is what the eval CLIs call), as the JAX package's.
 """
 from __future__ import annotations
 
@@ -121,11 +123,39 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def no_tf32():
+    """Full float32 products on the card, as the JAX package computes fp32:
+    PyTorch's default lets cuDNN run float32 convolutions in TF32 (three
+    decimal digits). The CLIs call it at start."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def to_tensor(a, device) -> torch.Tensor:
     """float32 tensor on `device` from a tensor or an array-like."""
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.asarray(a, np.float32))
     return a.to(device=device, dtype=torch.float32)
+
+
+class Params:
+    """JSON config with attribute access (reference `Params`)."""
+
+    def __init__(self, json_path):
+        with open(json_path) as f:
+            self.__dict__.update(json.load(f))
+
+    def save(self, json_path):
+        with open(json_path, "w") as f:
+            json.dump(self.__dict__, f, indent=4)
+
+    def update(self, json_path):
+        with open(json_path) as f:
+            self.__dict__.update(json.load(f))
+
+    @property
+    def dict(self):
+        return self.__dict__
 
 
 def read_json(path):
@@ -144,6 +174,64 @@ def read_audio_file(file_path, sr):
     if sr is not None and orig != sr:
         data = resample_poly_np(data, sr, orig)
     return data
+
+
+def write_audio_file(file_path, data, sr, subtype="PCM_16"):
+    """Write [C, T] (or [T]) float audio as a wav (PCM_16 or FLOAT)."""
+    from sound_bubble_tpu_torch.data.audio_io import write_audio_file as _w
+
+    _w(file_path, data, sr, subtype)
+
+
+def save_audio_file(file_path, wavform, sample_rate=48000, rescale=True):
+    """Reference `save_audio_file_torch`: peak-normalize to 0.9 (when
+    `rescale`), then write."""
+    if isinstance(wavform, torch.Tensor):
+        wavform = wavform.detach().cpu().numpy()
+    wavform = np.asarray(wavform)
+    if rescale:
+        wavform = wavform / np.max(wavform) * 0.9
+    write_audio_file(file_path, wavform, sample_rate)
+
+
+def load_net(experiment_config, return_params: bool = False, **module_args):
+    """The PLModule a config describes, with no checkpoint (its
+    `init_ckpt` ignored). `module_args` go to the PLModule (`device`,
+    `lstm_scan`, `pallas_blstm`)."""
+    params = Params(experiment_config)
+    params.pl_module_args["init_ckpt"] = None
+    pl_module = import_attr(params.pl_module)(**params.pl_module_args,
+                                              **module_args)
+    if return_params:
+        return pl_module, read_json(experiment_config)
+    return pl_module
+
+
+def load_torch_pretrained(run_dir, return_params: bool = False,
+                          **module_args):
+    """run_dir/config.json + checkpoints/best.pt -> the run's PLModule
+    (reference `load_torch_pretrained`) with the checkpoint's weights and
+    epoch; `module_args` as `load_net`'s, the device "cuda" unless they say
+    otherwise. The optimizer state stays fresh: a JAX package's checkpoint
+    holds optax's, which the port's optimizers do not read, and evaluation
+    needs none."""
+    from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+    from sound_bubble_tpu_torch.weights import from_jax_params
+
+    config_path = os.path.join(run_dir, "config.json")
+    ckpt_path = os.path.join(run_dir, "checkpoints", "best.pt")
+    if not os.path.exists(ckpt_path):
+        raise FileNotFoundError(
+            f"Given run ({run_dir}) doesn't have any pretrained checkpoints!")
+    pl_module, params = load_net(config_path, return_params=True,
+                                 **module_args)
+    state = load_checkpoint(ckpt_path)
+    pl_module.net.load_state_dict(from_jax_params(state["model"]))
+    pl_module.epoch = state.get("current_epoch", 0)
+    print("Loaded module at epoch", pl_module.epoch)
+    if return_params:
+        return pl_module, params
+    return pl_module
 
 
 def load_pretrained(run_dir, device="cuda"):

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
-the attention step), the slab LSTM scans (forward and backward), and the
+the attention step), the slab LSTM scans (forward and backward), the
 custom-VJP route's recurrences (rows 6-9: one direction and both
-directions, forward and backward, and the two autograd Functions).
+directions, forward and backward, and the two autograd Functions), and the
+fused inference BLSTM (row 5) with `streaming_inference_scan`'s CUDA graph.
 
 Marked `gpu`: each test decides inside itself whether a card is present and
 skips here with a reason. This file imports neither JAX nor the JAX package,
@@ -27,7 +28,9 @@ recurrences (rows 6-9) and their Functions are held to 1e-4 (fp32) and 1e-2
 versions' at all but 5% of the elements, a bar that the slab's rounding
 of the sigmoid fails (see chip_smoke.py's SEQ_MIXED_SHARE). The Functions'
 bf16 gradients are not held to it: each rounds a sum of T*R products, and
-a walk's rare one-ulp differences move 6-8% of them by one ulp."""
+a walk's rare one-ulp differences move 6-8% of them by one ulp. Row 5 is
+held to 1e-5 max-abs (fp32, another summation order over H terms a
+direction), a whole streamed net to 1e-4."""
 from pathlib import Path
 
 import numpy as np
@@ -675,3 +678,94 @@ def test_seq_kernels_reject_bad_operands():
     with pytest.raises(ValueError, match="not contiguous"):
         lk.blstm_seq_bwd(pack[2], gates, c, a["dy2"].transpose(0, 1)
                          .contiguous().transpose(0, 1), torch.float32)
+
+
+# ---- row 5: the fused inference BLSTM (ops/kernels/lstm_kernel.py)
+
+# (R, T, C) at H = 64: serving one stream at the flagship's width (F = 145,
+# C = 32) and four streams, one stream at the conv_lstm width (k = 29
+# frames, C = 24), and the offline shape of a 2 s clip (250 frames)
+ROW5_SHAPES = {"serve1": (1, 145, 32), "serve4": (4, 145, 32),
+               "conv1": (1, 29, 24), "offline": (250, 145, 32)}
+ROW5_TOL = 1e-5
+
+
+def _row5_case(shape, dev, h=64, seed=0):
+    r, t_len, c = shape
+    rng = np.random.default_rng(seed)
+    bound = 1 / np.sqrt(h)
+
+    def u(*s):
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, s).astype(np.float32)).to(dev)
+
+    params = {d: {"w_ih": u(c, 4 * h), "w_hh": u(h, 4 * h), "b": 2 * u(4 * h)}
+              for d in ("fwd", "bwd")}
+    x = torch.from_numpy(rng.standard_normal((r, t_len, c))
+                         .astype(np.float32)).to(dev)
+    return params, x
+
+
+@pytest.mark.parametrize("shape", list(ROW5_SHAPES))
+def test_blstm_infer_kernel_matches_plain(shape):
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+
+    dev = _card()
+    params, x = _row5_case(ROW5_SHAPES[shape], dev)
+    before = rk.blstm_infer.launches
+    with torch.no_grad():
+        got = rk.blstm_infer(params, x)
+        want = rk.blstm_infer_ref(params, x)
+    torch.cuda.synchronize()
+    assert rk.blstm_infer.launches == before + 1
+    assert got.shape == want.shape == x.shape[:2] + (128,)
+    assert float((got - want).abs().max()) <= ROW5_TOL
+
+
+def test_blstm_infer_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """An unbuilt width raises on the card and never runs the plain
+    version; so do bf16 and a call under grad."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+
+    dev = _card()
+    monkeypatch.setattr(rk, "blstm_recur_ref", None)   # must not be called
+    params, x = _row5_case((2, 9, 8), dev, h=8)
+    with torch.no_grad(), pytest.raises(ValueError, match="H=8"):
+        rk.blstm_infer(params, x)
+    params, x = _row5_case((2, 9, 8), dev)
+    with pytest.raises(NotImplementedError):
+        rk.blstm_infer(params, x.bfloat16())
+    with pytest.raises(RuntimeError, match="no backward"):
+        rk.blstm_infer(params, x.requires_grad_())
+
+
+@pytest.mark.parametrize("dir_fuse", [True, False])
+def test_streaming_scan_graph_matches_loop(dir_fuse):
+    """streaming_inference_scan's CUDA graph against the chunk loop on a
+    seeded net at the kernel's serving width (H = 64; D = 8, B = 2): the
+    row-5 route (dir_fuse) and the slab route. The launch counters read as
+    if the graph's launches ran eagerly: B a chunk, plus the warm-up's."""
+    from sound_bubble_tpu_torch.models.tfgridnet.model import make_config
+    from sound_bubble_tpu_torch.ops import kernels
+    from sound_bubble_tpu_torch.runtime.streaming import (
+        ModelWrapper, streaming_inference, streaming_inference_scan)
+
+    dev = _card()
+    cfg = make_config(dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=64,
+                           B=2))
+    net = Net(cfg, pallas_blstm=dir_fuse).init_weights(
+        torch.Generator().manual_seed(0)).to(dev)
+    n = 12
+    x = np.random.default_rng(1).standard_normal(
+        (1, cfg.num_ch, 16 + 32 * n)).astype(np.float32)
+    want = streaming_inference(ModelWrapper(net, device=dev), x, 32, 16)
+    key = ("blstm_infer.launches" if dir_fuse else
+           "lstm_slab_fwd.launches")
+    before = kernels.launch_counts()[key]
+    got = streaming_inference_scan(net, x, 32, 16, dir_fuse=dir_fuse,
+                                   device=dev)
+    torch.cuda.synchronize()
+    per_chunk = cfg.B * (1 if dir_fuse else 2)
+    assert kernels.launch_counts()[key] - before == per_chunk * (n + 1)
+    assert got.shape == want.shape == (1, 1, 32 * n)
+    assert float((got - want).abs().max()) <= TOL

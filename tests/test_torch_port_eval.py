@@ -53,7 +53,7 @@ def test_decay_matches_jax(rng):
 
 def test_unported_metric_raises():
     with pytest.raises(NotImplementedError):
-        tm.Metrics("PESQ")
+        tm.Metrics("Hubert")
 
 
 def _write_sample(path, rng, n, dists):
@@ -151,7 +151,7 @@ def test_cli_main_runs_on_cpu(small_run, capsys):
     *_, run, tests = small_run
     cli.main(cli.argparse.Namespace(
         test_dir=str(tests), run_dir=str(run), distance_threshold=1.0,
-        sr=24000, device="cpu"))
+        sr=24000, save_id=-1, device="cpu"))
     out = capsys.readouterr().out
     assert "SISDRi:" in out and "DECAY = " in out
 

@@ -53,6 +53,10 @@ def test_port_sources_exist():
     assert (PORT / "csrc" / "stack_step.cu").exists()
     assert (PORT / "csrc" / "lstm_slab.cu").exists()
     assert (PORT / "csrc" / "lstm_seq.cu").exists()
+    assert (PORT / "csrc" / "lstm_infer.cu").exists()
+    assert "sound_bubble_tpu_torch/ops/kernels/lstm_kernel.py" in names
+    assert "sound_bubble_tpu_torch/eval_syn.py" in names
+    assert "sound_bubble_tpu_torch/eval.py" in names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -127,17 +131,32 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["FusedStreamer", "ModelWrapper",
-                                   "load_pretrained"])
-def test_default_device_without_card_raises(entry, no_card):
+@pytest.mark.parametrize("entry", [
+    "FusedStreamer", "ModelWrapper", "load_pretrained",
+    "streaming_inference_scan", "load_torch_pretrained", "eval_syn"])
+def test_default_device_without_card_raises(entry, no_card, tmp_path):
+    from sound_bubble_tpu_torch import eval_syn
+    from sound_bubble_tpu_torch.runtime.streaming import (
+        streaming_inference_scan)
+    from sound_bubble_tpu_torch.utils import load_torch_pretrained
+
     net = Net(NetConfig(conv_lstm=False, B=2, D=8, H=8))
+    run_dir = str(REPO / "runs" / "finetune_r5")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "FusedStreamer":
             FusedStreamer(net)
         elif entry == "ModelWrapper":
             ModelWrapper(net)
+        elif entry == "streaming_inference_scan":
+            streaming_inference_scan(net, np.zeros((1, 6, 400)), 128, 64)
+        elif entry == "load_torch_pretrained":
+            load_torch_pretrained(run_dir)
+        elif entry == "eval_syn":
+            eval_syn.main(eval_syn.parser().parse_args([
+                str(REPO / "test_samples" / "syn_1m"), run_dir,
+                str(tmp_path / "out")]))
         else:
-            load_pretrained(str(REPO / "runs" / "finetune_r5"))
+            load_pretrained(run_dir)
 
 
 def test_trainer_default_device_without_card_raises(no_card):
