@@ -25,7 +25,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    path's shapes (intra [145, 1252, 32] both directions, inter
    [313, 580, 32]), the edge training path's (intra [29, 1252, 24] both
    directions, inter [313, 580, 24]; the Raspberry Pi intra
-   [29, 1252, 16]) and a ragged one ([13, 37, 32]);
+   [29, 1252, 16]) and a ragged one ([13, 37, 32]); the backward launched
+   twice on the same inputs, bit-equal;
 7. training: seeded sample dirs, then `sound_bubble_tpu_torch.train_pt` on
    `syn_experiments/pretrain_stage.json` (dataset paths, epochs and
    num_workers changed) for 2 epochs and a resumed third; the slab launches
@@ -33,7 +34,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    step from the flagship checkpoint against the JAX package's numbers
    (`runs/train_step_golden_jax.json`);
 8. times of the slab kernels, their plain versions, cuDNN's LSTM as the
-   library yardstick, and ms per train step;
+   library yardstick, `torch.profiler`'s split of one backward call among
+   its kernels, and ms per train step;
 9. conv kernel vs plain: `gridnet_stack_step` on conv_lstm packs (the
    `stack_step_kernel_t<true>`) against `gridnet_stack_step_ref`, 5 chained
    steps, at the Orange Pi width with the committed seeded weights
@@ -58,7 +60,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    shapes (batch 8 x 2.5 s: intra [145, 2504, 32] both directions, inter
    [313, 1160, 32]), the edge's (intra [29, 2504, 24], inter
    [313, 1160, 24]) and a ragged T, with (x, weights) in (bf16, bf16) and
-   (bf16, fp32); their times, bounds and cuDNN's bf16 LSTM;
+   (bf16, fp32), the backward twice, bit-equal; their times, bounds,
+   cuDNN's bf16 LSTM and the profiler's split of one backward call;
 14. one bf16 flagship step as `train_stream` takes it (`cast_bf16`, the
    bf16 trunk) from `runs/finetune_r5/checkpoints/best.pt` on phase 7's
    batch: the kernel path against the plain path and against the JAX
@@ -440,7 +443,9 @@ def phase6_slab(dev, ls):
             want = ls.lstm_slab_fwd_ref(*slab_args(a, ls, reverse))
             errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
             got_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
+            again_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
             torch.cuda.synchronize()
+            same = all(torch.equal(g, h) for g, h in zip(got_b, again_b))
             want_b = ls.lstm_slab_bwd_ref(*slab_args(a, ls, reverse, want))
             abs_b = [float((g - w).abs().max()) for g, w in zip(got_b, want_b)]
             rel_b = [e / float(w.abs().max()) for e, w in zip(abs_b, want_b)]
@@ -449,13 +454,16 @@ def phase6_slab(dev, ls):
         log(f"  {name} [T={t_len}, R={r}, C={c}], H={SLAB_H}: forward "
             f"max-abs (ys, hT, cT, c_ckpt) {['%.2e' % e for e in errs]}; "
             f"backward max-abs / peak (dx, dw_ih, dw_hh, db, dh0, dc0) "
-            f"{['%.2e' % e for e in rel_b]}; launches {launched}")
+            f"{['%.2e' % e for e in rel_b]}; two backward launches "
+            f"bit-equal: {same}; launches {launched}")
+        if not same:
+            fail(f"two slab backward launches differ at {name}")
         if not max(errs) <= SLAB_FWD_TOL:
             fail(f"slab forward kernel disagrees at {name}: {errs}")
         if not max(rel_b) <= SLAB_BWD_REL_TOL:
             fail(f"slab backward kernel disagrees at {name}: {rel_b}")
-        if launched != (1, 1):
-            fail(f"slab kernel launches grew by {launched}, expected (1, 1)")
+        if launched != (1, 2):
+            fail(f"slab kernel launches grew by {launched}, expected (1, 2)")
         fwd_err, bwd_err = max(fwd_err, *errs), max(bwd_err, *abs_b)
     log(f"phase 6 slab kernels vs plain: forward max-abs {fwd_err:.3e} "
         f"(tol {SLAB_FWD_TOL}), backward max-abs {bwd_err:.3e} (each output "
@@ -720,6 +728,8 @@ def cudnn_lstm_ms(dev, a, n, dtype=torch.float32, bidirectional=False):
 
 def phase8_times(dev, ls, mod, batch):
     """Per-launch times at the two training shapes; ms per train step."""
+    from tools.time_stack_kernels import profile_split
+
     rows = {}
     shapes = {name: rest for name, *rest in SLAB_SHAPES}
     for name, _ in SLAB_MIX:
@@ -734,6 +744,7 @@ def phase8_times(dev, ls, mod, batch):
             fwd_plain = cuda_ms(lambda: ls.lstm_slab_fwd_ref(
                 *slab_args(a, ls, reverse)), 2)
             bwd_plain = cuda_ms(lambda: ls.lstm_slab_bwd_ref(*bargs), 2)
+            split = profile_split(lambda: ls.lstm_slab_bwd(*bargs))
         lib_fwd, lib_bwd = cudnn_lstm_ms(dev, a, 10)
         (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, c, SLAB_H, "fwd")
         (bb, bby), bf, bbytes = slab_bound_ms(t_len, r, c, SLAB_H, "bwd")
@@ -743,7 +754,8 @@ def phase8_times(dev, ls, mod, batch):
             f"{fwd_plain:.2f}, cuDNN LSTM fwd {lib_fwd:.4f}, bound {fb:.6f} "
             f"{fby}: {ff} FLOP, {fbytes} B); bwd {bwd_ms:.4f} ms (plain "
             f"{bwd_plain:.2f}, cuDNN LSTM bwd {lib_bwd:.4f}, bound {bb:.6f} "
-            f"{bby}: {bf} FLOP, {bbytes} B)")
+            f"{bby}: {bf} FLOP, {bbytes} B); torch.profiler split of one "
+            f"backward call, device us: {split}")
 
     # ms per train step: PLModule.train_step on the golden batch, host clock
     step_ms, peak_gb = train_step_ms(mod, batch, dev)
@@ -828,7 +840,9 @@ def phase13_mixed_slab(dev, ls):
                 want = ls.lstm_slab_fwd_ref(*slab_args(a, ls, reverse))
                 f_errs = rel_errs(got, want)
                 got_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
+                again_b = ls.lstm_slab_bwd(*slab_args(a, ls, reverse, want))
                 torch.cuda.synchronize()
+                same = all(torch.equal(g, h) for g, h in zip(got_b, again_b))
                 want_b = ls.lstm_slab_bwd_ref(*slab_args(a, ls, reverse,
                                                          want))
                 b_errs = rel_errs(got_b, want_b)
@@ -838,8 +852,12 @@ def phase13_mixed_slab(dev, ls):
                 f"weights {wname}: forward max-abs / peak (ys, hT, cT, "
                 f"c_ckpt) {['%.2e' % e[1] for e in f_errs]}; backward "
                 f"(dx, dw_ih, dw_hh, db, dh0, dc0) "
-                f"{['%.2e' % e[1] for e in b_errs]}; launches fp32 "
-                f"{grew[:2]}, mixed {grew[2:]}")
+                f"{['%.2e' % e[1] for e in b_errs]}; two backward launches "
+                f"bit-equal: {same}; launches fp32 {grew[:2]}, mixed "
+                f"{grew[2:]}")
+            if not same:
+                fail(f"two mixed slab backward launches differ at {name} "
+                     f"({wname} weights)")
             if (got[0].dtype, got_b[0].dtype) != (torch.bfloat16,) * 2:
                 fail(f"mixed slab kernels at {name}: ys {got[0].dtype}, dx "
                      f"{got_b[0].dtype}, expected bfloat16")
@@ -856,9 +874,9 @@ def phase13_mixed_slab(dev, ls):
             if not max(e[1] for e in b_errs) <= MIXED_REL_TOL:
                 fail(f"mixed slab backward kernel disagrees at {name} "
                      f"({wname} weights): {b_errs}")
-            if grew != (0, 0, 1, 1):
+            if grew != (0, 0, 1, 2):
                 fail(f"slab launches grew by {grew}, expected fp32 (0, 0) "
-                     f"and mixed (1, 1)")
+                     f"and mixed (1, 2)")
             fwd_err = max(fwd_err, *(e[0] for e in f_errs))
             bwd_err = max(bwd_err, *(e[0] for e in b_errs))
     log(f"phase 13 mixed slab kernels vs plain: forward max-abs {fwd_err:.3e}"
@@ -874,6 +892,8 @@ def mixed_slab_times(dev, ls, card):
     bound, their plain versions and cuDNN's bf16 LSTM. Returns the means over
     a step's 12 intra : 6 inter launches, for the kernels line, and the
     per-shape rows."""
+    from tools.time_stack_kernels import profile_split
+
     rows = {}
     shapes = {name: rest for name, *rest in MIXED_SHAPES}
     for name, _ in SLAB_MIX:
@@ -888,6 +908,7 @@ def mixed_slab_times(dev, ls, card):
             fwd_plain = cuda_ms(lambda: ls.lstm_slab_fwd_ref(
                 *slab_args(a, ls, reverse)), 1)
             bwd_plain = cuda_ms(lambda: ls.lstm_slab_bwd_ref(*bargs), 1)
+            split = profile_split(lambda: ls.lstm_slab_bwd(*bargs))
         lib_fwd, lib_bwd = cudnn_lstm_ms(dev, a, 10, torch.bfloat16)
         (fb, fby), ff, fbytes = slab_bound_ms(t_len, r, c, SLAB_H, "fwd",
                                               xb=2, wb=2)
@@ -900,7 +921,8 @@ def mixed_slab_times(dev, ls, card):
             f"{lib_fwd:.4f}, bound {fb:.6f} {fby}: {ff} FLOP, {fbytes} B); "
             f"bwd {bwd_ms:.4f} ms (plain {bwd_plain:.2f}, cuDNN bf16 LSTM "
             f"bwd {lib_bwd:.4f}, bound {bb:.6f} {bby}: {bf} FLOP, "
-            f"{bbytes} B)")
+            f"{bbytes} B); torch.profiler split of one backward call, "
+            f"device us: {split}")
     total = sum(k for _, k in SLAB_MIX)
     mixed = {}
     for kind in ("fwd", "bwd"):

@@ -61,8 +61,9 @@ def main(args: argparse.Namespace):
     si_snr_i = Metrics("si_snr_i")
     si_sdr = Metrics("si_sdr")
     si_sdr_i = Metrics("si_sdr_i")
-    pesq = Metrics("PESQ", fs=args.sr)
-    stoi = Metrics("STOI", fs=args.sr)
+    # at Metrics' 24 kHz whatever --sr is, as the JAX package's CLI
+    pesq = Metrics("PESQ")
+    stoi = Metrics("STOI")
 
     snr_ins, snris, sisdr_ins, sisdris, decays = [], [], [], [], []
     pesqs, stois, pesq_ins, stoi_ins = [], [], [], []

@@ -122,10 +122,11 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step_conv_attn.restype = i32
             lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
-            lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
+            lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_bwd.restype = i32
-            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_slab_bwd_smem,
-                       lib.sbt_lstm_seq_bwd_smem):
+            lib.sbt_lstm_slab_bwd_smem.argtypes = [i32] * 4
+            lib.sbt_lstm_slab_bwd_smem.restype = ctypes.c_size_t
+            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_seq_bwd_smem):
                 fn.argtypes = [i32, i32]
                 fn.restype = ctypes.c_size_t
             lib.sbt_lstm_seq_fwd_smem.argtypes = [i32] * 3

@@ -37,7 +37,10 @@ from sound_bubble_tpu_torch.ops.kernels import _build
 
 K = 8                        # frames per slab (the TPU kernel's K)
 SMEM_LIMIT_BYTES = 232448    # dynamic shared memory one H100 block can use
-DW_CHUNKS = 128              # row chunks of the weight-gradient partials
+N_SM = 132                   # streaming multiprocessors of an H100 SXM
+BWD_ROWS_MAX = 24            # rows of a backward block (csrc: BWD_ROWS_MAX)
+BWD_THREADS = 512            # threads of a backward block (csrc: BT)
+BWD_MA = 12                  # dW inputs of a backward thread (csrc: MA)
 F32, BF16 = torch.float32, torch.bfloat16
 # (x dtype, weight dtype) pairs the kernels take; the code the C entry points
 # dispatch on is the pair's index
@@ -199,6 +202,62 @@ def _check_dims(x, w_hh, smem_fn):
     return t_len, r, c_in, hidden
 
 
+def bwd_smem(c_in: int, hidden: int, rows: int, code: int) -> int:
+    """Shared memory of one backward block of `rows` rows (bytes), as
+    csrc/lstm_slab.cu's `bwd_layout` lays it out: the weights (transposed,
+    rows padded, for the tensor cores when they are bf16), the slab's x | hp
+    rows (both in the weights' type), its gate tile (float, bf16 in the mixed
+    mode), the cell states entering each frame and, in the mixed mode, one
+    frame's float gate gradients."""
+    def al16(n):
+        return -(-n // 16) * 16
+    wb = 2 if code == 1 else 4
+    ch, n = c_in + hidden, K * rows
+    xs = al16(ch) + 8 if code == 1 else ch
+    w = 4 * hidden * xs * wb if code == 1 else ch * hidden * 4 * wb
+    return (al16(w) + al16(n * xs * wb)
+            + al16(n * hidden * 4 * (2 if code else 4)) + al16(n * hidden * 4)
+            + (rows * hidden * 16 if code else 0))
+
+
+def bwd_row_tiles(r: int, c_in: int, hidden: int, code: int,
+                  n_sm: int = N_SM) -> tuple[int, int]:
+    """(rows a block, blocks) of the backward kernel for R = r rows: the
+    fewest rows that keep the grid within one wave of n_sm blocks (one block
+    an SM), fewer where the block's shared memory would not fit. A block's
+    walk is serial in T, so its rows set the kernel's time."""
+    rows = min(BWD_ROWS_MAX, -(-r // n_sm))
+    while rows > 1 and bwd_smem(c_in, hidden, rows, code) > SMEM_LIMIT_BYTES:
+        rows -= 1
+    return rows, -(-r // rows)
+
+
+def _check_bwd_dims(x, w_hh, code):
+    t_len, r, c_in = x.shape
+    hidden = w_hh.shape[0]
+    if hidden not in (8, 16, 32, 64):
+        raise ValueError(f"H={hidden}: the backward kernel takes H in 8, 16, "
+                         "32, 64")
+    if c_in % 8 or not 8 <= c_in <= 2 * hidden:
+        raise ValueError(f"C={c_in}: the backward kernel takes C a multiple "
+                         f"of 8 in [8, 2H={2 * hidden}]")
+    if c_in + hidden > BWD_MA * (BWD_THREADS // hidden):
+        raise ValueError(f"C+H={c_in + hidden}: the backward kernel's dW "
+                         f"threads hold at most "
+                         f"{BWD_MA * (BWD_THREADS // hidden)} inputs")
+    smem = bwd_smem(c_in, hidden, 1, code)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"C={c_in}, H={hidden}: the backward needs {smem} B "
+                         f"of shared memory, more than {SMEM_LIMIT_BYTES}")
+    if t_len < 1 or r < 1:
+        raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    return t_len, r, c_in, hidden
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -244,8 +303,7 @@ def _launch_bwd(w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT, reverse):
     _check("w_hh", w_hh, w_hh.shape, dev, w_hh.dtype)
     code = _dtype_code(x, w_hh)
     xdt, wdt = x.dtype, w_hh.dtype
-    lib = _build.load_library()
-    t_len, r, c_in, hidden = _check_dims(x, w_hh, lib.sbt_lstm_slab_bwd_smem)
+    t_len, r, c_in, hidden = _check_bwd_dims(x, w_hh, code)
     kf, nb = n_slabs(t_len)
     for name, t, shape, dt in (("w_ih", w_ih, (c_in, 4 * hidden), wdt),
                                ("w_hh", w_hh, (hidden, 4 * hidden), wdt),
@@ -256,32 +314,30 @@ def _launch_bwd(w_ih, w_hh, b, x, hp, c_ckpt, dy, dhT, dcT, reverse):
                                ("dhT", dhT, (r, hidden), F32),
                                ("dcT", dcT, (r, hidden), F32)):
         _check(name, t, shape, dev, dt)
-    n_rows = t_len * r
-    n_chunks = max(1, min(DW_CHUNKS, -(-n_rows // 256)))
-    n_tiles = -(-r // 8)                  # row tiles of the walk kernel
+    for name, t in (("x", x), ("hp", hp)):     # read as 4-vectors
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{name}: not aligned to {4 * t.element_size()} "
+                             "bytes")
+    lib = _build.load_library()
+    rows, n_blocks = bwd_row_tiles(r, c_in, hidden, code, _n_sm(dev))
 
-    def empty(*shape, dtype=F32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def empty(*shape):
+        return torch.empty(shape, dtype=F32, device=dev)
 
     dx = torch.empty_like(x)
     dw_ih, dw_hh, db = empty(c_in, 4 * hidden), empty(hidden, 4 * hidden), \
         empty(4 * hidden)
     dh0, dc0 = empty(r, hidden), empty(r, hidden)
-    # scratch: the gate gradients (bf16 in the mixed mode, as the Pallas
-    # kernel's g_s), the weight-gradient partials, and in the mixed mode the
-    # walk's per-tile float32 sums of the gate gradients (db)
-    dg = empty(n_rows, 4 * hidden, dtype=BF16 if code else F32)
-    part = empty(n_chunks, c_in + hidden + 1, 4 * hidden)
-    db_part = empty(n_tiles if code else 1, 4 * hidden)
+    # scratch: one partial (dW_ih; dW_hh; db) a block, summed in block order
+    part = empty(n_blocks, c_in + hidden + 1, 4 * hidden)
     with torch.cuda.device(dev):
         rc = lib.sbt_lstm_slab_bwd(
             x.data_ptr(), hp.data_ptr(), c_ckpt.data_ptr(), dy.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), dhT.data_ptr(),
             dcT.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(),
             dw_hh.data_ptr(), db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            dg.data_ptr(), part.data_ptr(), db_part.data_ptr(), t_len, r,
-            c_in, hidden, kf, int(bool(reverse)), n_chunks, code,
-            _stream(dev))
+            part.data_ptr(), t_len, r, c_in, hidden, kf, int(bool(reverse)),
+            rows, code, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_slab_bwd kernel launch failed: CUDA error "
                            f"{rc}")

@@ -49,6 +49,10 @@ class ModelWrapper:
 
     @torch.no_grad()
     def feed(self, mix, dis_embed=None, pad=False):
+        """One chunk through the net, threading the state. `pad` is taken
+        for the reference's signature and ignored: the net steps with
+        pad=False, as the JAX package's wrapper does."""
+        del pad
         mix = to_tensor(mix, self.device)
         if self.internal_state is None:
             self.internal_state = init_state(self.cfg, mix.shape[0],
@@ -58,7 +62,7 @@ class ModelWrapper:
             if dis_embed is None:
                 dis_embed = DEFAULT_DIS_EMBED
             inputs["dis_embed"] = to_tensor(dis_embed, self.device)
-        out = self.net(inputs, self.internal_state, pad)
+        out = self.net(inputs, self.internal_state, False)
         self.internal_state = out["next_state"]
         return out["output"]
 

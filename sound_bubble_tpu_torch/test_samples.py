@@ -44,7 +44,8 @@ def evaluate_dir(streamer, test_dir, distance_threshold, sr=24000,
     `{save_id:06d}` alone, written to ./debug/ (`save_debug`)."""
     snr, snr_i = Metrics("snr"), Metrics("snr_i")
     si_sdr, si_sdr_i = Metrics("si_sdr"), Metrics("si_sdr_i")
-    stoi, pesq = Metrics("STOI", fs=sr), Metrics("PESQ", fs=sr)
+    # at Metrics' 24 kHz whatever `sr` is, as the JAX package's CLI
+    stoi, pesq = Metrics("STOI"), Metrics("PESQ")
     sisdris, snris, decays = [], [], []
     sample_dirs = sorted(glob.glob(os.path.join(test_dir, "*")))
     if save_id >= 0:

@@ -501,6 +501,100 @@ def test_slab_kernels_reject_bad_operands():
                          .transpose(0, 1), *args[4:])
 
 
+# ---- the backward kernel of row 11 at the shapes of the training paths:
+# (T, R, C): the bf16 recipe's batch-8 intra and inter scans, and R that
+# leave a partial last row tile under `bwd_row_tiles` (1253 rows: tiles of
+# 10 in fp32; 2509: tiles of 20 in the mixed mode)
+BWD_SHAPES = {"intra8": (145, 2504, 32), "inter8": (313, 1160, 32),
+              "ragged_tile": (13, 1253, 32), "ragged_tile8": (13, 2509, 32)}
+BWD_PAIRS = {"fp32": (torch.float32, torch.float32),
+             "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def _bwd_args(shape, pair, dev, reverse=False, seed=0):
+    t_len, r, c = shape
+    xdt, wdt = BWD_PAIRS[pair]
+    a = _slab_case((t_len, r, c, 64), dev, seed)
+    a["x"], a["dy"] = a["x"].to(xdt), a["dy"].to(xdt)
+    for k in ("w_ih", "w_hh", "b"):
+        a[k] = (a[k] * (64 ** -0.5 / 0.3)).to(wdt)
+    with torch.no_grad():
+        fwd = ls.lstm_slab_fwd(a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"],
+                               a["c0"], reverse)
+    hp = ls.shift_prev(fwd[0], a["h0"], reverse, wdt)
+    return (a["w_ih"], a["w_hh"], a["b"], a["x"], hp, fwd[3], a["dy"],
+            a["dhT"], a["dcT"], reverse)
+
+
+@pytest.mark.parametrize("pair", list(BWD_PAIRS))
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+def test_slab_bwd_matches_plain_at_training_shapes(shape, pair):
+    """The backward kernel against its plain version: each output within
+    1e-4 (fp32) or 1e-2 (mixed) of its peak, as chip_smoke.py holds it."""
+    dev = _card()
+    bargs = _bwd_args(BWD_SHAPES[shape], pair, dev,
+                      reverse=shape == "intra8")
+    rows, blocks = ls.bwd_row_tiles(bargs[3].shape[1], bargs[3].shape[2], 64,
+                                    ls.DTYPES.index(BWD_PAIRS[pair]),
+                                    ls._n_sm(dev))
+    if shape.startswith("ragged"):
+        assert bargs[3].shape[1] % rows, (rows, blocks)
+    with torch.no_grad():
+        got = ls.lstm_slab_bwd(*bargs)
+        torch.cuda.synchronize()
+        want = ls.lstm_slab_bwd_ref(*bargs)
+    tol = TOL if pair == "fp32" else 1e-2
+    for g, w, name in zip(got, want,
+                          ("dx", "dw_ih", "dw_hh", "db", "dh0", "dc0")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel(g.float(), w.float()) <= tol, (name, _rel(g.float(),
+                                                               w.float()))
+
+
+@pytest.mark.parametrize("pair", list(BWD_PAIRS))
+def test_slab_bwd_is_deterministic_and_counts_one_launch(pair):
+    """Two launches on the same inputs give bit-equal outputs (fixed-order
+    sums, no atomics), and each call counts one launch of its
+    instantiation."""
+    dev = _card()
+    bargs = _bwd_args(BWD_SHAPES["ragged_tile8"], pair, dev, reverse=True)
+    counts = (ls.lstm_slab_bwd.launches, ls.lstm_slab_bwd.mixed_launches)
+    with torch.no_grad():
+        first = ls.lstm_slab_bwd(*bargs)
+        second = ls.lstm_slab_bwd(*bargs)
+    torch.cuda.synchronize()
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+    grew = (ls.lstm_slab_bwd.launches - counts[0],
+            ls.lstm_slab_bwd.mixed_launches - counts[1])
+    assert grew == ((2, 0) if pair == "fp32" else (0, 2))
+
+
+def test_slab_bwd_layout_and_limits_agree_with_the_library():
+    """The wrapper's shared-memory formula is the library's, and the
+    backward refuses what its kernel does not take."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+
+    dev = _card()
+    lib = _build.load_library()
+    for c, h in ((32, 64), (24, 64), (16, 64), (8, 8)):
+        for code in range(3):
+            for rows in (1, 5, 10, 19, 24):
+                assert lib.sbt_lstm_slab_bwd_smem(c, h, rows, code) == \
+                    ls.bwd_smem(c, h, rows, code)
+    a = _slab_case((5, 9, 40, 64), dev)
+    hp = a["x"].new_zeros(5, 9, 64)
+    args = (a["w_ih"], a["w_hh"], a["b"], a["x"], hp, a["x"].new_zeros(1, 9, 64),
+            a["dy"], a["dhT"], a["dcT"], False)
+    with pytest.raises(ValueError, match="dW"):
+        ls.lstm_slab_bwd(*args)
+    a = _slab_case((5, 9, 32, 48), dev)
+    with pytest.raises(ValueError, match="H=48"):
+        ls.lstm_slab_bwd(a["w_ih"], a["w_hh"], a["b"], a["x"],
+                         a["x"].new_zeros(5, 9, 48), a["x"].new_zeros(1, 9, 48),
+                         a["dy"], a["dhT"], a["dcT"], False)
+
+
 # ---- the custom-VJP kernel route (ops/kernels/lstm_train_kernel.py):
 # (T, R, C, H) with R ragged against the row tile (8), T = 1, the training
 # widths and a narrow C and H; the three (x, weights) pairs

@@ -90,6 +90,40 @@ def _params(rng, c, h):
             "b": _draw(rng, 4 * h, scale=0.1)}
 
 
+# (code, R) of the training paths: fp32 (train_pt, batch 4: intra 1252,
+# inter 580; the ragged 37), the bf16 recipe (train_stream, batch 8: intra
+# 2504, inter 1160) and train_pt --bf16 (bf16 x, fp32 weights, batch 4)
+ONE_WAVE = [(0, 37), (0, 580), (0, 1160), (0, 1252), (1, 37), (1, 580),
+            (1, 1160), (1, 1252), (1, 2504), (2, 37), (2, 580), (2, 1160),
+            (2, 1252)]
+
+
+@pytest.mark.parametrize("code,r", ONE_WAVE)
+def test_bwd_row_tiles_fit_one_wave(code, r):
+    """The backward's row tiles: the grid fits one wave of the H100's 132
+    SMs (one block an SM), covers every row once, leaves no block empty and
+    fits the block's shared memory, at the flagship width (C=32, H=64) and
+    the edge widths (C=24, 16)."""
+    for c_in in (32, 24, 16):
+        rows, blocks = tslab.bwd_row_tiles(r, c_in, 64, code)
+        assert blocks <= 132
+        assert rows * blocks >= r > rows * (blocks - 1)
+        assert tslab.bwd_smem(c_in, 64, rows, code) <= tslab.SMEM_LIMIT_BYTES
+        assert 1 <= rows <= tslab.BWD_ROWS_MAX
+
+
+def test_bwd_row_tiles_past_the_budget():
+    """Where one wave's tile would not fit the shared memory (fp32 and
+    (bf16, fp32) at R = 2504) the helper takes the largest tile that does,
+    and the grid spills into a second wave."""
+    for code in (0, 2):
+        rows, blocks = tslab.bwd_row_tiles(2504, 32, 64, code)
+        assert tslab.bwd_smem(32, 64, rows, code) <= tslab.SMEM_LIMIT_BYTES
+        assert tslab.bwd_smem(32, 64, rows + 1, code) > \
+            tslab.SMEM_LIMIT_BYTES
+        assert 132 < blocks <= 264 and rows * blocks >= 2504
+
+
 @pytest.mark.parametrize("t_len", [16, 13])
 def test_autograd_through_lstm_and_blstm_matches_jax_grad(t_len):
     """ops.rnn.lstm (with carried state) and blstm through the autograd

@@ -52,6 +52,7 @@ from sound_bubble_tpu_torch.train.module import PLModule
 from sound_bubble_tpu_torch.weights import from_jax_params
 from src import eval as jax_eval_cli
 from src import eval_syn as jax_eval_syn_cli
+from src import test_samples as jax_test_samples_cli
 
 REPO = Path(__file__).resolve().parent.parent
 BLSTM_TOL = 1e-5
@@ -340,6 +341,76 @@ CLI_SMALL = dict(stft_chunk_size=32, stft_pad_size=16, D=8, B=2, H=8)
 # the first word of each line eval_syn prints per sample and at the end
 EVAL_SYN_LINES = {"Sample:", "Decay:", "SI-SDR:", "pesq_in=", "stoi_in=",
                   "DECAY", "SNR:", "SISDR:", "pesq", "stoi"}
+
+
+def test_model_wrapper_ignores_pad_as_jax(rng):
+    """ModelWrapper.feed(..., pad=True) steps the net with pad=False, as
+    the JAX package's wrapper does: chunk by chunk, the two wrappers on the
+    same seeded weights agree at the whole-model bar."""
+    chunk, pad = SMALL["stft_chunk_size"], SMALL["stft_pad_size"]
+    x = rng.standard_normal((1, 6, pad + chunk * 4)).astype(np.float32) * 3
+    jnet, params, net = _pair("cond", x)
+    net.pallas_blstm = False
+    jax_wrap, port_wrap = JaxWrapper(jnet, params), ModelWrapper(net,
+                                                                 "cpu")
+    for k in range(4):
+        window = x[..., k * chunk:k * chunk + chunk + pad]
+        want = np.asarray(jax_wrap.feed(window, dis_embed=DIS, pad=True))
+        got = port_wrap.feed(window, dis_embed=DIS, pad=True)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+class _MetricsBuilt(Exception):
+    pass
+
+
+def _record_metric_fs(monkeypatch, module, metrics_cls):
+    """Replace `module.Metrics` by one that records (name, fs) and stops
+    the CLI once its STOI and PESQ metrics exist."""
+    built = {}
+
+    def make(name, *args, **kwargs):
+        metric = metrics_cls(name, *args, **kwargs)
+        if name in ("STOI", "PESQ"):
+            built[name] = metric.fs
+        if len(built) == 2:
+            raise _MetricsBuilt
+        return metric
+
+    monkeypatch.setattr(module, "Metrics", make)
+    return built
+
+
+@pytest.mark.parametrize("cli", ["eval_syn", "test_samples"])
+def test_cli_perceptual_metrics_fs_as_jax(cli, cli_runs, tmp_path,
+                                          monkeypatch):
+    """At --sr 16000 each CLI builds STOI and PESQ at the fs the JAX
+    package's CLI gives them (Metrics' default, 24 kHz)."""
+    runs, tests = cli_runs
+    common = dict(test_dir=str(tests), run_dir=str(runs["cond"]),
+                  distance_threshold=1.0, save_id=-1)
+    want = _record_metric_fs(monkeypatch, {
+        "eval_syn": jax_eval_syn_cli,
+        "test_samples": jax_test_samples_cli}[cli], jm.Metrics)
+    jax_args = (_jax_args(**common, output_dir=str(tmp_path / "jax"))
+                if cli == "eval_syn" else _jax_args(**common))
+    jax_args.sr = 16000
+    with pytest.raises(_MetricsBuilt):
+        (jax_eval_syn_cli if cli == "eval_syn"
+         else jax_test_samples_cli).main(jax_args)
+    port = {"eval_syn": port_eval_syn, "test_samples": port_test_samples}[cli]
+    got = _record_metric_fs(monkeypatch, port, tm.Metrics)
+    with pytest.raises(_MetricsBuilt):
+        if cli == "eval_syn":
+            port_eval_syn.main(port_eval_syn.parser().parse_args([
+                str(tests), str(runs["cond"]), str(tmp_path / "port"),
+                "--sr", "16000", "--device", "cpu"]))
+        else:
+            port_test_samples.main(port_test_samples.argparse.Namespace(
+                **common, sr=16000, device="cpu"))
+    assert want == {"STOI": 24000, "PESQ": 24000}
+    assert got == want
 
 
 def _write_sample(path, rng, n, dists):

@@ -10,10 +10,14 @@ package, builds its CUDA kernels (nvcc's register report is printed) and
 times `gridnet_stack_step` with CUDA events, 200 launches after 10 warm-up
 ones: at the flagship width (`runs/finetune_r5`, 1 m FiLM) and, where the
 package has the conv_lstm branch, at the Orange Pi width
-(`runs/edge_orangpi_seeded`); then `lstm_slab_fwd` and `lstm_slab_bwd` in
-fp32, 20 launches after one, at the flagship training path's shapes of
-chip_smoke.py's phase 6 (intra [145, 1252, 32], inter [313, 580, 32],
-H = 64). The weights come from this checkout's `runs/`.
+(`runs/edge_orangpi_seeded`); then `lstm_slab_fwd` and `lstm_slab_bwd`, 20 launches after one, in
+fp32 at the flagship training path's shapes of chip_smoke.py's phase 6
+(intra [145, 1252, 32], inter [313, 580, 32], H = 64) and in the mixed mode
+(bf16 x and weights, as the campaign trainer runs them) at the bf16 recipe's
+batch-8 shapes of phase 13 (intra [145, 2504, 32], inter [313, 1160, 32]);
+and, for each of these four shapes, `torch.profiler`'s split of one
+`lstm_slab_bwd` call among the kernels it launches (device us by kernel
+name). The weights come from this checkout's `runs/`.
 Give each tree twice to see the spread, e.g. parent, change, change,
 parent. Prints the card's name and power limit, then one JSON line a run.
 Needs one NVIDIA card.
@@ -26,8 +30,37 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = {"flagship": ("finetune_r5", [[0.0, 0.0, 1.0]]),
         "edge": ("edge_orangpi_seeded", None)}
-# (T, R, C) of the fp32 slab scans timed
-SLAB_SHAPES = {"intra": (145, 1252, 32), "inter": (313, 580, 32)}
+# (T, R, C, mixed) of the slab scans timed
+SLAB_SHAPES = {"intra": (145, 1252, 32, False), "inter": (313, 580, 32, False),
+               "mixed_intra": (145, 2504, 32, True),
+               "mixed_inter": (313, 1160, 32, True)}
+
+
+def profile_split(fn, calls=5):
+    """Mean device us of a launch, by kernel, from torch.profiler's CUDA
+    activity over `calls` calls of fn() (CUPTI sees the kernels the ctypes
+    library launches; the slab backward launches each of its kernels once a
+    call). A mean over the launches the trace holds: now and then it drops
+    a kernel's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0 and ev.count:
+            name = ev.key.replace("(anonymous namespace)::", "") \
+                .replace("void ", "").split("(")[0]
+            split[name] = round(float(us) / ev.count, 3)
+    return split
 
 
 def child(tree):
@@ -80,21 +113,25 @@ def child(tree):
         out[f"{name}_ms"] = start.elapsed_time(end) / 200
 
     from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
-    for name, (t_len, r, c) in SLAB_SHAPES.items():
+    for name, (t_len, r, c, mixed) in SLAB_SHAPES.items():
         rng = np.random.default_rng(0)
+        adt = torch.bfloat16 if mixed else torch.float32
 
-        def draw(*shape, scale=1.0):
+        def draw(*shape, scale=1.0, dtype=torch.float32):
             return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                    .astype(np.float32)).to(dev)
+                                    .astype(np.float32)).to(dev, dtype)
 
         h = 64
-        w = (draw(c, 4 * h, scale=h ** -0.5), draw(h, 4 * h, scale=h ** -0.5),
-             draw(4 * h, scale=h ** -0.5))
-        x, h0, c0 = draw(t_len, r, c), draw(r, h) * 0.5, draw(r, h) * 0.5
+        w = (draw(c, 4 * h, scale=h ** -0.5, dtype=adt),
+             draw(h, 4 * h, scale=h ** -0.5, dtype=adt),
+             draw(4 * h, scale=h ** -0.5, dtype=adt))
+        x = draw(t_len, r, c, dtype=adt)
+        h0, c0 = draw(r, h) * 0.5, draw(r, h) * 0.5
         with torch.no_grad():
             ys, _, _, ck = ls.lstm_slab_fwd(*w, x, h0, c0, False)
-            bargs = (*w, x, ls.shift_prev(ys, h0, False), ck,
-                     draw(t_len, r, h), draw(r, h), draw(r, h), False)
+            bargs = (*w, x, ls.shift_prev(ys, h0, False, adt), ck,
+                     draw(t_len, r, h, dtype=adt), draw(r, h), draw(r, h),
+                     False)
             for kind, fn in (("fwd", lambda: ls.lstm_slab_fwd(
                     *w, x, h0, c0, False)),
                     ("bwd", lambda: ls.lstm_slab_bwd(*bargs))):
@@ -107,6 +144,8 @@ def child(tree):
                 end.record()
                 torch.cuda.synchronize()
                 out[f"slab_{name}_{kind}_ms"] = start.elapsed_time(end) / 20
+            out[f"slab_{name}_bwd_split_us"] = profile_split(
+                lambda: ls.lstm_slab_bwd(*bargs))
     print(json.dumps(out), flush=True)
 
 
