@@ -25,8 +25,9 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    path's shapes (intra [145, 1252, 32] both directions, inter
    [313, 580, 32]), the edge training path's (intra [29, 1252, 24] both
    directions, inter [313, 580, 24]; the Raspberry Pi intra
-   [29, 1252, 16]) and a ragged one ([13, 37, 32]); the backward launched
-   twice on the same inputs, bit-equal;
+   [29, 1252, 16]) and a ragged one ([13, 37, 32]); the fp32 forward's
+   rows a block and blocks logged (`lstm_slab.fwd_row_tiles`); the
+   backward launched twice on the same inputs, bit-equal;
 7. training: seeded sample dirs, then `sound_bubble_tpu_torch.train_pt` on
    `syn_experiments/pretrain_stage.json` (dataset paths, epochs and
    num_workers changed) for 2 epochs and a resumed third; the slab launches
@@ -105,8 +106,9 @@ PERF.md's kernel table):
 20. the four kernels against their plain versions at the flagship training
    shapes (intra [145, 1252, 32] both directions in one walk, inter
    [313, 580, 32]) and a ragged R (37), with (x, weights) in (fp32, fp32),
-   (bf16, bf16) and (bf16, fp32); the two autograd Functions' outputs and
-   gradients, kernels against plain versions;
+   (bf16, bf16) and (bf16, fp32), row 6a's rows a block and blocks logged;
+   the two autograd Functions' outputs and gradients, kernels against plain
+   versions;
 21. `train_pt --lstm_scan seq` on the flagship pretrain config, 1 epoch
    (the fp32 rows' main path; 6 launches of each row a step), and a resume
    with `--lstm_scan slab` refused; one step from the flagship checkpoint
@@ -451,7 +453,9 @@ def phase6_slab(dev, ls):
             rel_b = [e / float(w.abs().max()) for e, w in zip(abs_b, want_b)]
         launched = (ls.lstm_slab_fwd.launches - f0,
                     ls.lstm_slab_bwd.launches - b0)
+        rows, blocks = ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev))
         log(f"  {name} [T={t_len}, R={r}, C={c}], H={SLAB_H}: forward "
+            f"({rows} rows a block, {blocks} blocks) "
             f"max-abs (ys, hT, cT, c_ckpt) {['%.2e' % e for e in errs]}; "
             f"backward max-abs / peak (dx, dw_ih, dw_hh, db, dh0, dc0) "
             f"{['%.2e' % e for e in rel_b]}; two backward launches "
@@ -1923,8 +1927,13 @@ def phase20_seq_kernels(dev, lk, ls):
                        for k in fn_got[1]}
             shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
                       for s in differ_share(g, w)] if mixed else []
+            tiles = ""
+            if nd == 1 and not mixed:
+                tiles = ("row 6a %d rows a block, %d blocks; "
+                         % ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev)))
             log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
-                f"{pname}: rows {'/'.join(rows)} max-abs (max-abs / peak) "
+                f"{pname}: {tiles}rows {'/'.join(rows)} max-abs (max-abs / "
+                "peak) "
                 "forward " + ", ".join(
                     f"{e[0]:.2e} ({e[1]:.2e})" for e in errs[0])
                 + "; backward " + ", ".join(

@@ -38,8 +38,26 @@
 // is half of each. In practice the recurrence bounds them all: T dependent
 // steps per row tile, each a [rows, K] x [K, 4H] product.
 //
-// Design (simple first; tensor cores, bf16 weights in shared memory and
-// wider row tiles are later work):
+// Design of the fp32 single-direction forward (`seq_fwd32_kernel`, row
+// 6a): the walk of csrc/lstm_fwd32.cuh, shared with the slab scan's fp32
+// forward; it takes K = 8 frames a slab too (the function does not depend
+// on K; in fp32 only the order of the sum changes). A `clock64()` split of
+// the first design (below) at [313, 580, 32] on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md §6) found 7,800 cycles a frame:
+// two thirds in the 96-long dot, latency-bound (each step waits on its
+// shared loads; 8 warps an SM), a third of that the x part; the gates and
+// c stores with the cell 19 %. So: rows a block for one wave (5 at
+// R = 580: 116 blocks, where 8-row tiles left 59 SMs idle); the input
+// projection of each slab as one register-tiled product into shared memory
+// before its walk, the next slab's x tile copied in by cp.async meanwhile;
+// W_hh in registers (row 11's layout: four lanes split a unit's inputs and
+// reduce by shuffles), four rows a group as 16 independent accumulators; a
+// lane applies one (row, unit) cell and writes its y, four gates and c,
+// eight units a warp at four rows: 32-byte segments, no staging needed.
+//
+// The first design (`seq_fwd_kernel`, simple first; it still runs the
+// mixed forwards and both directions, rows 6b, 8a, 8b; tensor cores, bf16
+// weights in shared memory and wider row tiles are later work):
 // - One thread block owns a tile of RT = 8 rows and walks all T steps
 //   itself, for nd directions at once; no block ever waits on another (no
 //   grid sync, no flags, no clusters). Thread (d, grp, j) computes unit j of
@@ -72,6 +90,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "lstm_fwd32.cuh"
 
 namespace {
 
@@ -378,6 +398,36 @@ int seq_fwd(const void* x, const void* w_ih_f, const void* w_ih_b,
   return (int)cudaGetLastError();
 }
 
+// ---- the fp32 single-direction forward (row 6a): csrc/lstm_fwd32.cuh's
+// walk, K = min(8, T) frames a slab
+
+template <int H>
+__global__ void __launch_bounds__(4 * H, 1) seq_fwd32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w_ih,
+    const float* __restrict__ w_hh, const float* __restrict__ b,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ y, float* __restrict__ gates,
+    float* __restrict__ cseq, int T, int R, int C, int rows) {
+  sbt_fwd32::walk<H, true>(x, w_ih, w_hh, b, h0, c0, {y, gates, cseq},
+                           nullptr, nullptr, nullptr, T, R, C,
+                           min(T, sbt_fwd32::KMAX), 0, rows);
+}
+
+int seq_fwd32(const void* x, const void* w_ih, const void* w_hh,
+              const void* b, const float* h0, const float* c0, void* y,
+              void* gates, float* cseq, int T, int R, int C, int H, int rows,
+              cudaStream_t st) {
+  static void (*const ks[4])(const float*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             float*, float*, float*, int, int, int, int) = {
+      seq_fwd32_kernel<8>, seq_fwd32_kernel<16>, seq_fwd32_kernel<32>,
+      seq_fwd32_kernel<64>};
+  return sbt_fwd32::launch(ks, H, C, T, R, rows, st, (const float*)x,
+                           (const float*)w_ih, (const float*)w_hh,
+                           (const float*)b, h0, c0, (float*)y, (float*)gates,
+                           cseq, T, R, C, rows);
+}
+
 template <int ND, typename XT, typename WT>
 int seq_bwd(const void* gates, const float* cseq, const float* c0,
             const void* dy, const void* w_hh, const float* dhT,
@@ -396,11 +446,16 @@ template <int ND>
 int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
                const void* w_ih_b, const void* w_hh, const void* b,
                const float* h0, const float* c0, void* y, void* gates,
-               float* cseq, int T, int R, int C, int H, cudaStream_t st) {
+               float* cseq, int T, int R, int C, int H, int rows,
+               cudaStream_t st) {
   switch (dtypes) {
     case 0:
-      return seq_fwd<ND, float, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0,
-                                       y, gates, cseq, T, R, C, H, st);
+      if constexpr (ND == 1)
+        return seq_fwd32(x, w_ih_f, w_hh, b, h0, c0, y, gates, cseq, T, R, C,
+                         H, rows, st);
+      else
+        return seq_fwd<ND, float, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0,
+                                         y, gates, cseq, T, R, C, H, st);
     case 1:
       return seq_fwd<ND, bf16, bf16>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
                                      gates, cseq, T, R, C, H, st);
@@ -438,7 +493,9 @@ int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
 // 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); y, dy and dgates
 // have the activations' type, the saved gates bf16 in the mixed mode. nd = 1:
 // w_ih_b is unused; nd = 2: h0, c0 (forward) and c0, dhT, dcT, dh0, dc0
-// (backward) are unused (zero states), and may be null.
+// (backward) are unused (zero states), and may be null. rows: rows a block
+// of the fp32 single-direction kernel (nd = 1, dtypes = 0; its shared memory
+// is sbt_lstm_fwd32_smem's), unused by the others.
 extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H, int nd) {
   return fwd_smem(C, H, nd);
 }
@@ -452,15 +509,15 @@ extern "C" int sbt_lstm_seq_fwd(const void* x, const void* w_ih_f,
                                 const void* b, const float* h0,
                                 const float* c0, void* y, void* gates,
                                 float* cseq, int T, int R, int C, int H,
-                                int nd, int dtypes, void* stream) {
+                                int nd, int dtypes, int rows, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = (cudaStream_t)stream;
   if (nd == 1)
     return fwd_dtypes<1>(dtypes, x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
-                         gates, cseq, T, R, C, H, st);
+                         gates, cseq, T, R, C, H, rows, st);
   if (nd == 2)
     return fwd_dtypes<2>(dtypes, x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
-                         gates, cseq, T, R, C, H, st);
+                         gates, cseq, T, R, C, H, rows, st);
   return (int)cudaErrorInvalidValue;
 }
 

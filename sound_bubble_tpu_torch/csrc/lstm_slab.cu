@@ -29,15 +29,29 @@
 // dh chain, dx, dW), 0.40 ms, against ~145 MB, 0.043 ms: operations again.
 // In practice the recurrence bounds both: T dependent steps per row tile.
 //
-// Forward design: one thread block owns a row tile of RT = 8 rows and loops
-// over all T frames itself, so no block ever waits on another (no grid
-// sync, no flags, no clusters); rows of the last tile at or past R are
-// computed on zeros and never written. The weights are read once per block
-// into shared memory, gate-interleaved as float4 (w_i, w_f, w_g, w_o) per
-// (input row k, hidden unit j): 96 KB for C + H = 96, H = 64. Thread
-// (j, grp) computes the four gates of unit j for RPT = 2 rows, so the cell
-// state of those cells never leaves its registers; the h that the next frame
-// needs is double-buffered in shared memory, one __syncthreads per frame.
+// Forward design, fp32 (`slab_fwd32_kernel`, row 10a): the walk of
+// csrc/lstm_fwd32.cuh, which this file shares with the seq route's fp32
+// forward. A `clock64()` split of the first design (below) found its frames
+// latency-bound, two thirds of each in a 96-long dot whose steps wait on
+// their shared loads. So: rows a block for one wave (`fwd_row_tiles`); per
+// K-frame slab, gx = x W_ih + b for all the slab's frames x rows as one
+// register-tiled product into shared memory, the next slab's x tile copied
+// in by cp.async meanwhile; the chain keeps W_hh in registers (a lane holds
+// four gates of one unit at a quarter of the inputs; four lanes reduce by
+// shuffles), four rows at a time as 16 independent accumulators a lane;
+// each lane then applies one (row, unit) cell. See the header for the
+// layout and why it, and not row 5's, was chosen.
+//
+// Forward design, mixed (`slab_fwd_kernel`, row 10b, the first design): one
+// thread block owns a row tile of RT = 8 rows and loops over all T frames
+// itself; rows of the last tile at or past R are computed on zeros and
+// never written. The weights are read once per block into shared memory,
+// gate-interleaved as float4 (w_i, w_f, w_g, w_o) per (input row k, hidden
+// unit j): 96 KB for C + H = 96, H = 64. Thread (j, grp) computes the four
+// gates of unit j for RPT = 2 rows over [x | h], so the cell state of those
+// cells never leaves its registers; the h that the next frame needs is
+// double-buffered in shared memory, one __syncthreads per frame. It beats
+// cuDNN's bf16 forward; moving it onto the fp32 design is later work.
 //
 // Backward design (from a torch.profiler split of the four-kernel version it
 // replaces: its walk took 73-75 % of a call in fp32, dx and the weight
@@ -91,9 +105,9 @@
 // expf / tanhf.
 //
 // The mixed mode (`_fwd_kernel` / `_bwd_kernel` with mixed=True, the
-// instantiation the JAX package's bf16 trunk launches) is the same code,
-// templated on the activation type XT (x, ys, dy, dx) and the weight type WT
-// (w_ih, w_hh, b, hp): bf16 operands are widened to fp32 on load (products
+// instantiation the JAX package's bf16 trunk launches) is the first forward
+// design's and the backward's code, templated on the activation type XT (x,
+// ys, dy, dx) and the weight type WT (w_ih, w_hh, b, hp): bf16 operands are widened to fp32 on load (products
 // of bf16 values are exact in fp32) and accumulated in fp32, and values are
 // rounded to bf16 exactly where the Pallas kernel rounds: the gates
 // (gx + bf16(h) W_hh, with gx = x W_ih + b unrounded), each sigmoid / tanh
@@ -101,8 +115,8 @@
 // fp32. The backward keeps the fp32 gate gradients for db (summed per
 // thread in the walk) and stores them as bf16 in the gate tile for dx and
 // the weight gradients, and as bf16-rounded fp32 for the chain. The mixed
-// branches are `if constexpr`, so the fp32 instantiation (XT = WT = float)
-// has none of them. The bound of a mixed scan counts 2 bytes for each bf16
+// branches are `if constexpr`, so the fp32 backward (XT = WT = float) has
+// none of them. The bound of a mixed scan counts 2 bytes for each bf16
 // tensor and its matrix products at the bf16 tensor-core rate (989 TFLOP/s
 // dense), the rate the work could reach; of them only the backward's gate
 // recompute with bf16 weights runs on the tensor cores, the rest is fp32 FMA
@@ -112,6 +126,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "lstm_fwd32.cuh"
 
 namespace {
 
@@ -915,6 +931,37 @@ int slab_fwd(const void* x, const void* w_ih, const void* w_hh,
 }
 
 
+// ---- the fp32 forward (row 10a): csrc/lstm_fwd32.cuh's walk ------------
+
+template <int H>
+__global__ void __launch_bounds__(4 * H, 1) slab_fwd32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w_ih,
+    const float* __restrict__ w_hh, const float* __restrict__ b,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
+    float* __restrict__ c_ckpt, int T, int R, int C, int kf, int reverse,
+    int rows) {
+  sbt_fwd32::walk<H, false>(x, w_ih, w_hh, b, h0, c0, {ys, nullptr, nullptr},
+                            hT, cT, c_ckpt, T, R, C, kf, reverse, rows);
+}
+
+int slab_fwd32(const void* x, const void* w_ih, const void* w_hh,
+               const void* b, const float* h0, const float* c0, void* ys,
+               float* hT, float* cT, float* c_ckpt, int T, int R, int C,
+               int H, int kf, int reverse, int rows, cudaStream_t st) {
+  static void (*const ks[4])(const float*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             float*, float*, float*, float*, int, int, int,
+                             int, int, int) = {
+      slab_fwd32_kernel<8>, slab_fwd32_kernel<16>, slab_fwd32_kernel<32>,
+      slab_fwd32_kernel<64>};
+  if (kf < 1 || kf > sbt_fwd32::KMAX) return (int)cudaErrorInvalidValue;
+  return sbt_fwd32::launch(ks, H, C, T, R, rows, st, (const float*)x,
+                           (const float*)w_ih, (const float*)w_hh,
+                           (const float*)b, h0, c0, (float*)ys, hT, cT,
+                           c_ckpt, T, R, C, kf, reverse, rows);
+}
+
 // The backward's shared memory at `rows` rows a block, 0 for a shape the
 // kernel does not take: H a power of two in [8, 64], C a multiple of 8 (at
 // most 2H), C + H at most the MA * BT / H inputs of the dW threads, and
@@ -960,18 +1007,25 @@ extern "C" size_t sbt_lstm_slab_fwd_smem(int C, int H) {
   return fwd_smem(C, H);
 }
 
+// The fp32 forwards' (rows 6a and 10a) shared memory at `rows` rows a
+// block, 0 for a shape they do not take.
+extern "C" size_t sbt_lstm_fwd32_smem(int C, int H, int rows) {
+  return sbt_fwd32::smem_bytes(C, H, rows);
+}
+
+// rows: rows a block of the fp32 kernel (unused by the mixed ones).
 extern "C" int sbt_lstm_slab_fwd(const void* x, const void* w_ih,
                                  const void* w_hh, const void* b,
                                  const float* h0, const float* c0, void* ys,
                                  float* hT, float* cT, float* c_ckpt, int T,
                                  int R, int C, int H, int kf, int reverse,
-                                 int dtypes, void* stream) {
+                                 int dtypes, int rows, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtypes) {
     case 0:
-      return slab_fwd<float, float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
-                                    c_ckpt, T, R, C, H, kf, reverse, st);
+      return slab_fwd32(x, w_ih, w_hh, b, h0, c0, ys, hT, cT, c_ckpt, T, R,
+                        C, H, kf, reverse, rows, st);
     case 1:
       return slab_fwd<bf16, bf16>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
                                   c_ckpt, T, R, C, H, kf, reverse, st);

@@ -120,7 +120,7 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_stack_step_conv_attn.argtypes = (
                 [ptr] * 46 + [i32] * 10 + [ctypes.c_float, ptr])
             lib.sbt_stack_step_conv_attn.restype = i32
-            lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
+            lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
             lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_bwd.restype = i32
@@ -129,9 +129,10 @@ def load_library() -> ctypes.CDLL:
             for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_seq_bwd_smem):
                 fn.argtypes = [i32, i32]
                 fn.restype = ctypes.c_size_t
-            lib.sbt_lstm_seq_fwd_smem.argtypes = [i32] * 3
-            lib.sbt_lstm_seq_fwd_smem.restype = ctypes.c_size_t
-            lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            for fn in (lib.sbt_lstm_seq_fwd_smem, lib.sbt_lstm_fwd32_smem):
+                fn.argtypes = [i32] * 3
+                fn.restype = ctypes.c_size_t
+            lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_seq_fwd.restype = i32
             lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
             lib.sbt_lstm_seq_bwd.restype = i32

@@ -10,6 +10,16 @@ same slab algorithm), for tensors on the CPU. A CUDA tensor goes to the kernel
 or the call raises. `lstm_slab` is the `torch.autograd.Function` over the
 two; `ops/rnn.py` routes every LSTM scan with T >= 2 through it.
 
+The float32 forward is the walk of `csrc/lstm_fwd32.cuh`, which the seq
+route's float32 forward shares: one block of 4H threads a tile of
+`fwd_row_tiles` rows (the fewest that keep the grid within one wave of the
+card's SMs), each K-frame slab's input projection as one product into
+shared memory before its walk, W_hh in registers, four rows at a time on
+the serial chain. It takes H in 8, 16, 32, 64 and C a multiple of 4
+(`_check_fwd32_dims`). The mixed forwards keep the first design (8-row
+tiles, [W_ih; W_hh] re-read from shared memory every frame), with its limits
+(4H <= 256, C <= 2H).
+
 Layouts (JAX package): x [T, R, C] scan-major, w_ih [C, 4H], w_hh [H, 4H],
 one folded bias b [4H], gate order [i, f, g, o]; h0/c0 [R, H]. The forward
 also returns c_ckpt [nb, R, H], the cell state entering each slab's first
@@ -41,6 +51,8 @@ N_SM = 132                   # streaming multiprocessors of an H100 SXM
 BWD_ROWS_MAX = 24            # rows of a backward block (csrc: BWD_ROWS_MAX)
 BWD_THREADS = 512            # threads of a backward block (csrc: BT)
 BWD_MA = 12                  # dW inputs of a backward thread (csrc: MA)
+FWD_ROWS_MAX = 24            # rows of an fp32 forward block (csrc: ROWS_MAX)
+FWD32_HIDDEN = (8, 16, 32, 64)   # H the fp32 forwards take
 F32, BF16 = torch.float32, torch.bfloat16
 # (x dtype, weight dtype) pairs the kernels take; the code the C entry points
 # dispatch on is the pair's index
@@ -185,18 +197,67 @@ def _dtype_code(x, w_hh) -> int:
 
 
 def _check_dims(x, w_hh, smem_fn):
+    """What the mixed forward kernel takes: 4H <= 256, C <= 2H, its shared
+    memory within a block's limit."""
     t_len, r, c_in = x.shape
     hidden = w_hh.shape[0]
     if 4 * hidden > 256:
         raise ValueError(f"H={hidden}: the kernels run 4H threads a block, "
                          "at most 256")
     if c_in > 2 * hidden:
-        raise ValueError(f"C={c_in} > 2H={2 * hidden}: the forward kernel's "
-                         "x prefetch needs C <= 2H")
+        raise ValueError(f"C={c_in} > 2H={2 * hidden}: the mixed forward "
+                         "kernel's x prefetch needs C <= 2H")
     smem = smem_fn(c_in, hidden)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"C={c_in}, H={hidden}: needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT_BYTES}")
+    if t_len < 1 or r < 1:
+        raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    return t_len, r, c_in, hidden
+
+
+def fwd_smem(c_in: int, hidden: int, rows: int) -> int:
+    """Shared memory of one fp32 forward block of `rows` rows (bytes), as
+    csrc/lstm_fwd32.cuh's `smem_bytes` lays it out: W_ih gate-interleaved,
+    the slab's gx (K frames x rows, each row H + 2 4-vectors), its x tile,
+    and h (double-buffered) and c at rows rounded up to 4, each row H + 8
+    floats."""
+    r4 = -(-rows // 4) * 4
+    return (16 * c_in * hidden + 16 * K * rows * (hidden + 2)
+            + 4 * K * rows * c_in + 12 * r4 * (hidden + 8))
+
+
+def fwd_row_tiles(r: int, c_in: int, hidden: int,
+                  n_sm: int = N_SM) -> tuple[int, int]:
+    """(rows a block, blocks) of the fp32 forwards (rows 6a, 10a) for R = r
+    rows: the fewest rows that keep the grid within one wave of n_sm blocks
+    (one block an SM), fewer where the block's shared memory would not fit
+    (then the grid takes more waves). A block walks its rows' T frames in
+    series, so its rows set the kernel's time."""
+    rows = min(FWD_ROWS_MAX, -(-r // n_sm))
+    while rows > 1 and fwd_smem(c_in, hidden, rows) > SMEM_LIMIT_BYTES:
+        rows -= 1
+    return rows, -(-r // rows)
+
+
+def _check_fwd32_dims(x, hidden):
+    """What the fp32 forwards take: H in FWD32_HIDDEN, C a multiple of 4,
+    one row's shared memory within a block's limit; x 16-byte aligned (its
+    slab tiles are copied in 16-byte pieces)."""
+    t_len, r, c_in = x.shape
+    if hidden not in FWD32_HIDDEN:
+        raise ValueError(f"H={hidden}: the fp32 forward kernels take H in "
+                         f"{', '.join(map(str, FWD32_HIDDEN))}")
+    if c_in < 4 or c_in % 4:
+        raise ValueError(f"C={c_in}: the fp32 forward kernels take C a "
+                         "multiple of 4")
+    smem = fwd_smem(c_in, hidden, 1)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"C={c_in}, H={hidden}: the fp32 forward needs "
+                         f"{smem} B of shared memory, more than "
+                         f"{SMEM_LIMIT_BYTES}")
+    if x.data_ptr() % 16:
+        raise ValueError("x: not aligned to 16 bytes")
     if t_len < 1 or r < 1:
         raise ValueError(f"empty scan: x {tuple(x.shape)}")
     return t_len, r, c_in, hidden
@@ -269,7 +330,13 @@ def _launch_fwd(w_ih, w_hh, b, x, h0, c0, reverse):
     code = _dtype_code(x, w_hh)
     wdt = w_hh.dtype
     lib = _build.load_library()
-    t_len, r, c_in, hidden = _check_dims(x, w_hh, lib.sbt_lstm_slab_fwd_smem)
+    if code:
+        t_len, r, c_in, hidden = _check_dims(x, w_hh,
+                                             lib.sbt_lstm_slab_fwd_smem)
+        rows = 0
+    else:
+        t_len, r, c_in, hidden = _check_fwd32_dims(x, w_hh.shape[0])
+        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev))[0]
     for name, t, shape, dt in (("w_ih", w_ih, (c_in, 4 * hidden), wdt),
                                ("w_hh", w_hh, (hidden, 4 * hidden), wdt),
                                ("b", b, (4 * hidden,), wdt),
@@ -286,7 +353,7 @@ def _launch_fwd(w_ih, w_hh, b, x, h0, c0, reverse):
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hT.data_ptr(),
             cT.data_ptr(), c_ckpt.data_ptr(), t_len, r, c_in, hidden, kf,
-            int(bool(reverse)), code, _stream(dev))
+            int(bool(reverse)), code, rows, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_slab_fwd kernel launch failed: CUDA error "
                            f"{rc}")

@@ -27,6 +27,14 @@ the kernel or the call raises.
   direction-major ([di_f, df_f, dg_f, do_f | di_b, ...]) at the walk's step;
   dy_b is read at the mirrored time.
 
+`lstm_seq_fwd` in float32 launches the walk of `csrc/lstm_fwd32.cuh`,
+which it shares with the slab scan's float32 forward: rows a block from
+`lstm_slab.fwd_row_tiles` (one wave of the card's SMs), each 8-frame slab's
+input projection as one product into shared memory before its walk, W_hh in
+registers, four rows at a time on the serial chain; it takes H in 8, 16,
+32, 64 and C a multiple of 4. The other three, and the mixed forwards, run
+the first design (8-row tiles, 4H <= 256, forward C <= 2H).
+
 `lstm_seq` and `blstm_seq` are the `torch.autograd.Function`s, the
 counterparts of `lstm_pallas_train` and `blstm_pallas_train`: their
 backward runs the kernel walk, then dW_ih, dW_hh, db and dx as the plain
@@ -51,8 +59,8 @@ import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
-    BF16, DTYPES, F32, SMEM_LIMIT_BYTES, _check, _dispatch, _mm, _stream,
-    is_mixed, tanh_q)
+    BF16, DTYPES, F32, SMEM_LIMIT_BYTES, _check, _check_fwd32_dims,
+    _dispatch, _mm, _n_sm, _stream, fwd_row_tiles, is_mixed, tanh_q)
 
 
 def sigmoid_x(v):
@@ -231,8 +239,9 @@ def _dtype_code(xdt, w_hh) -> int:
 
 
 def _check_dims(nd, hidden, smem, c_in=None):
-    """What the kernels take: 4H <= 256, C <= 2H (forward), shared memory
-    within a block's limit."""
+    """What the first-design kernels (every one but the fp32 single-direction
+    forward, which `lstm_slab._check_fwd32_dims` checks) take: 4H <= 256,
+    C <= 2H (forward), shared memory within a block's limit."""
     if 4 * hidden > 256:
         raise ValueError(f"H={hidden}: the kernels run 4H threads a "
                          "direction and row group, at most 256")
@@ -264,8 +273,13 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
     t_len, r, c_in = x.shape
     hidden = w_ihs[0].shape[-1] // 4
     lib = _build.load_library()
-    _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden, nd),
-                c_in)
+    rows = 0
+    if nd == 1 and not code:
+        _check_fwd32_dims(x, hidden)
+        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev))[0]
+    else:
+        _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden, nd),
+                    c_in)
     operands = [(f"w_ih[{k}]", w, (c_in, 4 * hidden), wdt)
                 for k, w in enumerate(w_ihs)]
     operands += [("w_hh", w_hh, (nd * hidden, nd * 4 * hidden), wdt),
@@ -289,7 +303,7 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
             h0.data_ptr() if nd == 1 else None,
             c0.data_ptr() if nd == 1 else None, y.data_ptr(),
             gates.data_ptr(), c_seq.data_ptr(), t_len, r, c_in, hidden, nd,
-            code, _stream(dev))
+            code, rows, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{rc}")

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
-the attention step), the slab LSTM scans (forward and backward), the
+the attention step), the slab LSTM scans (forward and backward; the fp32
+forward, shared with the seq route's, at the training shapes too), the
 custom-VJP route's recurrences (rows 6-9: one direction and both
 directions, forward and backward, and the two autograd Functions), and the
 fused inference BLSTM (row 5) with `streaming_inference_scan`'s CUDA graph.
@@ -593,6 +594,88 @@ def test_slab_bwd_layout_and_limits_agree_with_the_library():
         ls.lstm_slab_bwd(a["w_ih"], a["w_hh"], a["b"], a["x"],
                          a["x"].new_zeros(5, 9, 48), a["x"].new_zeros(1, 9, 48),
                          a["dy"], a["dhT"], a["dcT"], False)
+
+
+# ---- the fp32 forwards of rows 6a and 10a (csrc/lstm_fwd32.cuh's walk):
+# (T, R, C) at H = 64: the flagship's training shapes, the edge widths
+# (C = 24, 16), the ragged R = 37 with T = 13 (not a multiple of K = 8),
+# T = 1, and R that give 3 and 7 rows a block on 132 SMs (a four-row group
+# with a padding row)
+FWD32_SHAPES = {"intra": (145, 1252, 32), "inter": (313, 580, 32),
+                "edge_intra": (29, 1252, 24), "rpi_intra": (29, 1252, 16),
+                "ragged": (13, 37, 32), "one": (1, 9, 32),
+                "rows3": (11, 300, 32), "rows7": (9, 800, 24)}
+
+
+@pytest.mark.parametrize("shape", list(FWD32_SHAPES))
+def test_fp32_forwards_match_plain(shape):
+    """Both fp32 forwards against their plain versions, the slab's in both
+    directions: every output within 1e-4 max-abs; each call counts one
+    launch."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    t_len, r, c = FWD32_SHAPES[shape]
+    a = _slab_case((t_len, r, c, 64), dev)
+    args = tuple(a[k] * (64 ** -0.5 / 0.3) for k in ("w_ih", "w_hh", "b")) \
+        + (a["x"], a["h0"], a["c0"])
+    counts = (ls.lstm_slab_fwd.launches, lk.lstm_seq_fwd.launches)
+    with torch.no_grad():
+        for reverse in (False, True):
+            got = ls.lstm_slab_fwd(*args, reverse)
+            torch.cuda.synchronize()
+            want = ls.lstm_slab_fwd_ref(*args, reverse)
+            for g, w, name in zip(got, want, ("ys", "hT", "cT", "c_ckpt")):
+                assert g.shape == w.shape, name
+                assert float((g - w).abs().max()) <= TOL, (name, reverse)
+        got = lk.lstm_seq_fwd(*args)
+        torch.cuda.synchronize()
+        want = lk.lstm_seq_fwd_ref(*args)
+    for g, w, name in zip(got, want, ("y", "gates", "c")):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert float((g - w).abs().max()) <= TOL, name
+    assert (ls.lstm_slab_fwd.launches - counts[0],
+            lk.lstm_seq_fwd.launches - counts[1]) == (2, 1)
+
+
+def test_fp32_forward_layout_and_limits_agree_with_the_library():
+    """The wrapper's shared-memory formula is the library's, the row tiles
+    fit one wave of this card's SMs at the training shapes, and both fp32
+    forwards refuse (ValueError, no launch) an H, a C or an x alignment
+    their kernel does not take."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    lib = _build.load_library()
+    for c, h in ((32, 64), (24, 64), (16, 64), (8, 8), (4, 16), (64, 32)):
+        for rows in (1, 5, 10, 19, 24):
+            assert lib.sbt_lstm_fwd32_smem(c, h, rows) == \
+                ls.fwd_smem(c, h, rows)
+    for c, h, rows in ((32, 48, 1), (30, 64, 1), (32, 64, 25)):
+        assert lib.sbt_lstm_fwd32_smem(c, h, rows) == 0
+    n_sm = ls._n_sm(dev)
+    for r in (580, 1252):
+        rows, blocks = ls.fwd_row_tiles(r, 32, 64, n_sm)
+        assert blocks <= n_sm and rows == -(-r // n_sm)
+    before = (ls.lstm_slab_fwd.launches, lk.lstm_seq_fwd.launches)
+    for (t_len, r, c, h), match in (((5, 9, 32, 48), "H=48"),
+                                    ((5, 9, 30, 64), "C=30")):
+        a = _slab_case((t_len, r, c, h), dev)
+        args = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
+        with pytest.raises(ValueError, match=match):
+            ls.lstm_slab_fwd(*args, False)
+        with pytest.raises(ValueError, match=match):
+            lk.lstm_seq_fwd(*args)
+    a = _slab_case((5, 9, 32, 64), dev)
+    x = torch.empty(a["x"].numel() + 1, device=dev)[1:].view(5, 9, 32)
+    x.copy_(a["x"])
+    args = (a["w_ih"], a["w_hh"], a["b"], x, a["h0"], a["c0"])
+    with pytest.raises(ValueError, match="aligned"):
+        ls.lstm_slab_fwd(*args, True)
+    with pytest.raises(ValueError, match="aligned"):
+        lk.lstm_seq_fwd(*args)
+    assert (ls.lstm_slab_fwd.launches, lk.lstm_seq_fwd.launches) == before
 
 
 # ---- the custom-VJP kernel route (ops/kernels/lstm_train_kernel.py):

@@ -338,6 +338,24 @@ def test_seq_route_not_implemented_cases():
         Net(make_config(SMALL), lstm_scan="fused")
 
 
+def test_fp32_forward_rows_and_limits():
+    """Row 6a's fp32 kernel takes the slab forward's row tiles (one wave:
+    5 rows a block at the inter LSTM's R = 580, 116 blocks; 1 row at the
+    ragged 37) and refuses, before any launch, an H, a C or a shared
+    memory it does not take."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+
+    assert tk.fwd_row_tiles is tslab.fwd_row_tiles
+    assert tk.fwd_row_tiles(580, 32, 64) == (5, 116)
+    assert tk.fwd_row_tiles(37, 32, 64) == (1, 37)
+    for shape, hidden, match in (((3, 5, 32), 48, "H=48"),
+                                 ((3, 5, 30), 64, "C=30"),
+                                 ((3, 5, 4096), 64, "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            tk._check_fwd32_dims(torch.zeros(shape), hidden)
+    assert tk._check_fwd32_dims(torch.zeros(3, 5, 24), 64) == (3, 5, 24, 64)
+
+
 ROUTE_ENV = ("SB_LSTM_FUSED", "SB_LSTM_CUSTOM_VJP", "SB_LSTM_PALLAS_TRAIN")
 
 

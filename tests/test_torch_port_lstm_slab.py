@@ -124,6 +124,38 @@ def test_bwd_row_tiles_past_the_budget():
         assert 132 < blocks <= 264 and rows * blocks >= 2504
 
 
+# R of the fp32 forwards' paths: train_pt at batch 4 (intra 1252, inter 580)
+# and 8 (2504, 1160), and the ragged 37; (rows, blocks) pinned for C = 32
+FWD_ONE_WAVE = {37: (1, 37), 580: (5, 116), 1160: (9, 129), 1252: (10, 126),
+                2504: (19, 132)}
+
+
+@pytest.mark.parametrize("r", list(FWD_ONE_WAVE))
+def test_fwd_row_tiles_fit_one_wave(r):
+    """The fp32 forwards' row tiles (rows 6a, 10a): the fewest rows that fit
+    the grid in one wave of the H100's 132 SMs, covering every row once
+    with no block empty, within the block's shared memory, at the flagship
+    width (C=32, H=64) and the edge widths (C=24, 16)."""
+    for c_in in (32, 24, 16):
+        rows, blocks = tslab.fwd_row_tiles(r, c_in, 64)
+        assert rows == -(-r // 132) and blocks <= 132
+        assert rows * blocks >= r > rows * (blocks - 1)
+        assert tslab.fwd_smem(c_in, 64, rows) <= tslab.SMEM_LIMIT_BYTES
+    assert tslab.fwd_row_tiles(r, 32, 64) == FWD_ONE_WAVE[r]
+
+
+def test_fwd_row_tiles_past_the_budget():
+    """Where one wave's tile would not fit the shared memory (C = 64 at
+    R = 2504) the helper takes the largest tile that does and the grid
+    spills into a second wave; past FWD_ROWS_MAX rows it stops there."""
+    rows, blocks = tslab.fwd_row_tiles(2504, 64, 64)
+    assert tslab.fwd_smem(64, 64, rows) <= tslab.SMEM_LIMIT_BYTES < \
+        tslab.fwd_smem(64, 64, rows + 1)
+    assert 132 < blocks <= 264 and rows * blocks >= 2504
+    rows, blocks = tslab.fwd_row_tiles(10 ** 5, 8, 8)
+    assert rows == tslab.FWD_ROWS_MAX and rows * blocks >= 10 ** 5
+
+
 @pytest.mark.parametrize("t_len", [16, 13])
 def test_autograd_through_lstm_and_blstm_matches_jax_grad(t_len):
     """ops.rnn.lstm (with carried state) and blstm through the autograd

@@ -1,5 +1,5 @@
-"""Time the whole-stack step kernels and the fp32 slab LSTM kernels of one
-or more copies of the port on one card, in turns, to compare two versions
+"""Time the whole-stack step kernels and the LSTM training scans of one or
+more copies of the port on one card, in turns, to compare two versions
 within one run.
 
     python tools/time_stack_kernels.py [TREE ...]
@@ -17,7 +17,9 @@ fp32 at the flagship training path's shapes of chip_smoke.py's phase 6
 batch-8 shapes of phase 13 (intra [145, 2504, 32], inter [313, 1160, 32]);
 and, for each of these four shapes, `torch.profiler`'s split of one
 `lstm_slab_bwd` call among the kernels it launches (device us by kernel
-name). The weights come from this checkout's `runs/`.
+name); then the seq route's single-direction forward `lstm_seq_fwd` (row
+6), 20 launches after one, in fp32 at the inter LSTM's shape of phase 20
+([313, 580, 32]). The weights come from this checkout's `runs/`.
 Give each tree twice to see the spread, e.g. parent, change, change,
 parent. Prints the card's name and power limit, then one JSON line a run.
 Needs one NVIDIA card.
@@ -34,6 +36,8 @@ RUNS = {"flagship": ("finetune_r5", [[0.0, 0.0, 1.0]]),
 SLAB_SHAPES = {"intra": (145, 1252, 32, False), "inter": (313, 580, 32, False),
                "mixed_intra": (145, 2504, 32, True),
                "mixed_inter": (313, 1160, 32, True)}
+# (T, R, C, mixed) of the seq route's single-direction forwards timed
+SEQ_SHAPES = {"inter": (313, 580, 32, False)}
 
 
 def profile_split(fn, calls=5):
@@ -61,6 +65,26 @@ def profile_split(fn, calls=5):
                 .replace("void ", "").split("(")[0]
             split[name] = round(float(us) / ev.count, 3)
     return split
+
+
+def scan_operands(t_len, r, c, mixed, dev, h=64):
+    """(draw, w_ih, w_hh, b, x, h0, c0) of one LSTM scan from seed 0 (bf16
+    x and weights when mixed); draw(*shape, dtype=...) gives more."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    adt = torch.bfloat16 if mixed else torch.float32
+
+    def draw(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, dtype)
+
+    return (draw, draw(c, 4 * h, scale=h ** -0.5, dtype=adt),
+            draw(h, 4 * h, scale=h ** -0.5, dtype=adt),
+            draw(4 * h, scale=h ** -0.5, dtype=adt),
+            draw(t_len, r, c, dtype=adt), draw(r, h) * 0.5,
+            draw(r, h) * 0.5)
 
 
 def child(tree):
@@ -114,19 +138,8 @@ def child(tree):
 
     from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
     for name, (t_len, r, c, mixed) in SLAB_SHAPES.items():
-        rng = np.random.default_rng(0)
-        adt = torch.bfloat16 if mixed else torch.float32
-
-        def draw(*shape, scale=1.0, dtype=torch.float32):
-            return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                    .astype(np.float32)).to(dev, dtype)
-
-        h = 64
-        w = (draw(c, 4 * h, scale=h ** -0.5, dtype=adt),
-             draw(h, 4 * h, scale=h ** -0.5, dtype=adt),
-             draw(4 * h, scale=h ** -0.5, dtype=adt))
-        x = draw(t_len, r, c, dtype=adt)
-        h0, c0 = draw(r, h) * 0.5, draw(r, h) * 0.5
+        draw, *w, x, h0, c0 = scan_operands(t_len, r, c, mixed, dev)
+        adt, h = x.dtype, 64
         with torch.no_grad():
             ys, _, _, ck = ls.lstm_slab_fwd(*w, x, h0, c0, False)
             bargs = (*w, x, ls.shift_prev(ys, h0, False, adt), ck,
@@ -146,6 +159,20 @@ def child(tree):
                 out[f"slab_{name}_{kind}_ms"] = start.elapsed_time(end) / 20
             out[f"slab_{name}_bwd_split_us"] = profile_split(
                 lambda: ls.lstm_slab_bwd(*bargs))
+
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+    for name, (t_len, r, c, mixed) in SEQ_SHAPES.items():
+        fargs = scan_operands(t_len, r, c, mixed, dev)[1:]
+        with torch.no_grad():
+            lk.lstm_seq_fwd(*fargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                lk.lstm_seq_fwd(*fargs)
+            end.record()
+            torch.cuda.synchronize()
+        out[f"seq_{name}_fwd_ms"] = start.elapsed_time(end) / 20
     print(json.dumps(out), flush=True)
 
 
