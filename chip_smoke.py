@@ -149,8 +149,9 @@ Phases 25-28 drive the rest of serving on row 5, the fused inference BLSTM
    against the JAX package's CLIs (`runs/goldens_eval_syn_jax.json`,
    `tools/jax_goldens_eval_syn.py`) and SI-SDRi / decay against
    `runs/goldens_test_samples_jax.json`;
-28. times of row 5, its plain version, its bound and cuDNN's bidirectional
-   LSTM at phase 25's shapes; ms a chunk of `ModelWrapper` on row 5 and on
+28. times of row 5's whole function (one launch: projection and walk), its
+   plain version, its bound and cuDNN's bidirectional LSTM at phase 25's
+   shapes; ms a chunk of `ModelWrapper` on row 5 and on
    the slab kernels and of `streaming_inference_scan`; the offline forward
    and the eval CLIs' seconds a golden.
 
@@ -1928,9 +1929,11 @@ def phase20_seq_kernels(dev, lk, ls):
             shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
                       for s in differ_share(g, w)] if mixed else []
             tiles = ""
-            if nd == 1 and not mixed:
-                tiles = ("row 6a %d rows a block, %d blocks; "
-                         % ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev)))
+            if not mixed:
+                tiles = ("row %s %d rows a block, %d blocks; "
+                         % ("6a" if nd == 1 else "8a",
+                            *ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev),
+                                              nd)))
             log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
                 f"{pname}: {tiles}rows {'/'.join(rows)} max-abs (max-abs / "
                 "peak) "
@@ -2367,6 +2370,9 @@ def phase24_seq_times(dev, lk, card, mod_seq, batch):
             b_b, bf, bbytes = seq_bound_ms(t_len, r, c, SLAB_H, nd, "bwd",
                                            xb=nb, wb=nb)
             tag = "mixed " if mixed else ""
+            if nd == 2 and not mixed:
+                tag = ("(row 8a %d rows a block, %d blocks) "
+                       % lk.fwd_row_tiles(r, c, SLAB_H, lk._n_sm(dev), nd))
             names = SEQ_NAMES[:2] if nd == 1 else SEQ_NAMES[2:]
             for kname, ms, plain, (bound, by), lib in (
                     (names[0], fwd_ms, fwd_plain, b_f, lib_fwd),
@@ -2456,12 +2462,14 @@ EVAL_GOLDENS = os.path.join(REPO, "runs", "goldens_eval_syn_jax.json")
 EVAL_TIMEOUT_S = 600
 
 
-def row5_bound_ms(t_len, r, h):
-    """Least time for one row-5 launch: gx [R, T, 8H] in, y [R, T, 2H]
-    out and the two diagonal H x 4H blocks of W_hh, 4 bytes each, over
-    3.35 TB/s; the recurrence's 2*T*R*2H*4H FLOP over the fp32 rate."""
-    n_bytes = 4 * (t_len * r * 8 * h + 2 * h * 4 * h + t_len * r * 2 * h)
-    flops = 2 * t_len * r * 2 * h * 4 * h
+def row5_bound_ms(t_len, r, c, h):
+    """Least time for row 5's whole function (one launch): x [R, T, C] and
+    each direction's W_ih, W_hh and b in, y [R, T, 2H] out, 4 bytes each,
+    over 3.35 TB/s; the projection's and the recurrence's
+    2*T*R*2*(C+H)*4H FLOP over the fp32 rate."""
+    n_bytes = 4 * (t_len * r * c + 2 * (c + h + 1) * 4 * h
+                   + t_len * r * 2 * h)
+    flops = 2 * t_len * r * 2 * (c + h) * 4 * h
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2722,6 +2730,26 @@ def wrapper_chunk_ms(wrapper, n, rng):
     return (time.perf_counter() - t) / n * 1e3
 
 
+def feed_ops(wrapper, n, rng):
+    """Device operations (kernels, copies, fills) a ModelWrapper.feed
+    enqueues, from torch.profiler's CUDA activity over n chunks after 3
+    (CUPTI now and then drops a record, so this can read a little low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = wrapper.cfg
+    win = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_ch, cfg.n_fft)).astype(np.float32)).to(wrapper.device)
+    for _ in range(3):
+        wrapper.feed(win)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            wrapper.feed(win)
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) / n
+
+
 def cudnn_blstm(params, c, dev):
     """torch.nn.LSTM(bidirectional) with row 5's weights (the library
     yardstick; the port never calls it)."""
@@ -2737,11 +2765,12 @@ def cudnn_blstm(params, c, dev):
 
 
 def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
-    """Row 5 at ROW5_SHAPES (CUDA events), its plain version, its bound,
-    cuDNN's bidirectional LSTM with the projection beside the port's
-    (projection + kernel); ms a chunk of ModelWrapper on row 5 and on the
-    slab kernels, in turns, and of streaming_inference_scan; the offline
-    forward a golden; the eval CLIs' seconds. Returns the kernel line's
+    """Row 5's whole function at ROW5_SHAPES (CUDA events; one launch, the
+    projection included), its plain version, its bound, cuDNN's
+    bidirectional LSTM with its projection; ms a chunk of ModelWrapper on
+    row 5 and on the slab kernels, in turns, and of
+    streaming_inference_scan; the offline forward a golden; the eval CLIs'
+    seconds. Returns the kernel line's
     numbers at the serving main path's shape."""
     from sound_bubble_tpu_torch.evaluation import load_testcase, one_hot
     from sound_bubble_tpu_torch.ops.stft import mod_pad
@@ -2752,30 +2781,28 @@ def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
     with torch.no_grad():
         for name, (params, x) in cases.items():
             r, t_len, c = x.shape
-            w_ih, w_hh, b = rk.pack_blstm_infer(params)
-            gx = rk._project(w_ih, b, x)
-            w_hh = w_hh.contiguous()
             lstm = cudnn_blstm(params, c, dev)
             lib_err = float((lstm(x)[0] - rk.blstm_infer(params, x))
                             .abs().max())
             for _ in range(10):
-                rk.blstm_recur(gx, w_hh)
-            kernel_ms = cuda_ms(lambda: rk.blstm_recur(gx, w_hh), 200)
-            rk.blstm_recur_ref(gx, w_hh)
-            plain_ms = cuda_ms(lambda: rk.blstm_recur_ref(gx, w_hh), 3)
-            fwd_ms = cuda_ms(lambda: rk.blstm_infer(params, x), 100)
+                rk.blstm_infer(params, x)
+            kernel_ms = cuda_ms(lambda: rk.blstm_infer(params, x), 200)
+            rk.blstm_infer_ref(params, x)
+            plain_ms = cuda_ms(lambda: rk.blstm_infer_ref(params, x), 3)
             lstm(x)
-            lib_ms = cuda_ms(lambda: lstm(x), 100)
-            bound_ms, bound_by = row5_bound_ms(t_len, r, ROW5_H)
+            lib_ms = cuda_ms(lambda: lstm(x), 200)
+            bound_ms, bound_by = row5_bound_ms(t_len, r, c, ROW5_H)
             rows[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
+            tile = rk.row_tile(r, c, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
             log(f"phase 28 row 5 {name} [R={r}, T={t_len}, C={c}] on "
-                f"{card}: kernel {kernel_ms:.4f} ms (200 launches), plain "
+                f"{card}: whole function (one launch, %d rows a block, %d "
+                f"blocks) {kernel_ms:.4f} ms (200 calls), plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-                f"port fwd (pack, projection, kernel) {fwd_ms:.4f} ms, "
                 f"cuDNN bidirectional LSTM {lib_ms:.4f} ms (max-abs "
-                f"{lib_err:.1e} from the port)")
+                f"{lib_err:.1e} from the port)" % tile)
 
         rng = np.random.default_rng(SEED)
         row5_w = ModelWrapper(net5, device=dev)
@@ -2785,6 +2812,8 @@ def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
         chunk_ms = {"row5": [], "slab": []}
         for name, wrap in turns:
             chunk_ms[name].append(wrapper_chunk_ms(wrap, 100, rng))
+        ops = {name: feed_ops(wrap, 10, rng)
+               for name, wrap in (("row5", row5_w), ("slab", slab_w))}
         cfg = net5.cfg
         _, mixture, _, _, _ = load_testcase(
             os.path.join(GOLDENS, "syn_1m", "00002"), 24000, 1.0)
@@ -2809,7 +2838,9 @@ def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
             offline_ms[name] = cuda_ms(lambda: net(inputs), 10)
     log(f"phase 28 serving on {card}: ModelWrapper.feed ms a chunk (host "
         f"clock, 100 chunks, in turns) row 5 {np.round(chunk_ms['row5'], 4)}"
-        f", slab kernels {np.round(chunk_ms['slab'], 4)}; "
+        f", slab kernels {np.round(chunk_ms['slab'], 4)}; device operations "
+        f"a chunk (torch.profiler, 10 chunks) row 5 {ops['row5']:.1f}, slab "
+        f"{ops['slab']:.1f}; "
         f"streaming_inference_scan (one CUDA graph of a chunk, {n_clip} "
         f"replays, capture included) {np.round(scan_ms, 4)} ms a chunk; "
         f"offline Net(pad=True) forward of a 2 s golden (CUDA events) row 5 "

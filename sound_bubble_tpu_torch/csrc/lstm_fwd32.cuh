@@ -1,12 +1,17 @@
-// The fp32 forward walk of a single-direction LSTM over scan-major x
-// [T, R, C] (PyTorch cell, gate order [i, f, g, o]; w_ih [C, 4H], w_hh
-// [H, 4H], one folded bias b [4H]), shared by two kernels: the slab scan's
-// forward (`slab_fwd32_kernel`, csrc/lstm_slab.cu; ys, hT, cT and the cell
-// state entering each slab, c_ckpt) and the custom-VJP route's forward
-// (`seq_fwd32_kernel`, csrc/lstm_seq.cu; y and, every frame, the
-// post-activation gates and the cell state). No TF32 and no fast-math: fp32
-// FMA and expf; the activations' reciprocal is `rcp.approx` refined by one
-// Newton step (`sigm`, `tanh2`: within a few ulp, and branch-free).
+// The fp32 forward walk of a single-direction LSTM over x [T, R, C]
+// (PyTorch cell, gate order [i, f, g, o]; w_ih [C, 4H], w_hh [H, 4H], one
+// folded bias b [4H]), shared by four kernels (the walk's mode M): the slab
+// scan's forward (SLAB: `slab_fwd32_kernel`, csrc/lstm_slab.cu; ys, hT, cT
+// and the cell state entering each slab, c_ckpt), the custom-VJP route's
+// forward (SEQ: `seq_fwd32_kernel`, csrc/lstm_seq.cu; y and, every frame,
+// the post-activation gates and the cell state), and, one block a direction
+// and row tile, both directions of a BLSTM from zero states: the route's
+// fused-direction forward (BSEQ: `seq_bfwd32_kernel`, csrc/lstm_seq.cu; the
+// same three outputs at the two-direction layout) and the fused inference
+// BLSTM (INFER: `blstm_infer_kernel`, csrc/lstm_infer.cu; x and y
+// batch-major, y only). No TF32 and no fast-math: fp32 FMA and expf; the
+// activations' reciprocal is `rcp.approx` refined by one Newton step
+// (`sigm`, `tanh2`: within a few ulp, and branch-free).
 //
 // What bounds it (H100, the flagship's training shapes, C = 32, H = 64): the
 // products are 2*T*R*(C+H)*4H = 8.92 GFLOP at T*R = 181,540, 0.133 ms at
@@ -59,11 +64,34 @@
 // spills in the frame body), a 10-row projection pass (spills), and a
 // reduce-scatter without selects (rows in a lane-dependent order): each
 // was slower.
+// Both directions (BSEQ, INFER): the two are independent, so each is a
+// grid half of its own (blocks [0, tiles) walk the forward direction,
+// [tiles, 2 tiles) the backward one, reversed, on its own weights): a
+// block keeps 4H threads and its W_hh in registers, where one block of 8H
+// threads for both would cap a thread at 128 registers. The wrappers take
+// rows a block for one wave of 2 x tiles blocks; the inference BLSTM's
+// projection passes are as wide as its rows (one to four), so a pass of
+// one row at R = 1 computes no padding rows.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace sbt_fwd32 {
+
+// What a walk reads and writes: its mode M.
+enum : int {
+  SLAB = 0,   // x, ys [T, R, H] scan-major, forward or reversed; hT, cT and
+              // c_ckpt
+  SEQ = 1,    // forward: y, post-activation gates [T, R, 4H], c [T, R, H]
+  BSEQ = 2,   // a direction d of a BLSTM, scan-major: y [T, R, 2H] at the
+              // original time, gates [T, R, 8H] (gate g at g*2H) and c
+              // [T, R, 2H] at the walk's step, at the offset d*H (Out's
+              // pointers come offset); W_hh the pack's diagonal block (row
+              // stride 8H); zero initial state
+  INFER = 3,  // a direction d of a BLSTM, batch-major x [R, T, C] and y
+              // [R, T, 2H] (original time, offset d*H) only; zero initial
+              // state
+};
 
 constexpr int KMAX = 8;       // frames a slab (the TPU kernels' K)
 constexpr int ROWS_MAX = 24;  // rows a block
@@ -141,21 +169,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // gx[p] = b + x[p] W_ih for the slab's n rows p (frame-major): thread
 // (up, rs) forms units up and up + H/2, four gates each, at the rows
-// rs + NRS m, PASS rows a pass, four inputs a step. A pass always computes
-// PASS rows (past n: the last row again, not stored), so its loads carry no
+// rs + NRS m, P rows a pass, four inputs a step. A pass always computes
+// P rows (past n: the last row again, not stored), so its loads carry no
 // branch and can run ahead of the FMAs.
-template <int H>
+template <int H, int P = PASS>
 __device__ __forceinline__ void project(const float4* __restrict__ w4,
                                         const float* __restrict__ xt,
                                         float4* __restrict__ gx, int C, int n,
                                         int up, int rs, float4 b0,
                                         float4 b1) {
   constexpr int GS = Dims<H>::GS, H2 = H / 2;
-  for (int p0 = rs; p0 < n; p0 += NRS * PASS) {
-    float4 a0[PASS], a1[PASS];
-    const float* xr[PASS];
+  for (int p0 = rs; p0 < n; p0 += NRS * P) {
+    float4 a0[P], a1[P];
+    const float* xr[P];
 #pragma unroll
-    for (int m = 0; m < PASS; ++m) {
+    for (int m = 0; m < P; ++m) {
       a0[m] = b0;
       a1[m] = b1;
       xr[m] = xt + min(p0 + NRS * m, n - 1) * C;
@@ -169,7 +197,7 @@ __device__ __forceinline__ void project(const float4* __restrict__ w4,
         wb[e] = w4[(k + e) * H + up + H2];
       }
 #pragma unroll
-      for (int m = 0; m < PASS; ++m) {
+      for (int m = 0; m < P; ++m) {
         const float4 v = *reinterpret_cast<const float4*>(xr[m] + k);
         fma4(a0[m], v.x, wa[0]); fma4(a1[m], v.x, wb[0]);
         fma4(a0[m], v.y, wa[1]); fma4(a1[m], v.y, wb[1]);
@@ -178,7 +206,7 @@ __device__ __forceinline__ void project(const float4* __restrict__ w4,
       }
     }
 #pragma unroll
-    for (int m = 0; m < PASS; ++m) {
+    for (int m = 0; m < P; ++m) {
       const int p = p0 + NRS * m;
       if (p < n) {
         gx[p * GS + up] = a0[m];
@@ -217,25 +245,29 @@ __device__ __forceinline__ float4 reduce_rows(const float4* acc, int kq,
   }
 }
 
-// What a frame writes besides h and c (device memory).
+// What a frame writes besides h and c (device memory; BSEQ and INFER: at
+// the direction's offset).
 struct Out {
-  float* y;       // [T, R, H]
-  float* gates;   // [T, R, 4H] post-activation (seq), or null
-  float* cseq;    // [T, R, H] (seq), or null
+  float* y;       // [T, R, H]; BSEQ [T, R, 2H]; INFER [R, T, 2H]
+  float* gates;   // post-activation [T, R, 4H] (SEQ), [T, R, 8H] (BSEQ), or
+                  // null
+  float* cseq;    // [T, R, H] (SEQ), [T, R, 2H] (BSEQ), or null
 };
 
 // Apply the cell of (row, unit cu) from its four gate sums v (gx not yet
 // added). Every lane computes (no branch, so the compiler can overlap
 // groups); the owner lane stores c, h and the frame's outputs. A lane that
 // does not own the cell may read c after its owner wrote it: it stores
-// nothing.
-template <int H, bool SEQ>
+// nothing. base: the index of the tile's first row at this frame's time in
+// y's rows (INFER: rows r*T + t, so row q is base + q*T); sbase: the same
+// at the walk's step in the gates' and c's rows (BSEQ).
+template <int H, int M>
 __device__ __forceinline__ void cell(float4 v, int row, bool own,
                                      const float4* __restrict__ gq,
                                      float* __restrict__ cs,
                                      float* __restrict__ hn, int cu,
                                      int rows, int rt, size_t base,
-                                     const Out& o) {
+                                     size_t sbase, int T, const Out& o) {
   constexpr int HS = Dims<H>::HS, GS = Dims<H>::GS;
   v = add4(v, gq[min(row, rows - 1) * GS + cu]);
   const float ig = sigm(v.x), fg = sigm(v.y), gg = tanh2(v.z),
@@ -248,12 +280,14 @@ __device__ __forceinline__ void cell(float4 v, int row, bool own,
     hn[row * HS + cu] = h;
   }
   if (own && row < rt) {
-    const size_t oi = (base + row) * H + cu;
-    o.y[oi] = h;
-    if constexpr (SEQ) {
-      float* g = o.gates + (base + row) * 4 * H + cu;
-      g[0] = ig; g[H] = fg; g[2 * H] = gg; g[3 * H] = og;
-      o.cseq[oi] = c;
+    constexpr int W = M == BSEQ || M == INFER ? 2 * H : H;  // y's row width
+    const size_t yi = M == INFER ? base + (size_t)row * T : base + row;
+    o.y[yi * W + cu] = h;
+    if constexpr (M == SEQ || M == BSEQ) {
+      const size_t si = (M == BSEQ ? sbase : base) + row;
+      float* g = o.gates + si * 4 * W + cu;
+      g[0] = ig; g[W] = fg; g[2 * W] = gg; g[3 * W] = og;
+      o.cseq[si * W + cu] = c;
     }
   }
 }
@@ -261,12 +295,12 @@ __device__ __forceinline__ void cell(float4 v, int row, bool own,
 // One frame's cells of up to three row groups from row g: NA, NB, NC rows
 // (4, 2 or 1; 0: no group): h . W_hh for all of them, then each group's
 // reduce and cells, as one straight-line body.
-template <int H, bool SEQ, int NA, int NB, int NC>
+template <int H, int M, int NA, int NB, int NC>
 __device__ __forceinline__ void rows_step(
     int g, const float* __restrict__ hc, float* __restrict__ hn,
     const float4* __restrict__ gq, float* __restrict__ cs,
     const float4 (&wr)[Dims<H>::NCH][Dims<H>::KV], int kq, int cu, int rows,
-    int rt, size_t base, const Out& o) {
+    int rt, size_t base, size_t sbase, int T, const Out& o) {
   using D = Dims<H>;
   constexpr int N = NA + NB + NC;
   float4 acc[N];
@@ -294,27 +328,33 @@ __device__ __forceinline__ void rows_step(
   if constexpr (NB > 0) v[1] = reduce_rows<NB>(acc + NA, kq, rho[1], own[1]);
   if constexpr (NC > 0)
     v[2] = reduce_rows<NC>(acc + NA + NB, kq, rho[2], own[2]);
-  cell<H, SEQ>(v[0], g + rho[0], own[0], gq, cs, hn, cu, rows, rt, base, o);
+  cell<H, M>(v[0], g + rho[0], own[0], gq, cs, hn, cu, rows, rt, base, sbase,
+             T, o);
   if constexpr (NB > 0)
-    cell<H, SEQ>(v[1], g + NA + rho[1], own[1], gq, cs, hn, cu, rows, rt,
-                 base, o);
+    cell<H, M>(v[1], g + NA + rho[1], own[1], gq, cs, hn, cu, rows, rt, base,
+               sbase, T, o);
   if constexpr (NC > 0)
-    cell<H, SEQ>(v[2], g + NA + NB + rho[2], own[2], gq, cs, hn, cu, rows,
-                 rt, base, o);
+    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], gq, cs, hn, cu, rows, rt,
+               base, sbase, T, o);
 }
 
-// The walk. SEQ: outputs y, gates and c of every frame (o), forward only;
-// else ys (o.y), hT, cT and c_ckpt, forward or reversed.
-template <int H, bool SEQ>
+// The walk of row tile `tile` in mode M (outputs o; SLAB also hT, cT and
+// c_ckpt), forward or reversed (SEQ: forward only). BSEQ and INFER take no
+// h0 / c0 (zero states). RT > 0: rows is RT, known to the compiler, so a
+// frame's row groups and the projection's passes are fixed at compile time
+// (no jump table, a smaller body); 0: rows as given.
+template <int H, int M, int RT = 0>
 __device__ __forceinline__ void walk(
     const float* __restrict__ x, const float* __restrict__ w_ih,
     const float* __restrict__ w_hh, const float* __restrict__ b,
     const float* __restrict__ h0, const float* __restrict__ c0, Out o,
     float* __restrict__ hT, float* __restrict__ cT,
     float* __restrict__ c_ckpt, int T, int R, int C, int kf, int reverse,
-    int rows) {
+    int rows, int tile) {
   using D = Dims<H>;
   constexpr int NT = D::NT, HS = D::HS, GS = D::GS, H4 = 4 * H;
+  constexpr int WS = M == BSEQ ? 8 * H : H4;  // row stride of w_hh
+  if constexpr (RT > 0) rows = RT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int r4 = (rows + 3) / 4 * 4;
   float4* w4 = reinterpret_cast<float4*>(smem);             // [C][H]
@@ -323,7 +363,7 @@ __device__ __forceinline__ void walk(
   float* hb = xs + KMAX * rows * C;                         // [2][r4][HS]
   float* cs = hb + 2 * r4 * HS;                             // [r4][HS]
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * rows, rt = min(rows, R - row0);
+  const int row0 = tile * rows, rt = min(rows, R - row0);
   const int nb = (T + kf - 1) / kf;
 
   // the slab js's x rows (processing order) into the tile; rows past R: 0
@@ -335,8 +375,10 @@ __device__ __forceinline__ void walk(
       const int r = rem / cv, v = rem - r * cv;
       const int t = reverse ? lo + nf - 1 - q : lo + q;
       float* d = xs + (q * rows + r) * C + 4 * v;
+      const size_t xi = M == INFER ? (size_t)(row0 + r) * T + t
+                                   : (size_t)t * R + row0 + r;
       if (r < rt)
-        cp_async16(d, x + ((size_t)t * R + row0 + r) * C + 4 * v);
+        cp_async16(d, x + xi * C + 4 * v);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -352,9 +394,13 @@ __device__ __forceinline__ void walk(
   }
   for (int i = tid; i < r4 * H; i += NT) {
     const int r = i / H, u = i - r * H;
-    const bool ok = r < rt;
-    hb[r * HS + u] = ok ? h0[(size_t)(row0 + r) * H + u] : 0.f;
-    cs[r * HS + u] = ok ? c0[(size_t)(row0 + r) * H + u] : 0.f;
+    if constexpr (M == BSEQ || M == INFER) {
+      hb[r * HS + u] = cs[r * HS + u] = 0.f;
+    } else {
+      const bool ok = r < rt;
+      hb[r * HS + u] = ok ? h0[(size_t)(row0 + r) * H + u] : 0.f;
+      cs[r * HS + u] = ok ? c0[(size_t)(row0 + r) * H + u] : 0.f;
+    }
   }
   // the chain's lane (uq, kq): unit cu, input chunks kq, kq + 4, ...
   const int lane = tid & 31, kq = lane & 3, cu = (tid >> 5) * 8 + (lane >> 2);
@@ -363,7 +409,7 @@ __device__ __forceinline__ void walk(
   for (int i = 0; i < D::NCH; ++i)
 #pragma unroll
     for (int e = 0; e < D::KV; ++e) {
-      const float* wrow = w_hh + (size_t)(D::KV * (4 * i + kq) + e) * H4;
+      const float* wrow = w_hh + (size_t)(D::KV * (4 * i + kq) + e) * WS;
       wr[i][e] = make_float4(wrow[cu], wrow[H + cu], wrow[2 * H + cu],
                              wrow[3 * H + cu]);
     }
@@ -381,8 +427,19 @@ __device__ __forceinline__ void walk(
     const int lo = blk * kf, nf = min(T, lo + kf) - lo;
     cp_async_wait_all();
     __syncthreads();  // the x tile is in; the last walk is done with gx
-    project<H>(w4, xs, gx, C, nf * rows, up, rs, b0, b1);
-    if constexpr (!SEQ) {
+    if constexpr (M == INFER) {  // passes as wide as the rows (KMAX == NRS)
+      const int n_p = nf * rows;
+      switch (rows) {
+        case 1: project<H, 1>(w4, xs, gx, C, n_p, up, rs, b0, b1); break;
+        case 2: project<H, 2>(w4, xs, gx, C, n_p, up, rs, b0, b1); break;
+        case 3: case 4: project<H, 4>(w4, xs, gx, C, n_p, up, rs, b0, b1);
+          break;
+        default: project<H>(w4, xs, gx, C, n_p, up, rs, b0, b1);
+      }
+    } else {
+      project<H>(w4, xs, gx, C, nf * rows, up, rs, b0, b1);
+    }
+    if constexpr (M == SLAB) {
       for (int i = tid; i < rt * H; i += NT) {
         const int r = i / H, u = i - r * H;
         c_ckpt[((size_t)blk * R + row0 + r) * H + u] = cs[r * HS + u];
@@ -395,14 +452,16 @@ __device__ __forceinline__ void walk(
       const float* hc = hb + (n & 1) * r4 * HS;
       float* hn = hb + ((n + 1) & 1) * r4 * HS;
       const float4* gq = gx + q * rows * GS;
-      const size_t base = (size_t)t * R + row0;
+      const size_t base = M == INFER ? (size_t)row0 * T + t
+                                     : (size_t)t * R + row0;
+      const size_t sbase = (size_t)n * R + row0;  // the walk's step (BSEQ)
       int g = 0;
       for (; rows - g > 12; g += 12)
-        rows_step<H, SEQ, 4, 4, 4>(g, hc, hn, gq, cs, wr, kq, cu, rows, rt,
-                                   base, o);
+        rows_step<H, M, 4, 4, 4>(g, hc, hn, gq, cs, wr, kq, cu, rows, rt,
+                                 base, sbase, T, o);
 #define SBT_ROWS(A, B, C_)                                                   \
-  rows_step<H, SEQ, A, B, C_>(g, hc, hn, gq, cs, wr, kq, cu, rows, rt, base, \
-                              o);                                            \
+  rows_step<H, M, A, B, C_>(g, hc, hn, gq, cs, wr, kq, cu, rows, rt, base,   \
+                            sbase, T, o);                                    \
   break
       switch (rows - g) {  // the last 1-12 rows; 3, 7, 11: one padding row
         case 1: SBT_ROWS(1, 0, 0);
@@ -419,7 +478,7 @@ __device__ __forceinline__ void walk(
       __syncthreads();  // h of this frame is in hn
     }
   }
-  if constexpr (!SEQ) {
+  if constexpr (M == SLAB) {
     const float* hl = hb + (n & 1) * r4 * HS;
     for (int i = tid; i < rt * H; i += NT) {
       const int r = i / H, u = i - r * H;
@@ -430,19 +489,19 @@ __device__ __forceinline__ void walk(
 }
 
 // Launch ks[log2(H / 8)] (the kernel's instantiations for H = 8, 16, 32,
-// 64) over ceil(R / rows) blocks of 4H threads with the walk's shared
-// memory; a CUDA error code, or cudaErrorInvalidValue for a shape the walk
-// does not take.
+// 64) over nd x ceil(R / rows) blocks of 4H threads (nd directions) with
+// the walk's shared memory; a CUDA error code, or cudaErrorInvalidValue for
+// a shape the walk does not take.
 template <typename... P, typename... A>
 int launch(void (*const (&ks)[4])(P...), int H, int C, int T, int R,
-           int rows, cudaStream_t st, A... args) {
+           int rows, int nd, cudaStream_t st, A... args) {
   const size_t smem = smem_bytes(C, H, rows);
   if (!smem || T < 1 || R < 1) return (int)cudaErrorInvalidValue;
   void (*k)(P...) = ks[H == 8 ? 0 : H == 16 ? 1 : H == 32 ? 2 : 3];
   int err = (int)cudaFuncSetAttribute(
       (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  k<<<(R + rows - 1) / rows, 4 * H, smem, st>>>(args...);
+  k<<<nd * ((R + rows - 1) / rows), 4 * H, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -1,149 +1,88 @@
-// Fused-direction inference BLSTM recurrence, fp32: both directions of a
-// bidirectional LSTM from zero states in one walk, on precomputed input
-// projections.
+// Fused-direction inference BLSTM, fp32: both directions of a bidirectional
+// LSTM from zero states, the input projection included, in one launch.
 //
-// Replaces the Pallas TPU kernel of `sound_bubble_tpu/ops/pallas/
-// lstm_kernel.py:blstm_pallas` (body `_kernel`): the recurrence over the
-// gate-major pack of `_pack_weights` (W_hh block-diagonal [2H, 8H], columns
-// [i_f i_b | f_f f_b | g_f g_b | o_f o_b], H columns each). Inputs:
-// - gx [R, T, 8H], gate-major: x @ W_ih + b of both directions at each
-//   original time t (the two directions' columns are disjoint, so one
-//   product gives both). The Pallas kernel takes the backward direction's
-//   rows pre-reversed; here the walk's step n reads the forward columns at
-//   time n and the backward columns at time T-1-n (no flipped copy).
-// - w_hh [2H, 8H], the pack; only its two diagonal H x 4H blocks are read.
-// Output y [R, T, 2H] = [y_f | y_b], both in original time order (the
-// layout `blstm_pallas` returns after its flip). Zero initial (h, c).
+// Replaces the whole of `sound_bubble_tpu/ops/pallas/lstm_kernel.py:
+// blstm_pallas`: its Pallas TPU kernel (body `_kernel`, the recurrence over
+// the gate-major pack of `_pack_weights`) and what the function computes
+// around its `pallas_call` (the pack and the input projection x @ W_ih + b).
+// Inputs: x [R, T, C], batch-major as `blstm_pallas` takes it, and each
+// direction's own w_ih [C, 4H], w_hh [H, 4H], b [4H] as the port stores them
+// (PyTorch cell, gate order [i, f, g, o]). There is no pack: column
+// g*2H + d*H + j of `_pack_weights` is column g*H + j of direction d's
+// tensors, so reading those is the same function. Output y [R, T, 2H] =
+// [y_f | y_b], both in original time order (the layout `blstm_pallas`
+// returns after its flip).
 //
-// What bounds it on an H100: gx in, y out and the diagonal weights, 4 B
-// each: 4*(T*R*8H + 2*H*4H + T*R*2H); 2*T*R*2H*4H FLOP at the fp32 rate.
-// Serving (R = 1, T = 145, H = 64): 0.50 MB, 0.15 us at 3.35 TB/s; offline
-// (R ~ 250 frames of a 2 s clip): 37 MB, 11 us. Neither is reachable: the
-// recurrence is T dependent steps, each an [RT, H] x [H, 4H] product a
-// direction followed by the cell, so the kernel is bound by the latency of
-// one step times T.
+// What bounds it on an H100: x, the weights and y, 4 B each:
+// 4*(R*T*C + 2*(C+H+1)*4H + R*T*2H); the products 2*T*R*2*(C+H)*4H FLOP at
+// the fp32 rate (67 TFLOP/s). Serving (R = 1, T = 145, C = 32, H = 64):
+// 14.3 MFLOP, 0.21 us, and 0.29 MB, 0.09 us; offline (R = 250 frames of a
+// 2 s clip): 3.56 GFLOP, 53 us. Neither is reachable at R = 1: the
+// recurrence is T dependent frames of a row tile.
 //
-// Design (simple first; a cluster or tensor-core `mma` across row tiles is
-// later work):
-// - One thread block owns a tile of RT rows (RT = 1, 2 or 4, the smallest
-//   that keeps the grid within one wave of SMs) and walks all T steps
-//   itself; no block waits on another (no grid sync, no flags, no clusters).
-// - 8H threads; thread `col` owns column col of the pack: its direction's
-//   H weights of that column stay in registers for the whole walk, so
-//   W_hh is read from global memory once.
-// - Per step: each thread forms its gate's pre-activation for the RT rows
-//   (gx, prefetched a step ahead into registers, + h @ W_hh; h broadcast from
-//   shared memory as float4, four partial sums), writes it to shared memory;
-//   after a barrier, thread (row, d, j) of the first RT*2H applies the cell
-//   with c in a register, writes h to shared memory and to y. Two barriers
-//   a step; 2.5 KB to 10 KB of static shared memory, so no attribute to set.
-// No TF32 and no fast-math: fp32 FMA throughout, expf / tanhf.
+// Design: the walk of csrc/lstm_fwd32.cuh in its INFER mode (see there),
+// which the fp32 training forwards (rows 6a, 8a, 10a) share: one block of
+// 4H threads a direction and row tile, the two directions in the two halves
+// of the grid (the backward one walks reversed), rows a block the fewest
+// that keep both halves within one wave (the wrapper's `row_tile`: 1 at
+// R <= 66, 4 at R = 250); each 8-frame slab's x rows copied in by
+// `cp.async` and projected as one product into shared memory before its
+// walk (passes as wide as the rows, so R = 1 computes no padding row),
+// W_hh in registers, one barrier a frame. H = 64 only, the width of every
+// config of the repo. The kernel is compiled for 1 and for 4 rows a block
+// (serving; the offline 2 s clip) besides any rows: with the rows known
+// the frame has no jump table and a smaller body (154 / 186 registers
+// against 239), 16 % faster at R = 1 (PERF.md §6).
+// Why not both directions in one block of 8H threads: a thread could
+// then hold at most 128 registers, where the walk holds ~240 at 4H. Why
+// the projection inside: as ~10 small PyTorch launches around the kernel
+// (pack, product, bias) it made the whole function slower than cuDNN's
+// bidirectional LSTM at R <= 4 (PERF.md §6).
+// No TF32 and no fast-math: fp32 FMA and expf (lstm_fwd32.cuh's activations).
 #include <cuda_runtime.h>
+
+#include "lstm_fwd32.cuh"
 
 namespace {
 
-__device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
-
-template <int H, int RT>
-__global__ void __launch_bounds__(8 * H) blstm_infer_kernel(
-    const float* __restrict__ gx, const float* __restrict__ w_hh,
-    float* __restrict__ y, int T, int R) {
-  constexpr int H2 = 2 * H, H8 = 8 * H;
-  __shared__ float4 gs4[RT * H8 / 4];   // pre-activations [RT][8H]
-  __shared__ float4 hs4[RT * H2 / 4];   // h [RT][2H] = [h_f | h_b]
-  float* gs = reinterpret_cast<float*>(gs4);
-  float* hs = reinterpret_cast<float*>(hs4);
-  const int col = threadIdx.x;          // gate-major column of the pack
-  const int d = (col / H) & 1;          // its direction
-  const int r0 = blockIdx.x * RT;
-
-  // the direction's H weights of this column: rows d*H .. d*H+H-1
-  float w[H];
-#pragma unroll
-  for (int m = 0; m < H; ++m) w[m] = w_hh[(size_t)(d * H + m) * H8 + col];
-  for (int i = col; i < RT * H2; i += H8) hs[i] = 0.f;
-
-  // the cell's item: row q, unit u = d*H + j of [h_f | h_b]
-  const bool cell = col < RT * H2;
-  const int q_c = col / H2, u = col % H2, d_c = u / H;
-  const int r_c = r0 + q_c;
-  float c = 0.f;
-
-  float pre[RT];
-#pragma unroll
-  for (int q = 0; q < RT; ++q) {
-    const int r = r0 + q, t = d ? T - 1 : 0;
-    pre[q] = r < R ? gx[((size_t)r * T + t) * H8 + col] : 0.f;
-  }
-  __syncthreads();
-
-  for (int n = 0; n < T; ++n) {
-    float acc[RT];
-#pragma unroll
-    for (int q = 0; q < RT; ++q) acc[q] = pre[q];
-    // the next step's gx, in flight while this step computes
-    if (n + 1 < T) {
-      const int t = d ? T - 2 - n : n + 1;
-#pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int r = r0 + q;
-        pre[q] = r < R ? gx[((size_t)r * T + t) * H8 + col] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      const float4* h4 = hs4 + (q * H2 + d * H) / 4;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-      for (int m = 0; m < H / 4; ++m) {
-        const float4 hv = h4[m];
-        a0 += hv.x * w[4 * m];
-        a1 += hv.y * w[4 * m + 1];
-        a2 += hv.z * w[4 * m + 2];
-        a3 += hv.w * w[4 * m + 3];
-      }
-      gs[q * H8 + col] = acc[q] + ((a0 + a1) + (a2 + a3));
-    }
-    __syncthreads();
-    if (cell) {
-      const float* g = gs + q_c * H8 + u;
-      const float ig = sigm(g[0]), fg = sigm(g[H2]);
-      const float gg = tanhf(g[2 * H2]), og = sigm(g[3 * H2]);
-      c = fg * c + ig * gg;
-      const float h = og * tanhf(c);
-      hs[q_c * H2 + u] = h;
-      if (r_c < R) {
-        const int t = d_c ? T - 1 - n : n;   // original time of this output
-        y[((size_t)r_c * T + t) * H2 + u] = h;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 constexpr int kH = 64;   // the hidden width of every config of the repo
 
-template <int RT>
-int launch(const float* gx, const float* w_hh, float* y, int T, int R,
-           cudaStream_t st) {
-  blstm_infer_kernel<kH, RT><<<(R + RT - 1) / RT, 8 * kH, 0, st>>>(
-      gx, w_hh, y, T, R);
-  return (int)cudaGetLastError();
+template <int H, int RT>
+__global__ void __launch_bounds__(4 * H, 1) blstm_infer_kernel(
+    const float* __restrict__ x, const float* __restrict__ w_ih_f,
+    const float* __restrict__ w_hh_f, const float* __restrict__ b_f,
+    const float* __restrict__ w_ih_b, const float* __restrict__ w_hh_b,
+    const float* __restrict__ b_b, float* __restrict__ y, int T, int R,
+    int C, int rows) {
+  const int tiles = (R + rows - 1) / rows;
+  const int d = blockIdx.x >= tiles, tile = blockIdx.x - d * tiles;
+  sbt_fwd32::walk<H, sbt_fwd32::INFER, RT>(
+      x, d ? w_ih_b : w_ih_f, d ? w_hh_b : w_hh_f, d ? b_b : b_f, nullptr,
+      nullptr, {y + d * H, nullptr, nullptr}, nullptr, nullptr, nullptr, T,
+      R, C, min(T, sbt_fwd32::KMAX), d, rows, tile);
 }
 
 }  // namespace
 
-// gx [R, T, 8H] gate-major (both directions at original time), w_hh the
-// [2H, 8H] pack, y [R, T, 2H] out; rt rows a block (1, 2 or 4); H = kH.
-extern "C" int sbt_blstm_infer(const float* gx, const float* w_hh, float* y,
-                               int T, int R, int H, int rt, void* stream) {
+// x [R, T, C] (16-byte aligned, C a multiple of 4), each direction's
+// w_ih [C, 4H], w_hh [H, 4H], b [4H], y [R, T, 2H] out; rows a block (the
+// grid is 2 x ceil(R / rows) blocks); H = kH. A CUDA error code, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int sbt_blstm_infer(const float* x, const float* w_ih_f,
+                               const float* w_hh_f, const float* b_f,
+                               const float* w_ih_b, const float* w_hh_b,
+                               const float* b_b, float* y, int T, int R,
+                               int C, int H, int rows, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (T < 1 || R < 1 || H != kH) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (rt) {
-    case 1: return launch<1>(gx, w_hh, y, T, R, st);
-    case 2: return launch<2>(gx, w_hh, y, T, R, st);
-    case 4: return launch<4>(gx, w_hh, y, T, R, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (H != kH) return (int)cudaErrorInvalidValue;
+  using K = void (*const)(const float*, const float*, const float*,
+                          const float*, const float*, const float*,
+                          const float*, float*, int, int, int, int);
+  // serving (R <= 66) walks 1 row a block, the offline 2 s clip 4
+  static K k1[4] = {nullptr, nullptr, nullptr, blstm_infer_kernel<kH, 1>};
+  static K k4[4] = {nullptr, nullptr, nullptr, blstm_infer_kernel<kH, 4>};
+  static K kn[4] = {nullptr, nullptr, nullptr, blstm_infer_kernel<kH, 0>};
+  return sbt_fwd32::launch(rows == 1 ? k1 : rows == 4 ? k4 : kn, H, C, T, R,
+                           rows, 2, (cudaStream_t)stream, x, w_ih_f, w_hh_f,
+                           b_f, w_ih_b, w_hh_b, b_b, y, T, R, C, rows);
 }

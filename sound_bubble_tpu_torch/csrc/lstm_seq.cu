@@ -38,10 +38,14 @@
 // is half of each. In practice the recurrence bounds them all: T dependent
 // steps per row tile, each a [rows, K] x [K, 4H] product.
 //
-// Design of the fp32 single-direction forward (`seq_fwd32_kernel`, row
-// 6a): the walk of csrc/lstm_fwd32.cuh, shared with the slab scan's fp32
-// forward; it takes K = 8 frames a slab too (the function does not depend
-// on K; in fp32 only the order of the sum changes). A `clock64()` split of
+// Design of the fp32 forwards (`seq_fwd32_kernel`, row 6a, and
+// `seq_bfwd32_kernel`, row 8a): the walk of csrc/lstm_fwd32.cuh, shared with
+// the slab scan's fp32 forward; row 8a walks each direction in a grid half
+// of its own (4H threads a block, rows a block for one wave of both
+// halves: 19 at R = 1252, 132 blocks, where the first design's 8-row tiles
+// of 8H threads took two waves). It takes K = 8 frames a slab too (the
+// function does not depend on K; in fp32 only the order of the sum
+// changes). A `clock64()` split of
 // the first design (below) at [313, 580, 32] on an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md §6) found 7,800 cycles a frame:
 // two thirds in the 96-long dot, latency-bound (each step waits on its
@@ -56,8 +60,8 @@
 // eight units a warp at four rows: 32-byte segments, no staging needed.
 //
 // The first design (`seq_fwd_kernel`, simple first; it still runs the
-// mixed forwards and both directions, rows 6b, 8a, 8b; tensor cores, bf16
-// weights in shared memory and wider row tiles are later work):
+// mixed forwards, rows 6b and 8b; tensor cores, bf16 weights in shared
+// memory and wider row tiles are later work):
 // - One thread block owns a tile of RT = 8 rows and walks all T steps
 //   itself, for nd directions at once; no block ever waits on another (no
 //   grid sync, no flags, no clusters). Thread (d, grp, j) computes unit j of
@@ -408,9 +412,11 @@ __global__ void __launch_bounds__(4 * H, 1) seq_fwd32_kernel(
     const float* __restrict__ h0, const float* __restrict__ c0,
     float* __restrict__ y, float* __restrict__ gates,
     float* __restrict__ cseq, int T, int R, int C, int rows) {
-  sbt_fwd32::walk<H, true>(x, w_ih, w_hh, b, h0, c0, {y, gates, cseq},
-                           nullptr, nullptr, nullptr, T, R, C,
-                           min(T, sbt_fwd32::KMAX), 0, rows);
+  sbt_fwd32::walk<H, sbt_fwd32::SEQ>(x, w_ih, w_hh, b, h0, c0,
+                                     {y, gates, cseq}, nullptr, nullptr,
+                                     nullptr, T, R, C,
+                                     min(T, sbt_fwd32::KMAX), 0, rows,
+                                     blockIdx.x);
 }
 
 int seq_fwd32(const void* x, const void* w_ih, const void* w_hh,
@@ -422,10 +428,46 @@ int seq_fwd32(const void* x, const void* w_ih, const void* w_hh,
                              float*, float*, float*, int, int, int, int) = {
       seq_fwd32_kernel<8>, seq_fwd32_kernel<16>, seq_fwd32_kernel<32>,
       seq_fwd32_kernel<64>};
-  return sbt_fwd32::launch(ks, H, C, T, R, rows, st, (const float*)x,
+  return sbt_fwd32::launch(ks, H, C, T, R, rows, 1, st, (const float*)x,
                            (const float*)w_ih, (const float*)w_hh,
                            (const float*)b, h0, c0, (float*)y, (float*)gates,
                            cseq, T, R, C, rows);
+}
+
+// ---- the fp32 fused-direction forward (row 8a): the same walk, one block
+// a direction and row tile: blocks [0, tiles) walk the forward direction,
+// [tiles, 2 tiles) the backward one (reversed) with w_ih_b, b[4H:] and the
+// pack's second diagonal block of W_hh; both write y, gates and c at the
+// direction's offset d*H of the two-direction layout
+
+template <int H>
+__global__ void __launch_bounds__(4 * H, 1) seq_bfwd32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w_ih_f,
+    const float* __restrict__ w_ih_b, const float* __restrict__ w_hh,
+    const float* __restrict__ b, float* __restrict__ y,
+    float* __restrict__ gates, float* __restrict__ cseq, int T, int R,
+    int C, int rows) {
+  const int tiles = (R + rows - 1) / rows;
+  const int d = blockIdx.x >= tiles, tile = blockIdx.x - d * tiles;
+  sbt_fwd32::walk<H, sbt_fwd32::BSEQ>(
+      x, d ? w_ih_b : w_ih_f, w_hh + d * (H * 8 * H + 4 * H), b + d * 4 * H,
+      nullptr, nullptr, {y + d * H, gates + d * H, cseq + d * H}, nullptr,
+      nullptr, nullptr, T, R, C, min(T, sbt_fwd32::KMAX), d, rows, tile);
+}
+
+int seq_bfwd32(const void* x, const void* w_ih_f, const void* w_ih_b,
+               const void* w_hh, const void* b, void* y, void* gates,
+               float* cseq, int T, int R, int C, int H, int rows,
+               cudaStream_t st) {
+  static void (*const ks[4])(const float*, const float*, const float*,
+                             const float*, const float*, float*, float*,
+                             float*, int, int, int, int) = {
+      seq_bfwd32_kernel<8>, seq_bfwd32_kernel<16>, seq_bfwd32_kernel<32>,
+      seq_bfwd32_kernel<64>};
+  return sbt_fwd32::launch(ks, H, C, T, R, rows, 2, st, (const float*)x,
+                           (const float*)w_ih_f, (const float*)w_ih_b,
+                           (const float*)w_hh, (const float*)b, (float*)y,
+                           (float*)gates, cseq, T, R, C, rows);
 }
 
 template <int ND, typename XT, typename WT>
@@ -454,8 +496,8 @@ int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
         return seq_fwd32(x, w_ih_f, w_hh, b, h0, c0, y, gates, cseq, T, R, C,
                          H, rows, st);
       else
-        return seq_fwd<ND, float, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0,
-                                         y, gates, cseq, T, R, C, H, st);
+        return seq_bfwd32(x, w_ih_f, w_ih_b, w_hh, b, y, gates, cseq, T, R,
+                          C, H, rows, st);
     case 1:
       return seq_fwd<ND, bf16, bf16>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
                                      gates, cseq, T, R, C, H, st);
@@ -494,8 +536,9 @@ int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
 // have the activations' type, the saved gates bf16 in the mixed mode. nd = 1:
 // w_ih_b is unused; nd = 2: h0, c0 (forward) and c0, dhT, dcT, dh0, dc0
 // (backward) are unused (zero states), and may be null. rows: rows a block
-// of the fp32 single-direction kernel (nd = 1, dtypes = 0; its shared memory
-// is sbt_lstm_fwd32_smem's), unused by the others.
+// of the fp32 forwards (dtypes = 0; their shared memory is
+// sbt_lstm_fwd32_smem's; nd = 2 launches a grid of 2 x ceil(R / rows)
+// blocks), unused by the others.
 extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H, int nd) {
   return fwd_smem(C, H, nd);
 }

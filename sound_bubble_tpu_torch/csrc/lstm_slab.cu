@@ -941,8 +941,9 @@ __global__ void __launch_bounds__(4 * H, 1) slab_fwd32_kernel(
     float* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
     float* __restrict__ c_ckpt, int T, int R, int C, int kf, int reverse,
     int rows) {
-  sbt_fwd32::walk<H, false>(x, w_ih, w_hh, b, h0, c0, {ys, nullptr, nullptr},
-                            hT, cT, c_ckpt, T, R, C, kf, reverse, rows);
+  sbt_fwd32::walk<H, sbt_fwd32::SLAB>(x, w_ih, w_hh, b, h0, c0,
+                                      {ys, nullptr, nullptr}, hT, cT, c_ckpt,
+                                      T, R, C, kf, reverse, rows, blockIdx.x);
 }
 
 int slab_fwd32(const void* x, const void* w_ih, const void* w_hh,
@@ -956,7 +957,7 @@ int slab_fwd32(const void* x, const void* w_ih, const void* w_hh,
       slab_fwd32_kernel<8>, slab_fwd32_kernel<16>, slab_fwd32_kernel<32>,
       slab_fwd32_kernel<64>};
   if (kf < 1 || kf > sbt_fwd32::KMAX) return (int)cudaErrorInvalidValue;
-  return sbt_fwd32::launch(ks, H, C, T, R, rows, st, (const float*)x,
+  return sbt_fwd32::launch(ks, H, C, T, R, rows, 1, st, (const float*)x,
                            (const float*)w_ih, (const float*)w_hh,
                            (const float*)b, h0, c0, (float*)ys, hT, cT,
                            c_ckpt, T, R, C, kf, reverse, rows);

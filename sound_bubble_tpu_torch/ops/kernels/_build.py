@@ -136,7 +136,7 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_lstm_seq_fwd.restype = i32
             lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
             lib.sbt_lstm_seq_bwd.restype = i32
-            lib.sbt_blstm_infer.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+            lib.sbt_blstm_infer.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             lib.sbt_blstm_infer.restype = i32
             _lib = lib
         return _lib

@@ -2,34 +2,35 @@
 `sound_bubble_tpu/ops/pallas/lstm_kernel.py` (`_pack_weights`,
 `blstm_pallas`), row 5 of PERF.md's kernel table.
 
-Both directions of a bidirectional LSTM from zero states in one walk, for
+Both directions of a bidirectional LSTM from zero states in one launch, for
 inference (no backward, as `blstm_pallas` has no VJP), in float32:
 
-- `pack_blstm_infer`: the gate-major pack of `_pack_weights` from the port's
-  own `{fwd, bwd: {w_ih, w_hh, b}}` params, so a checkpoint of either package
-  serves on this route with no other conversion.
 - `blstm_infer(params, x)`: x [R, T, C] -> y [R, T, 2H] = [y_f | y_b], both
-  in original time order. The input projection of both directions is one
-  plain product, x @ (w_ih[0] + w_ih[1]) + b (their columns are disjoint), as
-  the JAX package computes it outside its `pallas_call`; the recurrence is
-  `blstm_recur`: the hand-written CUDA kernel of
-  `sound_bubble_tpu_torch/csrc/lstm_infer.cu` for tensors on the card
-  (`blstm_infer.launches` counts its launches), the plain PyTorch version
-  `blstm_recur_ref` for tensors on the CPU. A CUDA tensor goes to the kernel
-  or the call raises: a hidden width other than the one the kernel is
-  built for (`HIDDEN`, the width of every config of the repo) raises
-  ValueError, never the plain version.
-- `blstm_infer_ref`: the plain version of the whole function (projection and
-  `blstm_recur_ref`), the CPU tests' reference.
+  in original time order, from the port's own `{fwd, bwd: {w_ih, w_hh, b}}`
+  params, so a checkpoint of either package serves on this route with no
+  other conversion. It runs `blstm_recur`: the hand-written CUDA kernel of
+  `sound_bubble_tpu_torch/csrc/lstm_infer.cu` for tensors on the card (one
+  launch a call, projection included; `blstm_infer.launches` counts them),
+  the plain version for tensors on the CPU. A CUDA tensor goes to the kernel
+  or the call raises: a hidden width other than the one the kernel is built
+  for (`HIDDEN`, the width of every config of the repo) raises ValueError,
+  never the plain version.
+- `blstm_infer_ref`: the plain version (of the kernel and of the whole
+  function): `pack_blstm_infer`, the gate-major pack of `_pack_weights`; the
+  input projection of both directions as one product, x @ (w_ih[0] +
+  w_ih[1]) + b (their columns are disjoint), as the JAX package computes it
+  outside its `pallas_call`; then `blstm_recur_ref`, the Pallas body's walk
+  over the pack. The CPU tests' reference.
 
-The kernel walks step n with the forward direction's columns of gx at time
-n and the backward direction's at T-1-n; the Pallas kernel takes a copy of
-the backward rows pre-reversed instead. The function is the same.
+The kernel reads the six tensors as they are, with no pack: pack column
+g*2H + d*H + j is column g*H + j of direction d's tensors. It walks each
+direction in a block of its own (the backward one reversed) and projects
+x inside the walk, 8 frames at a time; rows a block from `row_tile`.
 
 Differences from the JAX route, by design:
 - No VMEM gate. `ops/rnn.py:blstm` takes this route for every 3-D input when
   the caller asks for it; the JAX package falls back to its scans when
-  R*T*(8H+2H)*4 bytes exceed 8 MB, a TPU VMEM limit. Here gx streams from
+  R*T*(8H+2H)*4 bytes exceed 8 MB, a TPU VMEM limit. Here x streams from
   device memory, so no size falls back.
 - bf16 raises NotImplementedError: the Pallas kernel keeps bf16 h and c
   scratch for a bf16 input, another rounding than float32, and bf16 serving
@@ -43,7 +44,8 @@ import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
-    BF16, F32, _check, _dispatch, _stream)
+    BF16, F32, N_SM, _check, _check_fwd32_dims, _dispatch, _n_sm, _stream,
+    fwd_row_tiles)
 
 HIDDEN = 64              # the hidden width the kernel is built for
 
@@ -92,10 +94,10 @@ def _project(w_ih, b, x):
 
 
 def blstm_recur_ref(gx, w_hh):
-    """Plain version of the kernel (the Pallas body `_kernel`): the walk
-    over gx [R, T, 8H] with the whole pack w_hh [2H, 8H]; step n takes the
-    forward columns at time n and the backward columns at T-1-n. Returns y
-    [R, T, 2H] in original time order."""
+    """The Pallas body `_kernel`'s walk, the recurrence of the plain
+    version: over gx [R, T, 8H] with the whole pack w_hh [2H, 8H]; step n
+    takes the forward columns at time n and the backward columns at T-1-n.
+    Returns y [R, T, 2H] in original time order."""
     r, t_len, h8 = gx.shape
     h2, hidden = h8 // 4, h8 // 8
     bwd_col = (torch.arange(h8, device=gx.device) // hidden) % 2 == 1
@@ -115,34 +117,38 @@ def blstm_recur_ref(gx, w_hh):
     return y
 
 
-def row_tile(r: int, n_sm: int) -> int:
-    """Rows a thread block walks: the fewest (1, 2 or 4) that keep the grid
-    within one wave of n_sm blocks, else 4."""
-    for rt in (1, 2):
-        if -(-r // rt) <= n_sm:
-            return rt
-    return 4
+def row_tile(r: int, c_in: int, n_sm: int = N_SM) -> tuple[int, int]:
+    """(rows a block, blocks) of the kernel for R = r rows at input width
+    c_in: each direction a grid half of ceil(r / rows) blocks, the fewest
+    rows that keep both halves within one wave of n_sm blocks."""
+    return fwd_row_tiles(r, c_in, HIDDEN, n_sm, nd=2)
 
 
-def _launch(gx, w_hh):
-    dev = gx.device
-    _check("gx", gx, gx.shape, dev, F32)
-    if gx.dim() != 3 or gx.shape[-1] % 8:
-        raise ValueError(f"gx {tuple(gx.shape)}: expected [R, T, 8H]")
-    r, t_len, h8 = gx.shape
-    hidden = h8 // 8
+def _launch(params, x):
+    dev = x.device
+    if x.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}: expected [R, T, C]")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    r, t_len, c_in = x.shape
+    hidden = params["fwd"]["w_hh"].shape[0]
     if hidden != HIDDEN:
         raise ValueError(f"H={hidden}: the kernel is built for H={HIDDEN}")
-    _check("w_hh", w_hh, (2 * hidden, h8), dev, F32)
-    if r < 1 or t_len < 1:
-        raise ValueError(f"empty walk: gx {tuple(gx.shape)}")
+    shapes = {"w_ih": (c_in, 4 * hidden), "w_hh": (hidden, 4 * hidden),
+              "b": (4 * hidden,)}
+    weights = []
+    for d in ("fwd", "bwd"):
+        for k, shape in shapes.items():
+            _check(f"{d}.{k}", params[d][k], shape, dev, F32)
+            weights.append(params[d][k])
+    _check_fwd32_dims(x.transpose(0, 1), hidden)   # it reads [T, R, C]
     lib = _build.load_library()
-    rt = row_tile(r, torch.cuda.get_device_properties(dev)
-                  .multi_processor_count)
+    rows = row_tile(r, c_in, _n_sm(dev))[0]
     y = torch.empty((r, t_len, 2 * hidden), dtype=F32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.sbt_blstm_infer(gx.data_ptr(), w_hh.data_ptr(),
-                                 y.data_ptr(), t_len, r, hidden, rt,
+        rc = lib.sbt_blstm_infer(x.data_ptr(),
+                                 *(w.data_ptr() for w in weights),
+                                 y.data_ptr(), t_len, r, c_in, hidden, rows,
                                  _stream(dev))
     if rc != 0:
         raise RuntimeError(f"blstm_infer kernel launch failed: CUDA error "
@@ -151,26 +157,29 @@ def _launch(gx, w_hh):
     return y
 
 
-def blstm_recur(gx, w_hh):
-    """Row 5's recurrence: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. gx [R, T, 8H], w_hh [2H, 8H] -> y [R, T, 2H]."""
-    return _dispatch(gx, _launch, blstm_recur_ref, (gx, w_hh))
+def _plain(params, x):
+    w_ih, w_hh, b = pack_blstm_infer(params)
+    return blstm_recur_ref(_project(w_ih, b, x), w_hh)
+
+
+def blstm_recur(params, x):
+    """Row 5: the CUDA kernel for CUDA tensors (one launch: projection and
+    walk), the plain version for CPU tensors. x [R, T, C] -> y [R, T, 2H]."""
+    return _dispatch(x, _launch, _plain, (params, x))
 
 
 def blstm_infer_ref(params, x):
     """Plain version of `blstm_infer` (of `blstm_pallas`): x [R, T, C] ->
     y [R, T, 2H]."""
     _check_call(params, x)
-    w_ih, w_hh, b = pack_blstm_infer(params)
-    return blstm_recur_ref(_project(w_ih, b, x), w_hh)
+    return _plain(params, x)
 
 
 def blstm_infer(params, x):
     """Fused bidirectional LSTM over axis -2 for inference: x [R, T, C] ->
-    [R, T, 2H]; the recurrence on the row-5 kernel for CUDA tensors."""
+    [R, T, 2H]; one launch of the row-5 kernel for CUDA tensors."""
     _check_call(params, x)
-    w_ih, w_hh, b = pack_blstm_infer(params)
-    return blstm_recur(_project(w_ih, b, x), w_hh.contiguous())
+    return blstm_recur(params, x)
 
 
 blstm_infer.launches = 0

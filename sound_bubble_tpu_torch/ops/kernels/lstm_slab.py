@@ -227,17 +227,21 @@ def fwd_smem(c_in: int, hidden: int, rows: int) -> int:
             + 4 * K * rows * c_in + 12 * r4 * (hidden + 8))
 
 
-def fwd_row_tiles(r: int, c_in: int, hidden: int,
-                  n_sm: int = N_SM) -> tuple[int, int]:
-    """(rows a block, blocks) of the fp32 forwards (rows 6a, 10a) for R = r
-    rows: the fewest rows that keep the grid within one wave of n_sm blocks
-    (one block an SM), fewer where the block's shared memory would not fit
-    (then the grid takes more waves). A block walks its rows' T frames in
-    series, so its rows set the kernel's time."""
-    rows = min(FWD_ROWS_MAX, -(-r // n_sm))
+def fwd_row_tiles(r: int, c_in: int, hidden: int, n_sm: int = N_SM,
+                  nd: int = 1) -> tuple[int, int]:
+    """(rows a block, blocks) of the fp32 forward walk for R = r rows and nd
+    directions (rows 6a, 10a: one; rows 5, 8a: two, each direction a grid
+    of its own ceil(r / rows) row tiles): the fewest rows that keep the grid
+    within one wave of n_sm blocks (one block an SM), fewer where the
+    block's shared memory would not fit (then the grid takes more waves). A
+    block walks its rows' T frames in series, so its rows set the kernel's
+    time."""
+    rows = min(FWD_ROWS_MAX, -(-nd * r // n_sm))
+    while rows < FWD_ROWS_MAX and nd * -(-r // rows) > n_sm:
+        rows += 1
     while rows > 1 and fwd_smem(c_in, hidden, rows) > SMEM_LIMIT_BYTES:
         rows -= 1
-    return rows, -(-r // rows)
+    return rows, nd * -(-r // rows)
 
 
 def _check_fwd32_dims(x, hidden):

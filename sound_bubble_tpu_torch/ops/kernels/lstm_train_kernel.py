@@ -16,7 +16,7 @@ the kernel or the call raises.
 - `lstm_seq_bwd` (Pallas `lstm_seq_bwd`): the backward walk from the saved
   gates and c; returns the gate gradients dgates [T, R, 4H] in `out_dtype`
   and dh0, dc0 [R, H] in float32.
-- `blstm_seq_fwd` (Pallas `_blstm_fwd`): both directions in one walk on the
+- `blstm_seq_fwd` (Pallas `_blstm_fwd`): both directions in one launch on the
   pack of `_blstm_pack` (W_hh block-diagonal [2H, 8H], direction-major; the
   kernel multiplies only its two diagonal blocks); the backward direction
   reads x at the mirrored time. Returns y [T, R, 2H] = [y_fwd | y_bwd], both
@@ -27,13 +27,15 @@ the kernel or the call raises.
   direction-major ([di_f, df_f, dg_f, do_f | di_b, ...]) at the walk's step;
   dy_b is read at the mirrored time.
 
-`lstm_seq_fwd` in float32 launches the walk of `csrc/lstm_fwd32.cuh`,
-which it shares with the slab scan's float32 forward: rows a block from
-`lstm_slab.fwd_row_tiles` (one wave of the card's SMs), each 8-frame slab's
-input projection as one product into shared memory before its walk, W_hh in
-registers, four rows at a time on the serial chain; it takes H in 8, 16,
-32, 64 and C a multiple of 4. The other three, and the mixed forwards, run
-the first design (8-row tiles, 4H <= 256, forward C <= 2H).
+`lstm_seq_fwd` and `blstm_seq_fwd` in float32 launch the walk of
+`csrc/lstm_fwd32.cuh`, which they share with the slab scan's float32
+forward: rows a block from `lstm_slab.fwd_row_tiles` (one wave of the
+card's SMs; `blstm_seq_fwd` walks each direction in a grid half of its
+own), each 8-frame slab's input projection as one product into shared
+memory before its walk, W_hh in registers, four rows at a time on the
+serial chain; they take H in 8, 16, 32, 64 and C a multiple of 4. The
+backward walks and the mixed forwards run the first design (8-row tiles,
+4H <= 256, forward C <= 2H).
 
 `lstm_seq` and `blstm_seq` are the `torch.autograd.Function`s, the
 counterparts of `lstm_pallas_train` and `blstm_pallas_train`: their
@@ -239,9 +241,9 @@ def _dtype_code(xdt, w_hh) -> int:
 
 
 def _check_dims(nd, hidden, smem, c_in=None):
-    """What the first-design kernels (every one but the fp32 single-direction
-    forward, which `lstm_slab._check_fwd32_dims` checks) take: 4H <= 256,
-    C <= 2H (forward), shared memory within a block's limit."""
+    """What the first-design kernels (every one but the fp32 forwards, which
+    `lstm_slab._check_fwd32_dims` checks) take: 4H <= 256, C <= 2H
+    (forward), shared memory within a block's limit."""
     if 4 * hidden > 256:
         raise ValueError(f"H={hidden}: the kernels run 4H threads a "
                          "direction and row group, at most 256")
@@ -274,9 +276,9 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
     hidden = w_ihs[0].shape[-1] // 4
     lib = _build.load_library()
     rows = 0
-    if nd == 1 and not code:
+    if not code:
         _check_fwd32_dims(x, hidden)
-        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev))[0]
+        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd)[0]
     else:
         _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden, nd),
                     c_in)

@@ -857,6 +857,91 @@ def test_seq_kernels_reject_bad_operands():
                          .contiguous().transpose(0, 1), torch.float32)
 
 
+# ---- row 8a: the fp32 fused-direction forward on the walk of
+# csrc/lstm_fwd32.cuh, one grid half a direction. (T, R, C) at H = 64: the
+# intra training shape, the edge widths (C = 24, 16), the ragged R = 37 with
+# T = 13, T = 1; rows a block with a 1-, 2- and 3-row tail (see
+# `_bfwd_tail_rows`)
+BFWD32_SHAPES = {"intra": (145, 1252, 32), "edge_intra": (29, 1252, 24),
+                 "rpi_intra": (29, 1252, 16), "ragged": (13, 37, 32),
+                 "one": (1, 9, 32)}
+
+
+def _bfwd_tail_rows(tail, n_sm):
+    """The least R >= 150 whose two-direction row tiles on n_sm SMs have
+    rows % 4 == tail (a last row group of `tail` rows) and a last tile of
+    `tail` rows."""
+    for r in range(150, 2000):
+        rows, _ = ls.fwd_row_tiles(r, 32, 64, n_sm, nd=2)
+        if rows % 4 == tail and r % rows == tail:
+            return r
+    raise AssertionError(f"no R for a {tail}-row tail")
+
+
+def _bfwd_check(t_len, r, c, dev, seed=0):
+    """blstm_seq_fwd in fp32 against its plain version: y, gates and c
+    within 1e-4 max-abs, one launch; returns the operands and outputs."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    a = _seq_case((t_len, r, c, 64), dev, "fp32", seed)
+    pack = lk._blstm_pack(
+        {"w_ih": a["w_ih"], "w_hh": a["w_hh"], "b": a["b"]},
+        {"w_ih": a["w_ih_b"], "w_hh": a["w_hh_b"], "b": a["b_b"]})
+    before = (lk.blstm_seq_fwd.launches, lk.blstm_seq_fwd.mixed_launches)
+    with torch.no_grad():
+        got = lk.blstm_seq_fwd(*pack, a["x"])
+        torch.cuda.synchronize()
+        want = lk.blstm_seq_fwd_ref(*pack, a["x"])
+    for g, w, name in zip(got, want, ("y", "gates", "c")):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert float((g - w).abs().max()) <= TOL, name
+    assert (lk.blstm_seq_fwd.launches - before[0],
+            lk.blstm_seq_fwd.mixed_launches - before[1]) == (1, 0)
+    return a, got
+
+
+@pytest.mark.parametrize("shape", list(BFWD32_SHAPES))
+def test_blstm_fwd32_matches_plain(shape):
+    """Row 8a in fp32 against `blstm_seq_fwd_ref` at the training shapes,
+    a ragged R, T = 1; its grid is one wave of both directions' tiles at
+    R = 1252."""
+    dev = _card()
+    t_len, r, c = BFWD32_SHAPES[shape]
+    _bfwd_check(t_len, r, c, dev)
+    n_sm = ls._n_sm(dev)
+    if r == 1252:
+        rows, blocks = ls.fwd_row_tiles(r, c, 64, n_sm, nd=2)
+        assert blocks <= n_sm and blocks == 2 * -(-r // rows)
+
+
+@pytest.mark.parametrize("tail", [1, 2, 3])
+def test_blstm_fwd32_row_tails(tail):
+    """Row 8a where a block's last row group, and the grid's last tile,
+    hold 1, 2 or 3 rows."""
+    dev = _card()
+    _bfwd_check(9, _bfwd_tail_rows(tail, ls._n_sm(dev)), 32, dev, tail)
+
+
+def test_blstm_fwd32_backward_direction_at_the_walks_step():
+    """The backward direction's half of row 8a's outputs is the
+    single-direction forward on the reversed input (zero states): its gates
+    and c at the walk's step (gate g at columns g*2H + H ...), its y at the
+    original time."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    t_len, r, h = 13, 37, 64
+    a, (y, gates, c) = _bfwd_check(t_len, r, 32, dev, 3)
+    zeros = torch.zeros(r, h, device=dev)
+    with torch.no_grad():
+        y_b, g_b, c_b = lk.lstm_seq_fwd_ref(a["w_ih_b"], a["w_hh_b"], a["b_b"],
+                                            a["x"].flip(0), zeros, zeros)
+    g_half = gates.reshape(t_len, r, 4, 2, h)[:, :, :, 1]
+    assert float((g_half - g_b.reshape(t_len, r, 4, h)).abs().max()) <= TOL
+    assert float((c[..., h:] - c_b).abs().max()) <= TOL
+    assert float((y[..., h:] - y_b.flip(0)).abs().max()) <= TOL
+
+
 # ---- row 5: the fused inference BLSTM (ops/kernels/lstm_kernel.py)
 
 # (R, T, C) at H = 64: serving one stream at the flagship's width (F = 145,
@@ -884,6 +969,33 @@ def _row5_case(shape, dev, h=64, seed=0):
 
 
 @pytest.mark.parametrize("shape", list(ROW5_SHAPES))
+def test_blstm_infer_is_one_device_kernel(shape):
+    """Row 5's whole function on the card is one kernel a call, the
+    projection included: torch.profiler sees no other device work (no
+    product, no copy) over 5 calls. CUPTI now and then drops a record, so
+    4 or 5 kernel records pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+
+    dev = _card()
+    params, x = _row5_case(ROW5_SHAPES[shape], dev)
+    with torch.no_grad():
+        rk.blstm_infer(params, x)
+        torch.cuda.synchronize()
+        before = rk.blstm_infer.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                rk.blstm_infer(params, x)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert rk.blstm_infer.launches == before + 5
+    assert 4 <= len(names) <= 5, names
+    assert all("blstm_infer_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("shape", list(ROW5_SHAPES))
 def test_blstm_infer_kernel_matches_plain(shape):
     from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
 
@@ -897,6 +1009,26 @@ def test_blstm_infer_kernel_matches_plain(shape):
     assert rk.blstm_infer.launches == before + 1
     assert got.shape == want.shape == x.shape[:2] + (128,)
     assert float((got - want).abs().max()) <= ROW5_TOL
+
+
+def test_blstm_infer_takes_strided_and_unaligned_x():
+    """x as a transposed view and at an offset that is not 16-byte aligned
+    (the kernel copies x in 16-byte pieces): the wrapper gives the kernel
+    an aligned contiguous copy; the same y as for contiguous x."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+
+    dev = _card()
+    params, x = _row5_case((3, 29, 32), dev)
+    with torch.no_grad():
+        want = rk.blstm_infer(params, x)
+        strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+        flat = torch.empty(x.numel() + 1, device=dev)
+        unaligned = flat[1:].view(x.shape)
+        unaligned.copy_(x)
+        for got in (rk.blstm_infer(params, strided),
+                    rk.blstm_infer(params, unaligned)):
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
 
 
 def test_blstm_infer_refuses_what_the_kernel_does_not_take(monkeypatch):

@@ -356,6 +356,32 @@ def test_fp32_forward_rows_and_limits():
     assert tk._check_fwd32_dims(torch.zeros(3, 5, 24), 64) == (3, 5, 24, 64)
 
 
+@pytest.mark.parametrize("r", [37, 580, 1252, 2504])
+def test_blstm_fwd32_rows(r):
+    """Row 8a's fp32 grid: each direction a half of ceil(R / rows) blocks,
+    the fewest rows that keep both halves within one wave of the H100's
+    132 SMs and the block within its shared memory, at the flagship width
+    (C = 32) and the edge widths (C = 24, 16); 19 rows, 132 blocks at the
+    intra R = 1252. At R = 2504 (batch 8) one wave does not fit: the
+    largest tile that does, two waves."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+
+    for c_in in (32, 24, 16):
+        rows, blocks = tk.fwd_row_tiles(r, c_in, 64, nd=2)
+        half = -(-r // rows)
+        assert blocks == 2 * half and rows * half >= r > rows * (half - 1)
+        assert tslab.fwd_smem(c_in, 64, rows) <= tslab.SMEM_LIMIT_BYTES
+        if r < 2504:
+            assert blocks <= 132 and rows == -(-2 * r // 132)
+        else:
+            assert 132 < blocks <= 264
+            assert tslab.fwd_smem(c_in, 64, rows + 1) > \
+                tslab.SMEM_LIMIT_BYTES
+    if r == 1252:
+        assert tk.fwd_row_tiles(r, 32, 64, nd=2) == (19, 132)
+        assert tslab.fwd_smem(32, 64, 19) == 230016
+
+
 ROUTE_ENV = ("SB_LSTM_FUSED", "SB_LSTM_CUSTOM_VJP", "SB_LSTM_PALLAS_TRAIN")
 
 

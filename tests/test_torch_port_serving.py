@@ -174,8 +174,13 @@ def test_pallas_blstm_from_env():
 
 
 def test_row_tile():
-    assert [lk.row_tile(r, 132) for r in (1, 132, 133, 264, 265, 1252)] == \
-        [1, 1, 2, 2, 4, 4]
+    """(rows a block, blocks) of row 5's grid, one half a direction: the
+    fewest rows for one wave of 132 SMs (1 row up to R = 66; the offline
+    R = 250 at 4); at C = 24 the same."""
+    rs = (1, 4, 66, 67, 250, 1252)
+    want = [(1, 2), (1, 8), (1, 132), (2, 68), (4, 126), (19, 132)]
+    assert [lk.row_tile(r, 32, 132) for r in rs] == want
+    assert [lk.row_tile(r, 24, 132) for r in rs] == want
 
 
 def _pair(variant, x):

@@ -1,5 +1,6 @@
-"""Split one block's cycles of the fp32 LSTM forwards (rows 6a and 10a, the
-walk of `sound_bubble_tpu_torch/csrc/lstm_fwd32.cuh`) by phase, on one card.
+"""Split one block's cycles of the fp32 LSTM forwards (rows 5, 6a, 8a and
+10a, the walk of `sound_bubble_tpu_torch/csrc/lstm_fwd32.cuh`) by phase, on
+one card.
 
     python tools/split_fwd_cycles.py [OUT_DIR]
 
@@ -9,7 +10,9 @@ Copies this checkout's `sound_bubble_tpu_torch/` into OUT_DIR (default
 shared memory, added into a `__device__` array at the block's end and read
 back through an extra C entry point a source), builds the copy and runs the
 slab forward at the flagship's intra [145, 1252, 32] and inter
-[313, 580, 32] shapes and the seq forward at the inter shape. Prints the
+[313, 580, 32] shapes, the seq forward at the inter shape, its
+fused-direction forward (row 8a) at the intra shape and row 5's whole
+function at one stream ([R, T, C] = [1, 145, 32]). Prints the
 card's name and power limit, then one JSON line a shape: cycles a frame of
 thread 0's block and their split (the x tile's wait and the slab's first
 barrier; the projection and c_ckpt; the second barrier and the next x
@@ -29,7 +32,8 @@ PHASES = ("wait x + barrier", "project + ckpt", "barrier + load_x",
           "h.W FMA", "reduce", "cell", "frame barrier")
 # (kernel, T, R, C) timed
 SHAPES = (("slab", 145, 1252, 32), ("slab", 313, 580, 32),
-          ("seq", 313, 580, 32))
+          ("seq", 313, 580, 32), ("bseq", 145, 1252, 32),
+          ("infer", 145, 1, 32))
 STAMP = ("#define ST(i, t0) do { if (threadIdx.x == 0) { long long _n = "
          "clock64(); sacc[i] += _n - t0; t0 = _n; } } while (0)\n")
 # (text of lstm_fwd32.cuh, its instrumented replacement), each found once
@@ -37,19 +41,21 @@ EDITS = (
     ("namespace sbt_fwd32 {\n",
      "namespace sbt_fwd32 {\nstatic __device__ unsigned long long "
      "g_split[16];\n" + STAMP),
-    ("    int rt, size_t base, const Out& o) {\n  using D = Dims<H>;\n",
-     "    int rt, size_t base, const Out& o, unsigned long long* sacc) {\n"
+    ("    int rt, size_t base, size_t sbase, int T, const Out& o) {\n"
+     "  using D = Dims<H>;\n",
+     "    int rt, size_t base, size_t sbase, int T, const Out& o,\n"
+     "    unsigned long long* sacc) {\n"
      "  using D = Dims<H>;\n  long long t0 = clock64();\n"),
     ("  int rho[3] = {0, 0, 0};", "  ST(3, t0);\n  int rho[3] = {0, 0, 0};"),
-    ("  cell<H, SEQ>(v[0], g + rho[0]", "  ST(4, t0);\n  cell<H, SEQ>(v[0], "
+    ("  cell<H, M>(v[0], g + rho[0]", "  ST(4, t0);\n  cell<H, M>(v[0], "
      "g + rho[0]"),
-    ("                 rt, base, o);\n}", "                 rt, base, o);\n"
-     "  ST(5, t0);\n}"),
-    ("                                   base, o);",
-     "                                   base, o, sacc);"),
-    ("                              o);                                     "
+    ("               base, sbase, T, o);\n}",
+     "               base, sbase, T, o);\n  ST(5, t0);\n}"),
+    ("                                 base, sbase, T, o);",
+     "                                 base, sbase, T, o, sacc);"),
+    ("                            sbase, T, o);                             "
      "       \\",
-     "                              o, sacc);                               "
+     "                            sbase, T, o, sacc);                       "
      "       \\"),
     ("  const int nb = (T + kf - 1) / kf;\n",
      "  const int nb = (T + kf - 1) / kf;\n  __shared__ unsigned long long "
@@ -65,10 +71,10 @@ EDITS = (
     ("      __syncthreads();  // h of this frame is in hn\n",
      "      long long tf = clock64();\n      __syncthreads();\n"
      "      ST(6, tf);\n"),
-    ("  if constexpr (!SEQ) {\n    const float* hl",
+    ("  if constexpr (M == SLAB) {\n    const float* hl",
      "  if (tid == 0) {\n    sacc[7] = clock64() - t_begin;\n    for (int i "
      "= 0; i < 8; ++i) atomicAdd(&g_split[i], sacc[i]);\n    "
-     "atomicAdd(&g_split[8], 1ull);\n  }\n  if constexpr (!SEQ) {\n"
+     "atomicAdd(&g_split[8], 1ull);\n  }\n  if constexpr (M == SLAB) {\n"
      "    const float* hl"),
 )
 READER = """
@@ -99,7 +105,8 @@ def instrument(out_dir):
         src = src.replace(old, new)
     open(path, "w").write(src)
     for name, reader in (("lstm_slab.cu", "sbt_split_slab"),
-                         ("lstm_seq.cu", "sbt_split_seq")):
+                         ("lstm_seq.cu", "sbt_split_seq"),
+                         ("lstm_infer.cu", "sbt_split_infer")):
         with open(os.path.join(csrc, name), "a") as fh:
             fh.write(READER.format(name=reader))
     return out_dir
@@ -111,6 +118,7 @@ def child(out_dir):
     import torch
 
     from sound_bubble_tpu_torch.ops.kernels import _build
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
     from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
     from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
 
@@ -118,7 +126,8 @@ def child(out_dir):
         sys.exit("needs an NVIDIA card")
     dev = torch.device("cuda")
     lib = _build.load_library()
-    readers = {"slab": lib.sbt_split_slab, "seq": lib.sbt_split_seq}
+    readers = {"slab": lib.sbt_split_slab, "seq": lib.sbt_split_seq,
+               "bseq": lib.sbt_split_seq, "infer": lib.sbt_split_infer}
     for fn in readers.values():
         fn.argtypes = [ctypes.c_void_p]
     h = 64
@@ -134,11 +143,20 @@ def child(out_dir):
                 draw(t_len, r, c), draw(r, h, scale=0.5),
                 draw(r, h, scale=0.5))
 
+        p = [dict(zip(("w_ih", "w_hh", "b"), args[:3])),
+             dict(zip(("w_ih", "w_hh", "b"), (a.flip(0) for a in args[:3])))]
+
         def run():
-            if kind == "slab":
-                ls.lstm_slab_fwd(*args, False)
-            else:
-                lk.lstm_seq_fwd(*args)
+            with torch.no_grad():
+                if kind == "slab":
+                    ls.lstm_slab_fwd(*args, False)
+                elif kind == "seq":
+                    lk.lstm_seq_fwd(*args)
+                elif kind == "bseq":
+                    lk.blstm_seq_fwd(*lk._blstm_pack(*p), args[3])
+                else:   # row 5 takes x [R, T, C]
+                    rk.blstm_infer({"fwd": p[0], "bwd": p[1]},
+                                   args[3].transpose(0, 1).contiguous())
             torch.cuda.synchronize()
 
         sums = (ctypes.c_ulonglong * 16)()

@@ -17,9 +17,21 @@ fp32 at the flagship training path's shapes of chip_smoke.py's phase 6
 batch-8 shapes of phase 13 (intra [145, 2504, 32], inter [313, 1160, 32]);
 and, for each of these four shapes, `torch.profiler`'s split of one
 `lstm_slab_bwd` call among the kernels it launches (device us by kernel
-name); then the seq route's single-direction forward `lstm_seq_fwd` (row
-6), 20 launches after one, in fp32 at the inter LSTM's shape of phase 20
-([313, 580, 32]). The weights come from this checkout's `runs/`.
+name); then the seq route's forwards, 20 launches after one: the
+single-direction `lstm_seq_fwd` (row 6) in fp32 at the inter LSTM's shape of
+phase 20 ([313, 580, 32]) and mixed at the recipe's batch 8
+([313, 1160, 32]), the fused-direction `blstm_seq_fwd` (row 8) in fp32 at
+the intra BLSTM's ([145, 1252, 32]) and mixed at batch 8 ([145, 2504, 32]),
+each beside cuDNN's LSTM forward (`torch.nn.LSTM`) on the same x; then the
+whole of the fused inference BLSTM `blstm_infer` (row 5), 200 calls after
+10, at chip_smoke.py's four ROW5_SHAPES, beside cuDNN's bidirectional LSTM
+with the same weights, and both again as 20 calls captured in one CUDA
+graph (`*_graph_ms`: the device's time, no host time between calls); and
+`ModelWrapper.feed` of the flagship with every intra BLSTM on row 5: its
+device operations a chunk (torch.profiler) and ms a chunk (host clock,
+100 chunks), with chip_smoke.py's helpers.
+The weights come from this checkout's `runs/` and, for the LSTMs, from
+seed 0.
 Give each tree twice to see the spread, e.g. parent, change, change,
 parent. Prints the card's name and power limit, then one JSON line a run.
 Needs one NVIDIA card.
@@ -36,8 +48,14 @@ RUNS = {"flagship": ("finetune_r5", [[0.0, 0.0, 1.0]]),
 SLAB_SHAPES = {"intra": (145, 1252, 32, False), "inter": (313, 580, 32, False),
                "mixed_intra": (145, 2504, 32, True),
                "mixed_inter": (313, 1160, 32, True)}
-# (T, R, C, mixed) of the seq route's single-direction forwards timed
-SEQ_SHAPES = {"inter": (313, 580, 32, False)}
+# (T, R, C, mixed, directions) of the seq route's forwards timed
+SEQ_SHAPES = {"inter": (313, 580, 32, False, 1),
+              "mixed_inter": (313, 1160, 32, True, 1),
+              "intra": (145, 1252, 32, False, 2),
+              "mixed_intra": (145, 2504, 32, True, 2)}
+# (name, R, T, C) of row 5, as chip_smoke.py's ROW5_SHAPES
+ROW5_SHAPES = (("serve1", 1, 145, 32), ("serve4", 4, 145, 32),
+               ("conv1", 1, 29, 24), ("offline", 250, 145, 32))
 
 
 def profile_split(fn, calls=5):
@@ -87,7 +105,64 @@ def scan_operands(t_len, r, c, mixed, dev, h=64):
             draw(r, h) * 0.5)
 
 
+def events_ms(fn, n):
+    """ms a call of fn(), CUDA events over n calls."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n):
+    """ms a call of fn() with no host time between calls: n calls captured
+    in one CUDA graph, replayed 10 times (CUDA events); None where the
+    capture fails."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(n):
+                    fn()
+    except RuntimeError:
+        return None
+    graph.replay()
+    return events_ms(graph.replay, 10) / n
+
+
+def cudnn_lstm(c, h, nd, dtype, dev, weights=None):
+    """torch.nn.LSTM (cuDNN) of nd directions, the yardstick; weights: the
+    port's {fwd, bwd} params to copy in (else its own init)."""
+    import torch
+
+    lstm = torch.nn.LSTM(c, h, batch_first=weights is not None,
+                         bidirectional=nd == 2).to(dev, dtype)
+    if weights is not None:
+        with torch.no_grad():
+            for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
+                p = weights[d]
+                getattr(lstm, f"weight_ih_l0{sfx}").copy_(p["w_ih"].T)
+                getattr(lstm, f"weight_hh_l0{sfx}").copy_(p["w_hh"].T)
+                getattr(lstm, f"bias_ih_l0{sfx}").copy_(p["b"])
+                getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lstm
+
+
 def child(tree):
+    sys.path.insert(0, REPO)          # chip_smoke.py's helpers
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -100,6 +175,8 @@ def child(tree):
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
     log = _build.build_log().splitlines()
     # registers of each kernel, and any helper left as a called function
@@ -160,20 +237,65 @@ def child(tree):
             out[f"slab_{name}_bwd_split_us"] = profile_split(
                 lambda: ls.lstm_slab_bwd(*bargs))
 
-    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
-    for name, (t_len, r, c, mixed) in SEQ_SHAPES.items():
-        fargs = scan_operands(t_len, r, c, mixed, dev)[1:]
-        with torch.no_grad():
-            lk.lstm_seq_fwd(*fargs)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                lk.lstm_seq_fwd(*fargs)
-            end.record()
-            torch.cuda.synchronize()
-        out[f"seq_{name}_fwd_ms"] = start.elapsed_time(end) / 20
+    time_forwards(out, dev)
     print(json.dumps(out), flush=True)
+
+
+def time_forwards(out, dev):
+    """The seq route's forwards and row 5's whole function, each beside
+    cuDNN's LSTM, into out."""
+    import numpy as np
+    import torch
+
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+    for name, (t_len, r, c, mixed, nd) in SEQ_SHAPES.items():
+        draw, *w, x, h0, c0 = scan_operands(t_len, r, c, mixed, dev)
+        if nd == 1:
+            fn, fargs = lk.lstm_seq_fwd, (*w, x, h0, c0)
+        else:
+            wb = [draw(*t.shape, scale=64 ** -0.5, dtype=t.dtype) for t in w]
+            fn = lk.blstm_seq_fwd
+            fargs = (*lk._blstm_pack(
+                dict(zip(("w_ih", "w_hh", "b"), w)),
+                dict(zip(("w_ih", "w_hh", "b"), wb))), x)
+        lstm = cudnn_lstm(c, 64, nd, x.dtype, dev)
+        with torch.no_grad():
+            fn(*fargs)
+            out[f"seq_{name}_fwd_ms"] = events_ms(lambda: fn(*fargs), 20)
+            lstm(x)
+            out[f"seq_{name}_cudnn_fwd_ms"] = events_ms(lambda: lstm(x), 20)
+
+    from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
+    rng = np.random.default_rng(0)
+    for name, r, t_len, c in ROW5_SHAPES:
+        def u(*shape):
+            return torch.from_numpy(rng.uniform(-0.125, 0.125, shape)
+                                    .astype(np.float32)).to(dev)
+        params = {d: {"w_ih": u(c, 256), "w_hh": u(64, 256), "b": u(256)}
+                  for d in ("fwd", "bwd")}
+        x = torch.from_numpy(rng.standard_normal((r, t_len, c))
+                             .astype(np.float32)).to(dev)
+        lstm = cudnn_lstm(c, 64, 2, torch.float32, dev, params)
+        with torch.no_grad():
+            for _ in range(10):
+                rk.blstm_infer(params, x)
+            out[f"row5_{name}_ms"] = events_ms(
+                lambda: rk.blstm_infer(params, x), 200)
+            lstm(x)
+            out[f"row5_{name}_cudnn_ms"] = events_ms(lambda: lstm(x), 200)
+        out[f"row5_{name}_graph_ms"] = graph_ms(
+            lambda: rk.blstm_infer(params, x), 20)
+        out[f"row5_{name}_cudnn_graph_ms"] = graph_ms(lambda: lstm(x), 20)
+
+    from chip_smoke import feed_ops, wrapper_chunk_ms
+    from sound_bubble_tpu_torch import utils
+    from sound_bubble_tpu_torch.runtime.streaming import ModelWrapper
+    wrapper = ModelWrapper(utils.load_torch_pretrained(
+        os.path.join(REPO, "runs", RUNS["flagship"][0]), device=dev,
+        pallas_blstm=True).model, device=dev)
+    with torch.no_grad():
+        out["row5_feed_ops"] = feed_ops(wrapper, 10, rng)
+        out["row5_feed_ms"] = wrapper_chunk_ms(wrapper, 100, rng)
 
 
 def main(trees):
