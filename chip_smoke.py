@@ -10,8 +10,10 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
-3. kernel vs plain: `gridnet_stack_step` against `gridnet_stack_step_ref` on
-   the card, 5 chained steps with the flagship's packed weights and FiLM;
+3. kernel vs plain: `gridnet_stack_step` (row 1: `stack_walk_kernel<64,
+   false>`, one cluster of 8 blocks a call) against `gridnet_stack_step_ref`
+   on the card, 5 chained steps with the flagship's packed weights and
+   FiLM;
 4. serving: the 9 goldens of `test_samples/` streamed chunk by chunk through
    `FusedStreamer`; SI-SDRi and decay per sample held against the JAX
    package's fp32 numbers on the same audio
@@ -19,7 +21,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    `runs/goldens_baseline.json` (the reference's own golden set, other
    audio) printed once for information; then the kernel path held against
    the plain `ModelWrapper` path;
-5. times of the kernel, its plain version and one 8 ms chunk;
+5. times of the kernel (CUDA events, and 20 calls in one CUDA graph: the
+   device's time), its plain version and one 8 ms chunk;
 6. slab kernels vs plain: the CUDA LSTM scans `lstm_slab_fwd` /
    `lstm_slab_bwd` against their plain versions at the flagship training
    path's shapes (intra [145, 1252, 32] both directions, inter
@@ -37,9 +40,9 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
 8. times of the slab kernels, their plain versions, cuDNN's LSTM as the
    library yardstick, `torch.profiler`'s split of one backward call among
    its kernels, and ms per train step;
-9. conv kernel vs plain: `gridnet_stack_step` on conv_lstm packs (the
-   `stack_step_kernel_t<true>`) against `gridnet_stack_step_ref`, 5 chained
-   steps, at the Orange Pi width with the committed seeded weights
+9. conv kernel vs plain: `gridnet_stack_step` on conv_lstm packs (row 2:
+   `stack_step_conv_kernel<false>`) against `gridnet_stack_step_ref`, 5
+   chained steps, at the Orange Pi width with the committed seeded weights
    (`runs/edge_orangpi_seeded`), the Raspberry Pi width (D=16) with seeded
    weights, and a ragged F (25 rows, lstm_down 4, with FiLM);
 10. edge serving: the 9 goldens of `test_samples/` through `FusedStreamer` on
@@ -79,18 +82,19 @@ Phases 16-19 drive the attention nets (`use_attn: true`, L=4, E=2,
 W=100), seeded weights of the flagship and the Orange Pi configurations
 (`runs/attn_{flagship,orangpi}_seeded`, `tools/jax_goldens_attn.py`):
 
-16. attention kernels vs plain: `gridnet_stack_step_attn` (the
-   `stack_step_kernel_t<false, true>` and, on the conv_lstm pack,
-   `<true, true>`) against `gridnet_stack_step_attn_ref`, W + 5 = 105
-   chained steps (pos wraps the ring): x, h0, c0 and both rings;
+16. attention kernels vs plain: `gridnet_stack_step_attn` (row 3:
+   `stack_walk_kernel<64, true>` and, on the conv_lstm pack, row 4:
+   `stack_step_conv_kernel<true>`) against `gridnet_stack_step_attn_ref`,
+   W + 5 = 105 chained steps (pos wraps the ring): x, h0, c0 and both rings;
 17. attention serving: the 9 goldens of `test_samples/` through
    `FusedStreamer` (the in-kernel route) on both nets, per sample against
    the JAX package's numbers (`runs/goldens_attn_jax.json`), the first 20
    chunks of `syn_1m/00002` against the JAX output, and the per-block
    route (`attn_in_kernel=False`: the row-1 / row-2 kernel a block, the
    attention in PyTorch) against the in-kernel route on one clip;
-18. times of the two attention kernels, their plain versions, their
-   bounds, and `FusedStreamer.feed` per chunk on both routes;
+18. times of the two attention kernels (CUDA events, and 20 calls in one
+   CUDA graph), their plain versions, their bounds, and
+   `FusedStreamer.feed` per chunk on both routes;
 19. `train_pt` on `runs/attn_flagship_seeded/config.json` (fp32, batch 4 x
    2.5 s, 1 epoch, from the seeded weights), the slab launches per step;
    one step from the seeded weights on the kernel path against the plain
@@ -1615,9 +1619,11 @@ def feed_ms(streamer, n, rng):
 
 
 def phase18_attn_times(dev, served, card):
-    """Times of the two attention kernels (CUDA events), their plain
-    versions, their bounds, and ms per chunk on both routes."""
+    """Times of the two attention kernels (CUDA events; and 20 calls in one
+    CUDA graph, the device's time), their plain versions, their bounds, and
+    ms per chunk on both routes."""
     from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from tools.time_stack_kernels import graph_ms
 
     rng = np.random.default_rng(SEED + 18)
     rows = {}
@@ -1651,13 +1657,19 @@ def phase18_attn_times(dev, served, card):
             kernel_ms = cuda_ms(kernel, 200)
             plain_step()
             plain_ms = cuda_ms(plain_step, 3)
+        graph = graph_ms(kernel, 20)
+        if graph is None:
+            fail(f"{name}: the attention kernel's call could not be "
+                 "captured in a CUDA graph")
         chunk_ms = feed_ms(streamer, 250, rng)
         block_ms = feed_ms(per_block, 100, rng)
         s = cfg.lstm_down if cfg.conv_lstm else None
         bound_ms, bound_by = stack_step_bound_ms(
             B, F, D, H, fw is not None, s=s, attn=(cfg.L, cfg.E, W))
         log(f"phase 18 attention times, {name}, on {card}: kernel "
-            f"{kernel_ms:.4f} ms (CUDA events, 200 launches); plain version "
+            f"{kernel_ms:.4f} ms (CUDA events, 200 launches; "
+            f"{graph:.4f} ms a call as 20 calls in one CUDA graph); plain "
+            f"version "
             f"{plain_ms:.3f} ms (3 calls); FusedStreamer.feed {chunk_ms:.4f} "
             f"ms per 8 ms chunk in-kernel (250 chunks), {block_ms:.4f} ms "
             f"per-block route (100 chunks; host clock); bound "
@@ -2863,12 +2875,13 @@ def main():
     from sound_bubble_tpu_torch.metrics.metrics import Metrics, compute_decay
     from sound_bubble_tpu_torch.ops.kernels import _build
     from sound_bubble_tpu_torch.ops.kernels.stack_kernel import (
-        gridnet_stack_step, gridnet_stack_step_ref)
+        gridnet_stack_step, gridnet_stack_step_ref, walk_plan)
     from sound_bubble_tpu_torch.ops.stft import mod_pad
     from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
     from sound_bubble_tpu_torch.runtime.streaming import (
         ModelWrapper, streaming_inference)
     from sound_bubble_tpu_torch.utils import load_pretrained
+    from tools.time_stack_kernels import graph_ms
 
     # a hang anywhere ends the run (non-zero) well inside its time limit
     faulthandler.dump_traceback_later(1000, exit=True)
@@ -2915,7 +2928,8 @@ def main():
                              for a, b in ((xk, xr), (hk, hr), (ck, cr))])
     grew = gridnet_stack_step.launches - before
     log(f"phase 3 kernel vs plain: F={F} D={D} H={H} B={B}, 5 chained "
-        f"steps, max-abs err {err:.3e} (tol {KERNEL_TOL}), launches +{grew}")
+        f"steps, max-abs err {err:.3e} (tol {KERNEL_TOL}), launches +{grew}; "
+        f"launch {walk_plan(F, D, H, B)}")
     if not err <= KERNEL_TOL:
         fail(f"kernel disagrees with its plain version: {err} > {KERNEL_TOL}")
     if grew != 5:
@@ -3005,6 +3019,10 @@ def main():
         kernel_ms = cuda_ms(kernel, 200)
         plain_step()
         plain_ms = cuda_ms(plain_step, 3)
+        kernel_graph_ms = graph_ms(kernel, 20)
+        if kernel_graph_ms is None:
+            fail("the stack kernel's call could not be captured in a CUDA "
+                 "graph")
         streamer.reset()
         win = torch.from_numpy(
             rng.standard_normal((1, cfg.num_ch, cfg.n_fft)).astype(
@@ -3019,7 +3037,8 @@ def main():
         chunk_ms = (time.perf_counter() - t) / 250 * 1e3
     bound_ms, bound_by = stack_step_bound_ms(B, F, D, H, film_w is not None)
     log(f"phase 5 times on {card}: stack kernel {kernel_ms:.4f} ms "
-        f"(CUDA events, 200 launches); plain version {plain_ms:.3f} ms "
+        f"(CUDA events, 200 launches; {kernel_graph_ms:.4f} ms a call as 20 "
+        f"calls in one CUDA graph); plain version {plain_ms:.3f} ms "
         f"(3 calls); FusedStreamer.feed {chunk_ms:.4f} ms per 8 ms chunk "
         f"(host clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
         f"library_ms: none (no single PyTorch call computes the stack step)")
@@ -3124,7 +3143,7 @@ def main():
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
     print(json.dumps({"kernels": [{
         "name": "gridnet_stack_step", "route": "cuda",
-        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:243",
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3147,7 +3166,7 @@ def main():
         "replaces": f"{slab_tpu}:271", "launches": mixed_bwd_n,
         "max_abs_err": mixed_bwd_err, **mixed_times["bwd"]}, {
         "name": "gridnet_stack_step_attn", "route": "cuda",
-        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:354",
         "launches": served["flagship"][2],
         "max_abs_err": attn_errs["flagship"], **attn_times["flagship"]}, {

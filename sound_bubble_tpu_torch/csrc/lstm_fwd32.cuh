@@ -9,7 +9,10 @@
 // fused-direction forward (BSEQ: `seq_bfwd32_kernel`, csrc/lstm_seq.cu; the
 // same three outputs at the two-direction layout) and the fused inference
 // BLSTM (INFER: `blstm_infer_kernel`, csrc/lstm_infer.cu; x and y
-// batch-major, y only). No TF32 and no fast-math: fp32 FMA and expf; the
+// batch-major, y only), and, at R = 1, the intra BLSTM of each block of the
+// whole-stack streaming step (STACK: `stack_walk_kernel`,
+// csrc/stack_walk.cu; INFER's layout, the weights read from the stack
+// step's fused pack). No TF32 and no fast-math: fp32 FMA and expf; the
 // activations' reciprocal is `rcp.approx` refined by one Newton step
 // (`sigm`, `tanh2`: within a few ulp, and branch-free).
 //
@@ -91,6 +94,11 @@ enum : int {
   INFER = 3,  // a direction d of a BLSTM, batch-major x [R, T, C] and y
               // [R, T, 2H] (original time, offset d*H) only; zero initial
               // state
+  STACK = 4,  // INFER's x, y and zero state, the weights those of the stack
+              // step's fused pack (`pack_stack_params`): gate g of direction
+              // d at column g*2H + d*H of w_ih [C, 8H], of the diagonal block
+              // of w_hh [2H, 8H] and of b [8H] (the pointers come offset by
+              // d*H; rows 8H apart)
 };
 
 constexpr int KMAX = 8;       // frames a slab (the TPU kernels' K)
@@ -245,10 +253,10 @@ __device__ __forceinline__ float4 reduce_rows(const float4* acc, int kq,
   }
 }
 
-// What a frame writes besides h and c (device memory; BSEQ and INFER: at
-// the direction's offset).
+// What a frame writes besides h and c (device memory; BSEQ, INFER and
+// STACK: at the direction's offset).
 struct Out {
-  float* y;       // [T, R, H]; BSEQ [T, R, 2H]; INFER [R, T, 2H]
+  float* y;       // [T, R, H]; BSEQ [T, R, 2H]; INFER, STACK [R, T, 2H]
   float* gates;   // post-activation [T, R, 4H] (SEQ), [T, R, 8H] (BSEQ), or
                   // null
   float* cseq;    // [T, R, H] (SEQ), [T, R, 2H] (BSEQ), or null
@@ -259,8 +267,8 @@ struct Out {
 // groups); the owner lane stores c, h and the frame's outputs. A lane that
 // does not own the cell may read c after its owner wrote it: it stores
 // nothing. base: the index of the tile's first row at this frame's time in
-// y's rows (INFER: rows r*T + t, so row q is base + q*T); sbase: the same
-// at the walk's step in the gates' and c's rows (BSEQ).
+// y's rows (INFER, STACK: rows r*T + t, so row q is base + q*T); sbase: the
+// same at the walk's step in the gates' and c's rows (BSEQ).
 template <int H, int M>
 __device__ __forceinline__ void cell(float4 v, int row, bool own,
                                      const float4* __restrict__ gq,
@@ -280,8 +288,8 @@ __device__ __forceinline__ void cell(float4 v, int row, bool own,
     hn[row * HS + cu] = h;
   }
   if (own && row < rt) {
-    constexpr int W = M == BSEQ || M == INFER ? 2 * H : H;  // y's row width
-    const size_t yi = M == INFER ? base + (size_t)row * T : base + row;
+    constexpr int W = M == BSEQ || M >= INFER ? 2 * H : H;  // y's row width
+    const size_t yi = M >= INFER ? base + (size_t)row * T : base + row;
     o.y[yi * W + cu] = h;
     if constexpr (M == SEQ || M == BSEQ) {
       const size_t si = (M == BSEQ ? sbase : base) + row;
@@ -339,10 +347,10 @@ __device__ __forceinline__ void rows_step(
 }
 
 // The walk of row tile `tile` in mode M (outputs o; SLAB also hT, cT and
-// c_ckpt), forward or reversed (SEQ: forward only). BSEQ and INFER take no
-// h0 / c0 (zero states). RT > 0: rows is RT, known to the compiler, so a
-// frame's row groups and the projection's passes are fixed at compile time
-// (no jump table, a smaller body); 0: rows as given.
+// c_ckpt), forward or reversed (SEQ: forward only). BSEQ, INFER and STACK
+// take no h0 / c0 (zero states). RT > 0: rows is RT, known to the compiler,
+// so a frame's row groups and the projection's passes are fixed at compile
+// time (no jump table, a smaller body); 0: rows as given.
 template <int H, int M, int RT = 0>
 __device__ __forceinline__ void walk(
     const float* __restrict__ x, const float* __restrict__ w_ih,
@@ -353,7 +361,9 @@ __device__ __forceinline__ void walk(
     int rows, int tile) {
   using D = Dims<H>;
   constexpr int NT = D::NT, HS = D::HS, GS = D::GS, H4 = 4 * H;
-  constexpr int WS = M == BSEQ ? 8 * H : H4;  // row stride of w_hh
+  constexpr int WS = M == BSEQ || M == STACK ? 8 * H : H4;  // w_hh's rows
+  constexpr int WI = M == STACK ? 8 * H : H4;   // row stride of w_ih
+  constexpr int GC = M == STACK ? 2 * H : H;    // column stride of a gate
   if constexpr (RT > 0) rows = RT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int r4 = (rows + 3) / 4 * 4;
@@ -375,7 +385,7 @@ __device__ __forceinline__ void walk(
       const int r = rem / cv, v = rem - r * cv;
       const int t = reverse ? lo + nf - 1 - q : lo + q;
       float* d = xs + (q * rows + r) * C + 4 * v;
-      const size_t xi = M == INFER ? (size_t)(row0 + r) * T + t
+      const size_t xi = M >= INFER ? (size_t)(row0 + r) * T + t
                                    : (size_t)t * R + row0 + r;
       if (r < rt)
         cp_async16(d, x + xi * C + 4 * v);
@@ -388,13 +398,13 @@ __device__ __forceinline__ void walk(
 
   for (int i = tid; i < C * H; i += NT) {
     const int k = i / H, u = i - k * H;
-    const float* wrow = w_ih + (size_t)k * H4;
-    w4[i] = make_float4(wrow[u], wrow[H + u], wrow[2 * H + u],
-                        wrow[3 * H + u]);
+    const float* wrow = w_ih + (size_t)k * WI;
+    w4[i] = make_float4(wrow[u], wrow[GC + u], wrow[2 * GC + u],
+                        wrow[3 * GC + u]);
   }
   for (int i = tid; i < r4 * H; i += NT) {
     const int r = i / H, u = i - r * H;
-    if constexpr (M == BSEQ || M == INFER) {
+    if constexpr (M == BSEQ || M >= INFER) {
       hb[r * HS + u] = cs[r * HS + u] = 0.f;
     } else {
       const bool ok = r < rt;
@@ -410,16 +420,16 @@ __device__ __forceinline__ void walk(
 #pragma unroll
     for (int e = 0; e < D::KV; ++e) {
       const float* wrow = w_hh + (size_t)(D::KV * (4 * i + kq) + e) * WS;
-      wr[i][e] = make_float4(wrow[cu], wrow[H + cu], wrow[2 * H + cu],
-                             wrow[3 * H + cu]);
+      wr[i][e] = make_float4(wrow[cu], wrow[GC + cu], wrow[2 * GC + cu],
+                             wrow[3 * GC + cu]);
     }
   // the projection's thread (up, rs)
   const int up = tid % (H / 2), rs = tid / (H / 2);
-  const float4 b0 = make_float4(b[up], b[H + up], b[2 * H + up],
-                                b[3 * H + up]);
+  const float4 b0 = make_float4(b[up], b[GC + up], b[2 * GC + up],
+                                b[3 * GC + up]);
   const int u1 = up + H / 2;
-  const float4 b1 = make_float4(b[u1], b[H + u1], b[2 * H + u1],
-                                b[3 * H + u1]);
+  const float4 b1 = make_float4(b[u1], b[GC + u1], b[2 * GC + u1],
+                                b[3 * GC + u1]);
 
   int n = 0;  // frames walked: h of the last one is in hb[n & 1]
   for (int js = 0; js < nb; ++js) {
@@ -427,7 +437,7 @@ __device__ __forceinline__ void walk(
     const int lo = blk * kf, nf = min(T, lo + kf) - lo;
     cp_async_wait_all();
     __syncthreads();  // the x tile is in; the last walk is done with gx
-    if constexpr (M == INFER) {  // passes as wide as the rows (KMAX == NRS)
+    if constexpr (M >= INFER) {  // passes as wide as the rows (KMAX == NRS)
       const int n_p = nf * rows;
       switch (rows) {
         case 1: project<H, 1>(w4, xs, gx, C, n_p, up, rs, b0, b1); break;
@@ -452,7 +462,7 @@ __device__ __forceinline__ void walk(
       const float* hc = hb + (n & 1) * r4 * HS;
       float* hn = hb + ((n + 1) & 1) * r4 * HS;
       const float4* gq = gx + q * rows * GS;
-      const size_t base = M == INFER ? (size_t)row0 * T + t
+      const size_t base = M >= INFER ? (size_t)row0 * T + t
                                      : (size_t)t * R + row0;
       const size_t sbase = (size_t)n * R + row0;  // the walk's step (BSEQ)
       int g = 0;

@@ -1,33 +1,30 @@
-// One streaming step (T=1, batch 1) of the whole TF-GridNet block stack.
+// One streaming step (T=1, batch 1) of the whole TF-GridNet block stack with
+// the conv_lstm intra part, without and with local causal attention: rows 2
+// and 4 of PERF.md's kernel table.
 //
 // Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
 // stack_kernel.py` (called from `gridnet_stack_step` and
-// `gridnet_stack_step_attn`): `stack_step_kernel_t<false, false>` replaces
-// `_kernel` (plain intra BLSTM), `<true, false>` replaces `_kernel_conv` /
-// `_intra_conv` (conv_lstm), `<false, true>` replaces `_kernel_attn` and
-// `<true, true>` replaces `_kernel_conv_attn` (the same with local causal
-// attention, `_attn_step`). Per block b: FiLM (b > 0) -> the intra part ->
-// LayerNorm -> one inter-LSTM step on all F lanes -> projection residual
-// [-> the attention step, kAttn]. The plain intra
-// part is LayerNorm -> fused-direction BLSTM over the F frequency rows ->
-// projection residual; the conv intra part is the strided down conv ->
-// PReLU -> LayerNorm -> fused-direction BLSTM over the k = F // s conv frames
-// -> up conv residual on rows < k*s. Operand layouts are those of
-// `pack_stack_params` (sound_bubble_tpu_torch/ops/kernels/stack_kernel.py):
-// gate g of the fused BLSTM occupies columns [g*2H, g*2H+H) for the forward
-// direction and [g*2H+H, (g+1)*2H) for the backward one.
+// `gridnet_stack_step_attn` on a conv_lstm pack):
+// `stack_step_conv_kernel<false>` replaces `_kernel_conv` / `_intra_conv`
+// and `<true>` replaces `_kernel_conv_attn` (the same with local causal
+// attention, `_attn_step`). Per block b: FiLM (b > 0) -> the strided down
+// conv -> PReLU -> LayerNorm -> fused-direction BLSTM over the k = F // s
+// conv frames -> up conv residual on rows < k*s -> LayerNorm -> one
+// inter-LSTM step on all F lanes -> projection residual [-> the attention
+// step, kAttn]. Operand layouts are those of `pack_stack_params`
+// (sound_bubble_tpu_torch/ops/kernels/stack_kernel.py): gate g of the fused
+// BLSTM occupies columns [g*2H, g*2H+H) for the forward direction and
+// [g*2H+H, (g+1)*2H) for the backward one. The plain intra BLSTM (rows 1
+// and 3) is csrc/stack_walk.cu.
 //
-// What bounds them on an H100: a dependency chain of sequential LSTM cell
-// updates, B*(F+1) for the plain kernel (876 at B=6, F=145) and B*(k+1) for
-// the conv kernel (90 at B=3, k=29), each a [2H] x [2H, 8H] product followed
-// by the gate math, not bytes or FLOPs. Counting the compact math (not the
-// zeros the fused packing adds), the flagship step moves 3,053,568 B (weights
-// 1.94 MB fp32, h0/c0 in and out 0.89 MB, FiLM 0.19 MB, x in and out), about
-// 0.9 us at 3.35 TB/s, and does 138,977,280 FLOP, about 2.1 us at 67 TFLOP/s
-// fp32; the edge conv step (F=145, D=24, B=3, H=64, s=5, no FiLM) moves
-// 1,532,844 B (weights 1.06 MB, h0/c0 in and out 0.45 MB), about 0.46 us,
-// and does 31,949,184 FLOP, about 0.48 us. chip_smoke.py computes both from
-// the shapes of the run.
+// What bounds them on an H100: a dependency chain of B*(k+1) sequential
+// LSTM cell updates (90 at B=3, k=29), each a [2H] x [2H, 8H] product
+// followed by the gate math, not bytes or FLOPs. Counting the compact math
+// (not the zeros the fused packing adds), the edge conv step (F=145, D=24,
+// B=3, H=64, s=5, no FiLM) moves 1,532,844 B (weights 1.06 MB, h0/c0 in and
+// out 0.45 MB), about 0.46 us at 3.35 TB/s, and does 31,949,184 FLOP, about
+// 0.48 us at 67 TFLOP/s fp32. chip_smoke.py computes both from the shapes of
+// the run.
 //
 // Design: ONE thread block does the whole step and loops over the B blocks,
 // the same dependency chain as the TPU kernel, so no inter-block
@@ -36,24 +33,18 @@
 // thread per fused gate column (8H threads). Each intra step computes
 // gates = gx[f] + h . W_hh into shared memory, then the 2H state threads
 // update (h, c). The activation tile x [F, D], the LayerNorm output and the
-// recurrent state live in shared memory; the input projections gx [n, 8H],
-// the BLSTM output y [n, 2H] (n = F, or k) and the inter gates [F, 4H] live
-// in a global scratch the wrapper allocates (it stays in L2); the weights are
-// read from global memory (the six flagship blocks' packed weights, 3.1 MB
-// with their zeros, sit in the 50 MB L2). This trades speed for certainty:
-// W_hh is re-read from L2 at every step. Clusters, weights in shared memory
-// and tensor-core `mma` are later work.
+// recurrent state live in shared memory; the input projections gx [k, 8H],
+// the BLSTM output y [k, 2H] and the inter gates [F, 4H] live in a global
+// scratch the wrapper allocates (it stays in L2); the weights are read from
+// global memory (they sit in the 50 MB L2). This trades speed for
+// certainty: W_hh is re-read from L2 at every step. csrc/stack_walk.cu's
+// design (the walk of csrc/lstm_fwd32.cuh on two blocks of a cluster, the
+// row phases spread over eight) is the next step for these rows too.
 //
-// The four kernels are the instantiations of ONE kernel template,
-// `stack_step_kernel_t<kConv, kAttn>`: FiLM, the input projections, the
-// fused recurrence and the inter step are written once, and `if constexpr`
-// selects the intra part's head (LayerNorm, or down conv + PReLU +
-// LayerNorm) and tail (projection, or up conv), and adds the attention step
-// (kAttn). The plain instantiation is the code of the earlier plain kernel,
-// and runs at its speed: the same steps split into __device__ helpers made
-// it 10 % slower (tools/time_stack_kernels.py, PERF.md); the attention
-// step's operands are appended to the parameter list, so the <*, false>
-// instantiations compile to the code they had before it.
+// The two kernels are the instantiations of ONE kernel template,
+// `stack_step_conv_kernel<kAttn>`: the attention step's operands are
+// appended to the parameter list, so the <false> instantiation compiles to
+// the code it had before the attention step was added.
 //
 // The attention step (kAttn; the Pallas `_attn_step`), per block after the
 // inter step, with L heads of key width E and value width vd = D / L:
@@ -79,23 +70,15 @@
 //      (a block-wide reduction, eps 1e-5) -> residual.
 // q, k, v and the attention output [F, D] live in that global scratch (it
 // stays in L1/L2), and only the scores [L, W] and the reduction scratch are
-// added to the block's shared memory (1.9 KB at W=100, L=4): on an H100 the
-// L1 and the shared memory share 256 KB an SM, and the flagship's W_hh
-// (256 KB a block, re-read at every recurrence step) is served partly from
-// L1. A first version that kept q, k, v and the output in shared memory
-// (+47 KB at the flagship width) ran the flagship attention step in 14.54 ms
-// against 6.95 ms for the kernel without attention, and the attention's own
-// work is a small part of that (chip_smoke.py phases 5 and 18, NVIDIA H100
-// 80GB HBM3, 700 W).
-// The rings are 13.9 MB at the flagship width (B=6, L=4, W=100, F=145,
-// E + vd = 10) and 5.57 MB at the Orange Pi width: too large for shared
-// memory (227 KB a block), they stay in global memory and sit in the 50 MB
-// L2. One SM reads them once per step; at the order of 100-200 GB/s for one
-// SM that is tens of us against a step of ~7 ms (the 876-update chain
-// above). The bound that chip_smoke.py computes adds the ring bytes (read
+// added to the block's shared memory: on an H100 the L1 and the shared
+// memory share 256 KB an SM, and W_hh, re-read at every recurrence step, is
+// served partly from L1 (a first version of the attention kernels that kept
+// q, k, v and the output in shared memory doubled the plain branch's time,
+// PERF.md §6). The rings are 5.57 MB at the Orange Pi width: too large for
+// shared memory (227 KB a block), they stay in global memory and sit in the
+// 50 MB L2. The bound that chip_smoke.py computes adds the ring bytes (read
 // once, the new slot written once) and the attention FLOP to the stack
-// step's. Writing the rings across several blocks or clusters is later
-// work.
+// step's.
 #include <cuda_runtime.h>
 
 namespace {
@@ -131,10 +114,8 @@ __device__ void layer_norm_rows(const float* src, float* dst,
   }
 }
 
-// kConv = false: the plain intra BLSTM over the n = F frequency rows;
-// proj_w [B, 2H, D] / proj_b [B, D] are the intra projection.
-// kConv = true: the conv_lstm intra over the n = k = F / s conv frames
-// (replaces `_kernel_conv` / `_intra_conv`):
+// The conv_lstm intra over the n = k = F / s conv frames (`_kernel_conv` /
+// `_intra_conv`):
 //   zs[f, co] = PReLU(down_b[co] + sum_j sum_ci x[f*s+j, ci] *
 //                     down_cat[ci, j*C+co]) for f < k,
 // then LayerNorm in place, the recurrence over k steps, and
@@ -147,8 +128,8 @@ __device__ void layer_norm_rows(const float* src, float* dst,
 // and without a taps buffer. Each thread updates the xs elements it reads,
 // from y and the weights only, so no element of xs is read by one thread
 // while another writes it.
-template <bool kConv, bool kAttn>
-__global__ void __launch_bounds__(1024) stack_step_kernel_t(
+template <bool kAttn>
+__global__ void __launch_bounds__(1024) stack_step_conv_kernel(
     const float* __restrict__ x, const float* __restrict__ film_w,
     const float* __restrict__ film_b, const float* __restrict__ down_cat,
     const float* __restrict__ down_b, const float* __restrict__ alpha,
@@ -174,9 +155,9 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
     int pos) {
   extern __shared__ float smem[];
   const int G = 8 * H, H2 = 2 * H, G2 = 4 * H, FD = F * D;
-  const int n = kConv ? F / s : F;   // rows of the intra recurrence
+  const int n = F / s;     // rows of the intra recurrence
   float* xs = smem;        // [F, D] activation tile
-  float* zs = xs + FD;     // [F, D] LayerNorm output (conv: [k, D] frames)
+  float* zs = xs + FD;     // [F, D] LayerNorm output ([k, D] conv frames)
   float* gs = zs + FD;     // [8H] gates of the current intra step
   float* hs = gs + G;      // [2H] fused (fwd | bwd) hidden state
   float* cs = hs + H2;     // [2H] fused cell state
@@ -194,7 +175,7 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
     }
 
     // ---- intra head: the n rows the recurrence reads, LayerNorm-ed, in zs.
-    if constexpr (kConv) {
+    {
       const int sD = s * D;
       const float* w = down_cat + (size_t)b * D * sD;
       const float* bd = down_b + (size_t)b * D;
@@ -213,9 +194,6 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
       __syncthreads();
       layer_norm_rows(zs, zs, i_ln + (size_t)b * 2 * D,
                       i_ln + (size_t)b * 2 * D + D, n, D, eps);
-    } else {
-      layer_norm_rows(xs, zs, i_ln + (size_t)b * 2 * D,
-                      i_ln + (size_t)b * 2 * D + D, F, D, eps);
     }
     __syncthreads();
 
@@ -270,9 +248,8 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
       }
     }
 
-    // ---- intra tail, a residual: x += y @ proj_w + proj_b, or the up conv
-    // on rows < k*s.
-    if constexpr (kConv) {
+    // ---- intra tail, a residual: the up conv on rows < k*s.
+    {
       const int sD = s * D;
       const float* w = proj_w + (size_t)b * H2 * sD;
       const float* bu = proj_b + (size_t)b * D;
@@ -283,16 +260,6 @@ __global__ void __launch_bounds__(1024) stack_step_kernel_t(
         float a = 0.f;
         for (int m = 0; m < H2; ++m) a += yr[m] * w[m * sD + j * D + c];
         xs[idx] = xs[idx] + a + bu[c];
-      }
-    } else {
-      const float* pw = proj_w + (size_t)b * H2 * D;
-      const float* pb = proj_b + (size_t)b * D;
-      for (int idx = tid; idx < FD; idx += nt) {
-        const int f = idx / D, d = idx - f * D;
-        const float* yr = y + f * H2;
-        float a = 0.f;
-        for (int k = 0; k < H2; ++k) a += yr[k] * pw[k * D + d];
-        xs[idx] = xs[idx] + a + pb[d];
       }
     }
     __syncthreads();
@@ -540,7 +507,7 @@ struct AttnArgs {
   int heads, e_dim, window, pos;
 };
 
-template <bool kConv, bool kAttn>
+template <bool kAttn>
 int launch(const float* x, const float* film_w, const float* film_b,
            const float* down_cat, const float* down_b, const float* alpha,
            const float* i_ln, const float* wih_f, const float* wih_b,
@@ -558,11 +525,11 @@ int launch(const float* x, const float* film_w, const float* film_b,
   cudaGetLastError();  // clear an error left by an earlier call
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stack_step_kernel_t<kConv, kAttn>,
+        stack_step_conv_kernel<kAttn>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  stack_step_kernel_t<kConv, kAttn>
+  stack_step_conv_kernel<kAttn>
       <<<1, threads, smem, (cudaStream_t)stream>>>(
           x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b,
           whh, b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b,
@@ -579,27 +546,9 @@ int launch(const float* x, const float* film_w, const float* film_b,
 // Plain C entry points for ctypes. Every pointer is a device pointer to
 // contiguous fp32 memory; the wrapper has checked shapes, types and devices.
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
-// gx [n, 8H], y [n, 2H] and g2 [F, 4H] are scratch (n = f_len, or
-// f_len / lstm_down for the conv branch).
-extern "C" int sbt_stack_step(
-    const float* x, const float* film_w, const float* film_b,
-    const float* i_ln, const float* wih_f, const float* wih_b,
-    const float* whh, const float* b8, const float* proj_w,
-    const float* proj_b, const float* t_ln, const float* wih2,
-    const float* whh2, const float* b2, const float* proj2_w,
-    const float* proj2_b, const float* h0, const float* c0, float* x_out,
-    float* h0_out, float* c0_out, float* gx, float* y, float* g2,
-    int n_blocks, int f_len, int d, int hidden, int use_film, float eps,
-    void* stream) {
-  return launch<false, false>(
-      x, film_w, film_b, nullptr, nullptr, nullptr, i_ln, wih_f, wih_b, whh,
-      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
-      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
-      use_film, eps, AttnArgs{}, stream);
-}
-
-// The conv_lstm branch: the conv operands of `pack_stack_params` in place of
-// proj_w / proj_b, and `lstm_down` s.
+// gx [k, 8H], y [k, 2H] and g2 [F, 4H] are scratch (k = f_len / lstm_down).
+// The conv operands of `pack_stack_params` come in place of the plain
+// branch's proj_w / proj_b, with `lstm_down` s.
 extern "C" int sbt_stack_step_conv(
     const float* x, const float* film_w, const float* film_b,
     const float* down_cat, const float* down_b, const float* alpha,
@@ -611,14 +560,14 @@ extern "C" int sbt_stack_step_conv(
     float* h0_out, float* c0_out, float* gx, float* y, float* g2,
     int n_blocks, int f_len, int d, int hidden, int lstm_down, int use_film,
     float eps, void* stream) {
-  return launch<true, false>(
+  return launch<false>(
       x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
       b8, up_flat, up_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
       x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden,
       lstm_down, use_film, eps, AttnArgs{}, stream);
 }
 
-// The attention branches: the 16 operands of `pack_attn_params`, the rings
+// The attention branch: the 16 operands of `pack_attn_params`, the rings
 // (updated in place at slot `pos`) and the q/k/v/output scratch
 // [F * (2 L E + 2 D)] after the weights; heads L, e_dim E, window W and pos
 // after the dims.
@@ -635,23 +584,6 @@ extern "C" int sbt_stack_step_conv(
         o_a, o_ln, k_ring, v_ring, a_scr, heads, e_dim, window, pos          \
   }
 
-extern "C" int sbt_stack_step_attn(
-    const float* x, const float* film_w, const float* film_b,
-    const float* i_ln, const float* wih_f, const float* wih_b,
-    const float* whh, const float* b8, const float* proj_w,
-    const float* proj_b, const float* t_ln, const float* wih2,
-    const float* whh2, const float* b2, const float* proj2_w,
-    const float* proj2_b, SBT_ATTN_PARAMS, const float* h0, const float* c0,
-    float* x_out, float* h0_out, float* c0_out, float* gx, float* y,
-    float* g2, int n_blocks, int f_len, int d, int hidden, int heads,
-    int e_dim, int window, int pos, int use_film, float eps, void* stream) {
-  return launch<false, true>(
-      x, film_w, film_b, nullptr, nullptr, nullptr, i_ln, wih_f, wih_b, whh,
-      b8, proj_w, proj_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
-      x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden, 1,
-      use_film, eps, SBT_ATTN_ARGS, stream);
-}
-
 extern "C" int sbt_stack_step_conv_attn(
     const float* x, const float* film_w, const float* film_b,
     const float* down_cat, const float* down_b, const float* alpha,
@@ -664,7 +596,7 @@ extern "C" int sbt_stack_step_conv_attn(
     float* g2, int n_blocks, int f_len, int d, int hidden, int lstm_down,
     int heads, int e_dim, int window, int pos, int use_film, float eps,
     void* stream) {
-  return launch<true, true>(
+  return launch<true>(
       x, film_w, film_b, down_cat, down_b, alpha, i_ln, wih_f, wih_b, whh,
       b8, up_flat, up_b, t_ln, wih2, whh2, b2, proj2_w, proj2_b, h0, c0,
       x_out, h0_out, c0_out, gx, y, g2, n_blocks, f_len, d, hidden,

@@ -7,12 +7,18 @@ local causal attention after each block's inter step, `_kernel_attn` and
 `_kernel_conv_attn`).
 
 `gridnet_stack_step` and `gridnet_stack_step_attn` launch hand-written CUDA
-kernels of `sound_bubble_tpu_torch/csrc/stack_step.cu` for tensors on the
-card (`stack_step_kernel_t<kConv, kAttn>`) and run `gridnet_stack_step_ref`
-/ `gridnet_stack_step_attn_ref`, their plain PyTorch versions, for tensors
-on the CPU. There is no fallback between the two: a CUDA tensor goes to the
-kernel or the call raises. The design notes and the bounds of the kernels
-are in their source.
+kernels for tensors on the card and run `gridnet_stack_step_ref` /
+`gridnet_stack_step_attn_ref`, their plain PyTorch versions, for tensors on
+the CPU. There is no fallback between the two: a CUDA tensor goes to the
+kernel or the call raises. The plain intra BLSTM (rows 1 and 3 of PERF.md's
+table) launches `stack_walk_kernel<H, kAttn>` of
+`sound_bubble_tpu_torch/csrc/stack_walk.cu`: one cluster of eight blocks a
+call (`walk_plan`), two of which walk the intra BLSTM's directions while all
+eight share the row-parallel phases; `walk_phases_ref` runs the same phases
+in plain PyTorch, in the kernel's order. A conv_lstm pack (rows 2 and 4)
+launches `stack_step_conv_kernel<kAttn>` of `csrc/stack_step.cu`, one block
+a call. The design notes and the bounds of the kernels are in their
+sources.
 """
 from __future__ import annotations
 
@@ -22,8 +28,10 @@ import numpy as np
 import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
+from sound_bubble_tpu_torch.ops.kernels.lstm_slab import FWD32_HIDDEN, fwd_smem
 
 SMEM_LIMIT_BYTES = 232448    # dynamic shared memory one H100 block can use
+CLUSTER = 8                  # blocks of the rows-1/3 kernel's cluster
 
 
 def _np(a):
@@ -332,7 +340,212 @@ def _stack_ref(packed, attn, x, h0, c0, film_w, film_b, eps):
     return (x, torch.stack(hs), torch.stack(cs), *rings)
 
 
+# ------------------------------- the cluster kernel's phases, plain ----
+
+def walk_tiles(f_len: int) -> list[tuple[int, int]]:
+    """(first row, rows) owned by each block of the rows-1/3 kernel's
+    cluster: ceil(F / 8) consecutive rows a block (the last ones may own
+    fewer, or none)."""
+    rc = -(-f_len // CLUSTER)
+    return [(min(f_len, c * rc), min(f_len, (c + 1) * rc) - min(f_len, c * rc))
+            for c in range(CLUSTER)]
+
+
+def _phase_walk(p, b, z, hidden):
+    """Blocks 0 and 1: each direction d of block b's intra BLSTM walks z
+    [F, D] on its own columns of the fused pack (gate g at g*2H + d*H of
+    w_ih, b8 and the diagonal block of whh), the backward one reversed, from
+    zero states. Returns y [F, 2H] (fwd | bwd, original row order)."""
+    H = hidden
+    ys = []
+    for d, w_ih in enumerate((p["wih_f"], p["wih_b"])):
+        cols = torch.cat([torch.arange(g * 2 * H + d * H, g * 2 * H + d * H
+                                       + H) for g in range(4)])
+        wi, bias = w_ih[b][:, cols], p["b8"][b][cols]
+        wh = p["whh"][b][d * H:(d + 1) * H][:, cols]
+        zd = z.flip(0) if d else z
+        gx = zd @ wi + bias
+        h = c = z.new_zeros(H)
+        out = []
+        for f in range(z.shape[0]):
+            g = gx[f] + h @ wh
+            c = torch.sigmoid(g[H:2 * H]) * c + torch.sigmoid(g[:H]) * \
+                torch.tanh(g[2 * H:3 * H])
+            h = torch.sigmoid(g[3 * H:]) * torch.tanh(c)
+            out.append(h)
+        y = torch.stack(out)
+        ys.append(y.flip(0) if d else y)
+    return torch.cat(ys, dim=-1)
+
+
+def _phase_rows(p, b, x, y, hr, c0, hidden, eps):
+    """A block's row phase on its rows: x [n, D] += y W_proj + b_proj; the
+    inter LayerNorm; the gates (z2 W_ih2 + b2) + hr (hr = h0 W_hh2, formed
+    during the first walk) and cell; x += h' W_proj2 + b_proj2. Returns
+    (x, h', c')."""
+    H = hidden
+    x = x + y @ p["proj_w"][b] + p["proj_b"][b]
+    z2 = _ln(x, p["t_ln"][b, 0], p["t_ln"][b, 1], eps)
+    g = (z2 @ p["wih2"][b] + p["b2"][b]) + hr
+    c = torch.sigmoid(g[:, H:2 * H]) * c0 + torch.sigmoid(g[:, :H]) * \
+        torch.tanh(g[:, 2 * H:3 * H])
+    h = torch.sigmoid(g[:, 3 * H:]) * torch.tanh(c)
+    return x + h @ p["proj2_w"][b] + p["proj2_b"][b], h, c
+
+
+def _moments(v):
+    """A block's partial of a LayerNorm over values v: (count, mean, sum of
+    squared deviations)."""
+    if v.numel() == 0:
+        return 0, v.new_zeros(()), v.new_zeros(())
+    mu = v.mean()
+    return v.numel(), mu, (v - mu).square().sum()
+
+
+def _combine(parts, eps):
+    """(mean, 1/sqrt(var + eps)) over all rows from the blocks' partials
+    (Chan's pairwise formula, summed)."""
+    total = sum(n for n, _, _ in parts)
+    mean = sum(n * mu for n, mu, _ in parts) / total
+    m2 = sum(m2 + n * (mu - mean) ** 2 for n, mu, m2 in parts)
+    return mean, torch.rsqrt(m2 / total + eps)
+
+
+def _phase_attn(pa, b, xs, tiles, pos, k_ring, v_ring, heads):
+    """Block b's attention step as the kernel's four phases, on the rows of
+    every block (xs: their x rows); writes slot pos of the rings in place
+    and returns the blocks' new x rows."""
+    F = sum(n for _, n in tiles)
+    d = xs[0].shape[-1]
+    e, vd = k_ring.shape[1] // heads, d // heads
+    widths = {"q": e, "k": e, "v": vd}
+    # 1. q, k, v of each block's rows; each (tensor, head) slab's partials
+    qkv = [{t: _prelu(x @ pa[f"{t}_w"][b] + pa[f"{t}_b"][b],
+                      pa[f"{t}_a"][b, 0]) for t in "qkv"} for x in xs]
+    # 2. the combine; normalise the own rows; the ring slot; partial scores
+    for t, w in widths.items():
+        for h in range(heads):
+            mu, inv = _combine([_moments(m[t][:, h * w:(h + 1) * w])
+                                for m in qkv], ATTN_LN_EPS)
+            for m, (f0, n) in zip(qkv, tiles):
+                sl = m[t][:, h * w:(h + 1) * w]
+                m[t][:, h * w:(h + 1) * w] = (sl - mu) * inv * \
+                    pa[f"{t}_ln"][b, 0, f0:f0 + n] + \
+                    pa[f"{t}_ln"][b, 1, f0:f0 + n]
+    for m, (f0, n) in zip(qkv, tiles):
+        k_ring[b, :, pos, f0:f0 + n] = m["k"].T
+        v_ring[b, :, pos, f0:f0 + n] = m["v"].T
+    parts = [torch.stack([torch.einsum(
+        "fj,jwf->w", m["q"][:, h * e:(h + 1) * e],
+        k_ring[b, h * e:(h + 1) * e, :, f0:f0 + n]) for h in range(heads)])
+        for m, (f0, n) in zip(qkv, tiles)]
+    # 3. the scores, the softmax, the weighted values, the output Linear
+    # and PReLU; partials of the frame's LayerNorm
+    prob = (sum(parts) / math.sqrt(F * e)).softmax(dim=-1)      # [L, W]
+    zo = []
+    for f0, n in tiles:
+        o = torch.einsum("cw,cwf->fc", prob.repeat_interleave(vd, dim=0),
+                         v_ring[b, :, :, f0:f0 + n])
+        zo.append(_prelu(o @ pa["o_w"][b] + pa["o_b"][b], pa["o_a"][b, 0]))
+    # 4. the combine, the LayerNorm over the [F, D] frame, the residual
+    mu, inv = _combine([_moments(z) for z in zo], ATTN_LN_EPS)
+    return [x + (z - mu) * inv * pa["o_ln"][b, 0, f0:f0 + n]
+            + pa["o_ln"][b, 1, f0:f0 + n]
+            for x, z, (f0, n) in zip(xs, zo, tiles)]
+
+
+def walk_phases_ref(packed, x, h0, c0, film_w=None, film_b=None,
+                    eps: float = 1e-5, attn=None):
+    """The rows-1/3 cluster kernel's phases in plain PyTorch, in its launch
+    order: the same function as `gridnet_stack_step_ref` (attn None) or
+    `gridnet_stack_step_attn_ref` (attn = (packed_attn, k_ring, v_ring, pos,
+    heads); the rings' slot pos written in place) and the same returns,
+    computed block by block as the kernel's blocks do: each direction's walk
+    on its pack columns, the rows' phases tile by tile, every reduction over
+    the frame a partial a tile and a combine."""
+    n_blocks, _, hidden4 = packed["wih2"].shape
+    hidden = hidden4 // 4
+    p = packed
+    tiles = walk_tiles(x.shape[0])
+    # prologue: each block's x rows and block 0's z; blocks 2-7 form hr
+    xs = [x[f0:f0 + n] for f0, n in tiles]
+    z = torch.cat([_ln(r, p["i_ln"][0, 0], p["i_ln"][0, 1], eps) for r in xs])
+    hr = h0 @ p["whh2"]
+    hs, cs = [], []
+    for b in range(n_blocks):
+        y = _phase_walk(p, b, z, hidden)
+        rows = [_phase_rows(p, b, r, y[f0:f0 + n], hr[b, f0:f0 + n],
+                            c0[b, f0:f0 + n], hidden, eps)
+                for r, (f0, n) in zip(xs, tiles)]
+        xs = [r[0] for r in rows]
+        hs.append(torch.cat([r[1] for r in rows]))
+        cs.append(torch.cat([r[2] for r in rows]))
+        if attn is not None:
+            pa, k_ring, v_ring, pos, heads = attn
+            xs = _phase_attn(pa, b, xs, tiles, int(pos), k_ring, v_ring,
+                             heads)
+        if b + 1 < n_blocks:
+            if film_w is not None:
+                xs = [r * film_w[b, f0:f0 + n] + film_b[b, f0:f0 + n]
+                      for r, (f0, n) in zip(xs, tiles)]
+            z = torch.cat([_ln(r, p["i_ln"][b + 1, 0], p["i_ln"][b + 1, 1],
+                               eps) for r in xs])
+    out = (torch.cat(xs), torch.stack(hs), torch.stack(cs))
+    return out if attn is None else (*out, attn[1], attn[2])
+
+
 # --------------------------------------------------------- CUDA kernel ----
+
+def walk_plan(f_len: int, d: int, hidden: int, n_blocks: int,
+              attn=None) -> dict:
+    """The launch of the rows-1/3 kernel (`csrc/stack_walk.cu`) for F =
+    f_len rows of width D = d, H = hidden, B = n_blocks blocks, and attn =
+    (heads L, E, W) or None: one cluster of `ctas` blocks of `threads`
+    threads, `rows` rows a block, `smem` bytes of dynamic shared memory a
+    block (the walk's, then the block's rows and scratch) and `scratch`
+    floats of global scratch. Raises ValueError for a width the kernel does
+    not take: H outside 8, 16, 32, 64 (ROADMAP Queue 2 item 10), D not a
+    multiple of 4, or more shared memory than a block has."""
+    if hidden not in FWD32_HIDDEN:
+        raise ValueError(
+            f"H={hidden}: the stack step's kernel takes H in "
+            f"{', '.join(map(str, FWD32_HIDDEN))} (the widths of its walk; "
+            "ROADMAP Queue 2 item 10)")
+    if d < 4 or d % 4:
+        raise ValueError(f"D={d}: the stack step's kernel takes D a "
+                         "multiple of 4")
+    if f_len < 1 or n_blocks < 1:
+        raise ValueError(f"F={f_len}, B={n_blocks}: empty step")
+    rows = -(-f_len // CLUSTER)
+
+    def al4(floats):    # each part of a block's region is 16-byte aligned
+        return -(-floats // 4) * 4
+
+    # staged a block: proj_w, wih2, proj2_w; proj_b, b2, proj2_b, the inter
+    # and the next intra LayerNorm; the rows' c0 and FiLM. The rows: x, z;
+    # y, gates, h'
+    staged = 7 * hidden * d + 6 * d + 4 * hidden + rows * (hidden + 2 * d)
+    own = rows * (2 * d + 7 * hidden)
+    scratch = f_len * (d + 2 * hidden + 4 * hidden * n_blocks)  # z, y, hr
+    if attn is not None:
+        heads, e_dim, window = attn
+        le = heads * e_dim
+        # staged: q_w, k_w, v_w, o_w, their biases and PReLU slopes, the
+        # rows' LayerNorm affines. The rows: q | k | v, the attention
+        # output; the scores; the moments
+        staged += (2 * d * (le + d) + 2 * le + 2 * d + 4
+                   + 2 * rows * (2 * e_dim + d // heads + d))
+        own += (al4(rows * (2 * le + d)) + rows * d + heads * window
+                + 2 * (3 * heads + 1))
+        scratch += CLUSTER * (2 * (3 * heads + 1) + heads * window)
+    smem = fwd_smem(d, hidden, 1) + 4 * (al4(staged) + own)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"F={f_len}, D={d}, H={hidden}: a block needs "
+                         f"{smem} B of shared memory, more than "
+                         f"{SMEM_LIMIT_BYTES}")
+    return {"ctas": CLUSTER, "threads": 4 * hidden, "rows": rows,
+            "smem": smem, "scratch": scratch}
+
 
 def _check(name, t, shape, device):
     if not isinstance(t, torch.Tensor):
@@ -367,7 +580,7 @@ def _operands(packed):
     s = lstm_down(packed)
     if s is None:
         shapes.update(proj_w=(n_blocks, H2, d), proj_b=(n_blocks, d))
-        return "sbt_stack_step", "launches", _WEIGHTS, shapes, None
+        return "sbt_stack_walk", "launches", _WEIGHTS, shapes, None
     if s < 1:
         raise ValueError(f"down_cat: shape {tuple(packed['down_cat'].shape)}"
                          ", expected [B, C, s*C] with s >= 1")
@@ -411,17 +624,32 @@ def check_packed(packed, device, packed_attn=None, heads=None):
             _check(k, packed_attn[k], shapes[k], device)
 
 
+_fits = {}   # (device, H, attention, smem) -> clusters the card holds
+
+
+def _cluster_fits(lib, dev, hidden, attn, smem):
+    """Raise unless the card holds one cluster of the rows-1/3 kernel at
+    once (its eight blocks wait on each other at cluster barriers; the
+    hardware schedules a cluster's blocks together, so one that fits cannot
+    wait on a block that is not resident). Asked once a shape."""
+    key = (dev, hidden, attn, smem)
+    if key not in _fits:
+        with torch.cuda.device(dev):
+            _fits[key] = lib.sbt_stack_walk_clusters(hidden, int(attn), smem)
+    if _fits[key] < 1:
+        raise RuntimeError(
+            f"a cluster of {CLUSTER} blocks of {4 * hidden} threads with "
+            f"{smem} B of shared memory each does not fit this card "
+            f"(cudaOccupancyMaxActiveClusters: {_fits[key]})")
+
+
 def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
     dev = x.device
     entry, counter, names, _, s = _operands(packed)
     n_blocks, d, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     f_len = x.shape[0]
-    threads = 8 * hidden
-    if threads % 32 or threads > 1024:
-        raise ValueError(f"H={hidden}: the kernel needs 8H threads, a "
-                         "multiple of 32 and at most 1024")
-    smem = (2 * f_len * d + 12 * hidden) * 4
+    heads = e_dim = window = pos = 0
     if attn is not None:
         packed_attn, k_ring, v_ring, pos, heads = attn
         if heads < 1 or d % heads or k_ring.dim() != 4 or \
@@ -432,18 +660,25 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
         window = k_ring.shape[2]
         if not 0 <= pos < window:
             raise ValueError(f"pos={pos}: outside the ring's {window} slots")
-        # the scores [L, W] and 64 floats of reduction scratch; q, k, v and
-        # the attention output live in a global scratch, so that the L1
-        # keeps its share of the SM (csrc/stack_step.cu)
-        smem += 4 * (heads * window + 64)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
-                         f"memory, more than {SMEM_LIMIT_BYTES}")
-    # rows of the intra recurrence: F, or the k = F // s conv frames
-    n_rows = f_len if s is None else f_len // s
-    if n_rows < 1:
-        raise ValueError(f"F={f_len} < lstm_down={s}: no conv frame")
-    G, H2 = 8 * hidden, 2 * hidden
+    if s is None:
+        plan = walk_plan(f_len, d, hidden, n_blocks,
+                         None if attn is None else (heads, e_dim, window))
+    else:
+        threads = 8 * hidden
+        if threads % 32 or threads > 1024:
+            raise ValueError(f"H={hidden}: the kernel needs 8H threads, a "
+                             "multiple of 32 and at most 1024")
+        smem = (2 * f_len * d + 12 * hidden) * 4
+        if attn is not None:
+            # the scores [L, W] and 64 floats of reduction scratch; q, k, v
+            # and the attention output live in a global scratch, so that
+            # the L1 keeps its share of the SM (csrc/stack_step.cu)
+            smem += 4 * (heads * window + 64)
+        if smem > SMEM_LIMIT_BYTES:
+            raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
+                             f"memory, more than {SMEM_LIMIT_BYTES}")
+        if f_len // s < 1:
+            raise ValueError(f"F={f_len} < lstm_down={s}: no conv frame")
     _check("x", x, (f_len, d), dev)
     _check("h0", h0, (n_blocks, f_len, hidden), dev)
     _check("c0", c0, (n_blocks, f_len, hidden), dev)
@@ -459,26 +694,48 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
         film_shape = (n_blocks - 1, f_len, d)
         _check("film_w", film_w, film_shape, dev)
         _check("film_b", film_b, film_shape, dev)
+    if s is None:
+        # the row phases' weights go to shared memory in 16-byte pieces
+        staged = [(k, packed[k]) for k in ("proj_w", "wih2", "proj2_w")]
+        if attn is not None:
+            staged += [(k, packed_attn[k]) for k in ("q_w", "k_w", "v_w",
+                                                     "o_w")]
+        for k, t in staged:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{k}: not aligned to 16 bytes")
 
     lib = _build.load_library()
     x_out = torch.empty_like(x)
     h0_out = torch.empty_like(h0)
     c0_out = torch.empty_like(c0)
-    gx = torch.empty((n_rows, G), dtype=torch.float32, device=dev)
-    y = torch.empty((n_rows, H2), dtype=torch.float32, device=dev)
-    g2 = torch.empty((f_len, 4 * hidden), dtype=torch.float32, device=dev)
-    dims = (n_blocks, f_len, d, hidden) + (() if s is None else (s,))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    if s is None:
+        _cluster_fits(lib, dev, hidden, attn is not None, plan["smem"])
+        scratch = empty(plan["scratch"])
+        bufs, dims = (scratch.data_ptr(),), (n_blocks, f_len, d, hidden)
+        tail = (plan["scratch"],)
+    else:
+        # gx [k, 8H], y [k, 2H] over the k = F // s conv frames; g2 [F, 4H]
+        n_rows = f_len // s
+        bufs = tuple(t.data_ptr() for t in (
+            empty(n_rows, 8 * hidden), empty(n_rows, 2 * hidden),
+            empty(f_len, 4 * hidden)))
+        dims, tail = (n_blocks, f_len, d, hidden, s), ()
     attn_ptrs, attn_dims = (), ()
     if attn is not None:
-        entry, counter = {"launches": ("sbt_stack_step_attn",
+        entry, counter = {"launches": ("sbt_stack_walk_attn",
                                        "attn_launches"),
                           "conv_launches": ("sbt_stack_step_conv_attn",
                                             "conv_attn_launches")}[counter]
-        # q, k [F, L*E]; v and the attention output [F, D]
-        a_scr = torch.empty((f_len * (2 * heads * e_dim + 2 * d),),
-                            dtype=torch.float32, device=dev)
         attn_ptrs = (*[packed_attn[k].data_ptr() for k in _ATTN],
-                     k_ring.data_ptr(), v_ring.data_ptr(), a_scr.data_ptr())
+                     k_ring.data_ptr(), v_ring.data_ptr())
+        if s is not None:
+            # q, k [F, L*E]; v and the attention output [F, D]
+            attn_ptrs += (empty(f_len * (2 * heads * e_dim + 2 * d))
+                          .data_ptr(),)
         attn_dims = (heads, e_dim, window, pos)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -488,9 +745,8 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
             film_b.data_ptr() if use_film else None,
             *[packed[k].data_ptr() for k in names], *attn_ptrs,
             h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
-            h0_out.data_ptr(), c0_out.data_ptr(), gx.data_ptr(),
-            y.data_ptr(), g2.data_ptr(), *dims, *attn_dims, int(use_film),
-            float(eps), stream)
+            h0_out.data_ptr(), c0_out.data_ptr(), *bufs, *dims, *attn_dims,
+            int(use_film), *tail, float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     setattr(gridnet_stack_step, counter,
@@ -508,9 +764,9 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
     inter-LSTM state; film_w/film_b: [B-1, F, D] precomputed FiLM affines
     (None for unconditional models). Returns (x_out [F, D], h0', c0').
 
-    CUDA tensors launch `stack_step_kernel_t<false, false>`
+    CUDA tensors launch `stack_walk_kernel<H, false>`, one cluster a call
     (`gridnet_stack_step.launches` counts its launches), or
-    `stack_step_kernel_t<true, false>` for a conv_lstm pack
+    `stack_step_conv_kernel<false>` for a conv_lstm pack
     (`gridnet_stack_step.conv_launches`); CPU tensors run
     `gridnet_stack_step_ref`. `checked=True` skips the weight checks for a
     `packed` that already passed `check_packed` on this device."""
@@ -534,11 +790,12 @@ def gridnet_stack_step_attn(packed, packed_attn, x, h0, c0, k_ring, v_ring,
     heads: cfg.L. The rings are updated IN PLACE (slot pos of every plane)
     and returned: (x_out, h0', c0', k_ring, v_ring).
 
-    CUDA tensors launch `stack_step_kernel_t<false, true>`
-    (`gridnet_stack_step.attn_launches`), or `<true, true>` for a conv_lstm
-    pack (`gridnet_stack_step.conv_attn_launches`); CPU tensors run
-    `gridnet_stack_step_attn_ref`. `checked=True` skips the weight checks
-    for packs that already passed `check_packed` on this device."""
+    CUDA tensors launch `stack_walk_kernel<H, true>`, one cluster a call
+    (`gridnet_stack_step.attn_launches`), or `stack_step_conv_kernel<true>`
+    for a conv_lstm pack (`gridnet_stack_step.conv_attn_launches`); CPU
+    tensors run `gridnet_stack_step_attn_ref`. `checked=True` skips the
+    weight checks for packs that already passed `check_packed` on this
+    device."""
     attn = (packed_attn, k_ring, v_ring, int(pos), int(heads))
     if x.device.type == "cuda":
         return _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn)

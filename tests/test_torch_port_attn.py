@@ -288,6 +288,55 @@ def test_attn_stack_step_matches_pallas_interpret(variant):
                     err_msg=f"{fn.__name__} step {k} {name}")
 
 
+
+def test_walk_attn_phases_match_pallas_interpret():
+    """`walk_phases_ref` with attention, the row-3 kernel's phases in plain
+    PyTorch in its launch order (q, k, v and each slab's LayerNorm
+    partials a tile of rows; the combine; the ring slot and partial scores;
+    the softmax and weighted values; the frame LayerNorm's partials and
+    combine), against the jitted JAX Pallas `gridnet_stack_step_attn` in
+    interpret mode over W + 1 chained steps (pos wraps): x, h0, c0 and both
+    rings. F = 25: the cluster's tiles are 4 rows, the last one 0."""
+    cfg = tmodel.NetConfig(**SMALL, conv_lstm=False)
+    jcfg = jmodel.NetConfig(**SMALL, conv_lstm=False)
+    rng = np.random.default_rng(5)
+    net = tmodel.Net(cfg)
+    net.load_state_dict({k: torch.from_numpy(np.asarray(
+        rng.standard_normal(v.shape) * 0.4, np.float32))
+        for k, v in net.state_dict().items()})
+    tree = param_tree(net)
+    jtree = jax.tree_util.tree_map(lambda t: t.numpy(), tree)
+    pk_t, pa_t = tsk.pack_stack_params(cfg, tree), tsk.pack_attn_params(
+        cfg, tree)
+    pk_j, pa_j = jsk.pack_stack_params(jcfg, jtree), jsk.pack_attn_params(
+        jcfg, jtree)
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    h, c = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    kr, vr = np.zeros((B, cfg.L * cfg.E, W, F), np.float32), np.zeros(
+        (B, D, W, F), np.float32)
+    jstep = jax.jit(lambda x, h, c, kr, vr, pos: jsk.gridnet_stack_step_attn(
+        pk_j, pa_j, x, h, c, kr, vr, pos, cfg.L, jnp.asarray(fw),
+        jnp.asarray(fb), eps=cfg.eps, interpret=True))
+    jstate = [jnp.asarray(a) for a in (h, c, kr, vr)]
+    st = [torch.from_numpy(a.copy()) for a in (h, c, kr, vr)]
+    for k in range(W + 1):
+        x = draw(F, D)
+        jx, *jstate = jstep(jnp.asarray(x), *jstate,
+                            jnp.asarray([k % W], jnp.int32))
+        tx, *st[:] = tsk.walk_phases_ref(
+            pk_t, torch.from_numpy(x), st[0], st[1], torch.from_numpy(fw),
+            torch.from_numpy(fb), eps=cfg.eps,
+            attn=(pa_t, st[2], st[3], k % W, cfg.L))
+        for name, g, w in zip(("x", "h0", "c0", "k_ring", "v_ring"),
+                              [tx, *st], [jx, *jstate]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                       rtol=0, err_msg=f"step {k} {name}")
+
 @pytest.mark.parametrize("variant,in_kernel", [
     ("plain", True), ("conv", True), ("plain", False)])
 def test_fused_streamer_attn_matches_jax(variant, in_kernel, rng):

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
-the attention step), the slab LSTM scans (forward and backward; the fp32
+the attention step; the plain intra BLSTM's, rows 1 and 3, as one cluster of
+eight blocks a call: one device kernel, capturable in a CUDA graph), the
+slab LSTM scans (forward and backward; the fp32
 forward, shared with the seq route's, at the training shapes too), the
 custom-VJP route's recurrences (rows 6-9: one direction and both
 directions, forward and backward, and the two autograd Functions), and the
@@ -178,6 +180,130 @@ def test_kernel_rejects_bad_operands():
     with pytest.raises(ValueError, match="whh: on cpu"):
         sk.gridnet_stack_step({**packed, "whh": packed["whh"].cpu()}, x, h0,
                               c0)
+
+
+# ---- rows 1 and 3 (`csrc/stack_walk.cu`): the plain intra BLSTM's stack
+# steps, one cluster of eight blocks a call
+
+# F ragged against the walk's 8-frame slabs and the cluster's row tiles:
+# 17 (small), 145 (full); 9, where blocks 5-7 of the cluster own no row; B =
+# 1, as FusedStreamer's per-block route calls the kernel
+WALK_SIZES = {**SIZES,
+              "f9": dict(stft_chunk_size=8, stft_pad_size=8, D=8, H=8, B=2),
+              "block1": dict(stft_chunk_size=192, stft_pad_size=96, D=32,
+                             H=64, B=1)}
+
+
+def _walk_case(widths, dev, seed=0, use_attn=False):
+    """(cfg, packed, packed_attn or None, draw) on the card for a seeded
+    net: the model's initial distribution with every leaf moved by 0.05
+    N(0, 1), as the attention tests draw theirs."""
+    cfg = NetConfig(conv_lstm=False, use_attn=use_attn, **widths)
+    rng = np.random.default_rng(seed)
+    net = Net(cfg).init_weights(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.from_numpy(np.asarray(
+                rng.standard_normal(tuple(p.shape)) * 0.05, np.float32)))
+    tree = param_tree(net)
+    packed = {k: v.to(dev) for k, v in sk.pack_stack_params(
+        cfg, tree).items()}
+    pa = None
+    if use_attn:
+        pa = {k: v.to(dev) for k, v in sk.pack_attn_params(
+            cfg, tree).items()}
+
+    def draw(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    return cfg, packed, pa, draw
+
+
+@pytest.mark.parametrize("use_film", [True, False])
+@pytest.mark.parametrize("size", list(WALK_SIZES))
+def test_walk_kernel_matches_plain_chained(size, use_film):
+    """5 chained steps (x new a step; h0, c0 carried): x, h0, c0 against
+    the plain version; one launch of row 1's kernel a call, none of the
+    others."""
+    dev = _card()
+    cfg, packed, _, draw = _walk_case(WALK_SIZES[size], dev)
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    fw, fb = ((draw(B - 1, F, D), draw(B - 1, F, D)) if use_film
+              else (None, None))
+    hk, ck = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    hr, cr = hk, ck
+    names = ("launches", "conv_launches", "attn_launches",
+             "conv_attn_launches")
+    before = {n: getattr(sk.gridnet_stack_step, n) for n in names}
+    for step in range(5):
+        x = draw(F, D)
+        xk, hk, ck = sk.gridnet_stack_step(packed, x, hk, ck, fw, fb,
+                                           eps=cfg.eps)
+        torch.cuda.synchronize()
+        xr, hr, cr = sk.gridnet_stack_step_ref(packed, x, hr, cr, fw, fb,
+                                               eps=cfg.eps)
+        for g, w, name in ((xk, xr, "x"), (hk, hr, "h0"), (ck, cr, "c0")):
+            assert g.shape == w.shape, name
+            err = float((g - w).abs().max())
+            assert err <= TOL, f"step {step} {name}: {err}"
+    grew = {n: getattr(sk.gridnet_stack_step, n) - before[n] for n in names}
+    assert grew == {n: 5 if n == "launches" else 0 for n in names}
+
+
+def _walk_step(attn, dev):
+    """A call of row 1's (attn False: the flagship's widths) or row 3's
+    (attn True: the attention flagship's, W cut to 7) wrapper on seeded
+    operands, as a function of no arguments; its counter's name."""
+    widths = dict(SIZES["full"])
+    if attn:
+        widths.update(L=4, E=2, local_atten_len=7)
+    cfg, packed, pa, draw = _walk_case(widths, dev, use_attn=attn)
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    if not attn:
+        return (lambda: sk.gridnet_stack_step(
+            packed, x, h0, c0, fw, fb, eps=cfg.eps)), "launches"
+    W = cfg.local_atten_len
+    kr = draw(B, cfg.L * cfg.E, W, F)
+    vr = draw(B, D, W, F)
+    return (lambda: sk.gridnet_stack_step_attn(
+        packed, pa, x, h0, c0, kr, vr, 3, cfg.L, fw, fb,
+        eps=cfg.eps)), "attn_launches"
+
+
+def test_walk_refuses_other_widths():
+    """H = 48 raises on the card (the walk takes H in 8, 16, 32, 64;
+    ROADMAP Queue 2 item 10) and never runs the plain version."""
+    dev = _card()
+    cfg, packed, _, draw = _walk_case({**SIZES["small"], "H": 48}, dev)
+    F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+    with pytest.raises(ValueError, match="Queue 2 item 10"):
+        sk.gridnet_stack_step(packed, draw(F, D), draw(B, F, H),
+                              draw(B, F, H))
+
+
+def test_walk_plan_agrees_with_the_library():
+    """`walk_plan`'s shared memory and scratch are the library's, and one
+    cluster of each kernel fits the card, at the widths the repo runs."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+
+    _card()
+    lib = _build.load_library()
+    for f_len, d, h, b, attn in ((145, 32, 64, 6, None),
+                                 (145, 32, 64, 6, (4, 2, 100)),
+                                 (145, 32, 64, 1, None),
+                                 (17, 8, 8, 3, None), (25, 8, 8, 3, (2, 2, 5)),
+                                 (9, 8, 8, 2, None)):
+        plan = sk.walk_plan(f_len, d, h, b, attn)
+        heads, e, w = attn or (0, 0, 0)
+        assert lib.sbt_stack_walk_smem(f_len, d, h, heads, e, w) == \
+            plan["smem"]
+        assert lib.sbt_stack_walk_scratch(b, f_len, d, h, heads, w) == \
+            plan["scratch"]
+        assert lib.sbt_stack_walk_clusters(h, int(attn is not None),
+                                           plan["smem"]) >= 1
 
 
 # attention widths: the flagship's and the Orange Pi's (L=4, E=2, W=100) at
@@ -1078,3 +1204,100 @@ def test_streaming_scan_graph_matches_loop(dir_fuse):
     assert kernels.launch_counts()[key] - before == per_chunk * (n + 1)
     assert got.shape == want.shape == (1, 1, 32 * n)
     assert float((got - want).abs().max()) <= TOL
+
+
+# ---- rows 1 and 3 again: the profiler and a CUDA graph, last in the file.
+# On the card, torch.profiler sessions in a process that has run other
+# sessions and captured CUDA graphs dropped kernel records: row 5's
+# profiler test above saw 2 of its 5 after these ran before it, and a row-3
+# session after the graph tests saw none. So the profile is taken in a
+# fresh process, and the graph test comes after every profiler session.
+
+PROFILE_WALK = """
+import json, pathlib, sys
+sys.path[:0] = [{repo!r}, {tests!r}]
+import torch
+from torch.profiler import ProfilerActivity, profile
+from sound_bubble_tpu_torch.ops.kernels import _build
+from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+_build.build = lambda: (pathlib.Path({lib!r}), "")  # the built library
+import test_torch_port_cuda as t
+dev = torch.device("cuda")
+steps = [t._walk_step(attn, dev) for attn in (False, True)]
+before = {{}}
+with torch.no_grad():
+    for step, counter in steps:
+        step()
+        before[counter] = getattr(sk.gridnet_stack_step, counter)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for step, _ in steps:
+            for _ in range(5):
+                step()
+        torch.cuda.synchronize()
+print(json.dumps({{
+    "launches": {{c: getattr(sk.gridnet_stack_step, c) - n
+                  for c, n in before.items()}},
+    "names": [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def walk_profile():
+    """torch.profiler's device kernel records of 5 calls of row 1 and then
+    5 of row 3 (`_walk_step`), in one session of a fresh process that loads
+    the library this process built; and the launch counts there."""
+    import json
+    import subprocess
+    import sys
+
+    from sound_bubble_tpu_torch.ops.kernels import _build
+
+    _card()
+    lib = _build.load_library()._name
+    code = PROFILE_WALK.format(repo=str(REPO), tests=str(REPO / "tests"),
+                               lib=lib)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("attn", [False, True])
+def test_walk_is_one_device_kernel(attn, walk_profile):
+    """Rows 1 and 3 on the card are one kernel a call (the cluster form):
+    torch.profiler sees no other device work (no product, no copy, no
+    cuBLAS or cuDNN kernel) over 5 calls of each, and the wrapper counts one
+    launch a call. CUPTI now and then drops a record, so 4 or 5 kernel
+    records of each pass."""
+    names = walk_profile["names"]
+    assert all("stack_walk_kernel" in n for n in names), names
+    mine = [n for n in names
+            if f"stack_walk_kernel<64, {str(attn).lower()}>" in n]
+    assert 4 <= len(mine) <= 5, names
+    counter = "attn_launches" if attn else "launches"
+    assert walk_profile["launches"][counter] == 5
+
+
+@pytest.mark.parametrize("attn", [False, True])
+def test_walk_graph_replay_is_bit_equal(attn):
+    """One call captured in a CUDA graph and replayed gives what the eager
+    call gave, bit for bit (no host sync, no allocation in the kernel, no
+    atomics: its sums run in a fixed order)."""
+    dev = _card()
+    step, _ = _walk_step(attn, dev)
+    with torch.no_grad():
+        eager = [t.clone() for t in step()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = step()
+        graph.replay()
+        torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)

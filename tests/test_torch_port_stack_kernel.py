@@ -6,6 +6,7 @@ at F=25: the pack at lstm_down 5 and 4, the stack step at lstm_down 5
 without FiLM and at 4, ragged, with FiLM).
 
 Tolerance 1e-5 absolute: both sides run the same fp32 math."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,3 +181,72 @@ def test_check_packed(case):
         tsk.check_packed({**packed, "b8": packed["b8"][:, :-1]}, "cpu")
     with pytest.raises(ValueError, match="i_ln: on cpu"):
         tsk.check_packed(packed, "meta")
+
+
+@pytest.mark.parametrize("use_film", [True, False])
+def test_walk_phases_match_pallas_interpret(case, use_film):
+    """`walk_phases_ref`, the rows-1 kernel's phases in plain PyTorch in its
+    launch order (each direction's walk on its own pack columns, the row
+    phases tile by tile, the inter LSTM's recurrent part formed up front),
+    against the JAX Pallas kernel in interpret mode and against
+    `gridnet_stack_step_ref`, 2 chained steps (F = 17: the cluster's last
+    tiles are short)."""
+    cfg, tree, a = case
+    packed_t = tsk.pack_stack_params(cfg, tree)
+    packed_j = jsk.pack_stack_params(JaxConfig(**SIZE), _np_tree(tree))
+    fw = a["film_w"] if use_film else None
+    fb = a["film_b"] if use_film else None
+    jfw, jfb = (None, None) if fw is None else (jnp.asarray(fw),
+                                                jnp.asarray(fb))
+    tfw, tfb = (None, None) if fw is None else (torch.from_numpy(fw),
+                                                torch.from_numpy(fb))
+    jstep = jax.jit(lambda x, h, c: jsk.gridnet_stack_step(
+        packed_j, x, h, c, jfw, jfb, eps=cfg.eps, interpret=True))
+    want = (None, jnp.asarray(a["h0"]), jnp.asarray(a["c0"]))
+    got = ref = (None, torch.from_numpy(a["h0"]), torch.from_numpy(a["c0"]))
+    for step in range(2):
+        x = a["x"] * (1.0 + step)
+        want = jstep(jnp.asarray(x), want[1], want[2])
+        got = tsk.walk_phases_ref(packed_t, torch.from_numpy(x), got[1],
+                                  got[2], tfw, tfb, eps=cfg.eps)
+        ref = tsk.gridnet_stack_step_ref(packed_t, torch.from_numpy(x),
+                                         ref[1], ref[2], tfw, tfb,
+                                         eps=cfg.eps)
+        for g, w, r, name in zip(got, want, ref, ("x", "h0", "c0")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                       rtol=0, err_msg=f"{step} {name}")
+            np.testing.assert_allclose(g.numpy(), r.numpy(), atol=TOL,
+                                       rtol=0, err_msg=f"{step} {name}")
+
+
+def test_walk_plan():
+    """The rows-1/3 kernel's launch, checkable without a card: one cluster
+    of 8 blocks of 4H threads, ceil(F / 8) rows a block, the shared memory
+    of the walk (csrc/lstm_fwd32.cuh at one row) plus the block's staged
+    weights, rows and scratch, the global scratch; and the widths it
+    refuses."""
+    flagship = tsk.walk_plan(145, 32, 64, 6)
+    # the walk's 45,696 B; staged: 3 weights, 3 biases and 2 LayerNorms, 19
+    # rows of c0 and FiLM; the rows: x, z, y, gates, h'
+    assert flagship == {"ctas": 8, "threads": 256, "rows": 19,
+                        "smem": 45696 + 4 * (7 * 64 * 32 + 6 * 32 + 4 * 64
+                                             + 19 * (64 + 64)
+                                             + 19 * (64 + 448)),
+                        "scratch": 145 * (32 + 128 + 256 * 6)}
+    attn = tsk.walk_plan(145, 32, 64, 6, (4, 2, 100))
+    # staged: 4 weights, their biases and slopes, 19 rows of 4 LayerNorm
+    # affines; the rows' q | k | v and output; scores [4, 100]; moments
+    assert attn["smem"] == flagship["smem"] + 4 * (
+        2 * 32 * (8 + 32) + 2 * 8 + 2 * 32 + 4 + 2 * 19 * (2 * 2 + 8 + 32)
+        + 19 * (16 + 64) + 400 + 26)
+    assert attn["scratch"] == flagship["scratch"] + 8 * (26 + 400)
+    assert tsk.walk_plan(17, 8, 8, 3)["threads"] == 32
+    assert [n for _, n in tsk.walk_tiles(145)] == [19] * 7 + [12]
+    assert tsk.walk_tiles(9) == [(0, 2), (2, 2), (4, 2), (6, 2), (8, 1),
+                                 (9, 0), (9, 0), (9, 0)]
+    with pytest.raises(ValueError, match="Queue 2 item 10"):
+        tsk.walk_plan(145, 32, 48, 6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tsk.walk_plan(145, 30, 64, 6)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsk.walk_plan(25, 8, 8, 3, (2, 2, 40000))

@@ -39,6 +39,7 @@ HOST_CUDA = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <math.h>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -50,22 +51,44 @@ HOST_CUDA = r"""
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__
-struct float4 { float x, y, z, w; };
-struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct uint3e { unsigned x, y, z; };
-inline thread_local uint3e threadIdx, blockIdx;
+inline thread_local uint3e threadIdx, blockIdx, blockDim;
 using std::max;
 using std::min;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-inline int cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
+template <typename T>
+inline int cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
   return 0;
 }
 inline int cudaGetLastError() { return 0; }
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+template <typename T> inline T __ldcg(const T* p) { return *p; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 
 namespace emu {
 struct Warp {
@@ -73,8 +96,10 @@ struct Warp {
   float buf[32];
 };
 inline thread_local std::barrier<>* block_bar;
+inline thread_local std::barrier<>* cluster_bar;
 inline thread_local Warp* warp;
 inline thread_local int lane;
+inline thread_local unsigned char* cta_smem;  // the block's shared memory
 extern unsigned char* smem_base;
 extern size_t smem_cap;
 
@@ -91,7 +116,9 @@ void launch(K k, unsigned grid, unsigned nt, size_t smem, A... args) {
       ts.emplace_back([&, t] {
         threadIdx = {t, 0, 0};
         blockIdx = {b, 0, 0};
+        blockDim = {nt, 1, 1};
         block_bar = &bar;
+        cta_smem = smem_base;
         warp = &warps[t / 32];
         lane = t % 32;
         k(args...);
@@ -100,7 +127,58 @@ void launch(K k, unsigned grid, unsigned nt, size_t smem, A... args) {
     for (auto& w : warps) delete w.bar;
   }
 }
+
+// One cluster of `grid` blocks at once (a std::thread a CUDA thread of
+// every block), each block with shared memory of its own filled with NaN;
+// a cluster barrier is a std::barrier over all of them.
+template <typename K, typename... A>
+void launch_cluster(K k, unsigned grid, unsigned nt, size_t smem,
+                    A... args) {
+  if (smem > smem_cap) throw 1;
+  std::vector<std::vector<unsigned char>> mem(
+      grid, std::vector<unsigned char>(smem + 16, 0xff));
+  std::barrier<> cbar(grid * nt);
+  std::vector<std::barrier<>*> bars;
+  std::vector<std::vector<Warp>> warps(grid, std::vector<Warp>(nt / 32));
+  for (unsigned b = 0; b < grid; ++b) {
+    bars.push_back(new std::barrier<>(nt));
+    for (auto& w : warps[b]) w.bar = new std::barrier<>(32);
+  }
+  std::vector<std::thread> ts;
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < nt; ++t)
+      ts.emplace_back([&, b, t] {
+        threadIdx = {t, 0, 0};
+        blockIdx = {b, 0, 0};
+        blockDim = {nt, 1, 1};
+        block_bar = bars[b];
+        cluster_bar = &cbar;
+        warp = &warps[b][t / 32];
+        lane = t % 32;
+        cta_smem = reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<size_t>(mem[b].data()) + 15) / 16 * 16);
+        k(args...);
+      });
+  for (auto& th : ts) th.join();
+  for (unsigned b = 0; b < grid; ++b) {
+    delete bars[b];
+    for (auto& w : warps[b]) delete w.bar;
+  }
+}
 }  // namespace emu
+
+template <typename... P, typename... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...),
+                       A&&... args) {
+  emu::launch_cluster(k, c->gridDim.x, c->blockDim.x, c->dynamicSmemBytes,
+                      args...);
+  return 0;
+}
+inline int cudaOccupancyMaxActiveClusters(int* n, const void*,
+                                          const cudaLaunchConfig_t*) {
+  *n = 1;
+  return 0;
+}
 
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
@@ -112,12 +190,15 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
 }
 """
 
-ENTRIES = r"""
-namespace sbt_fwd32 { alignas(16) unsigned char smem[%(smem)d]; }
+STORAGE = r"""
 namespace emu {
-unsigned char* smem_base = sbt_fwd32::smem;
+alignas(16) unsigned char smem_storage[%(smem)d];
+unsigned char* smem_base = smem_storage;
 size_t smem_cap = %(smem)d;
 }
+"""
+
+ENTRIES = STORAGE + r"""
 extern "C" int emu_seq_fwd(const void* x, const void* w_ih_f,
                            const void* w_ih_b, const void* w_hh,
                            const void* b, const float* h0, const float* c0,
@@ -151,17 +232,22 @@ def once(text, old, new):
     return text.replace(old, new)
 
 
+SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
+HOST_SHARED = "unsigned char* const smem = emu::cta_smem;"
+
+
+def read(name):
+    with open(os.path.join(REPO, "sound_bubble_tpu_torch", "csrc",
+                           name)) as fh:
+        return fh.read()
+
+
 def build(out):
     """The host copy of the walk's kernels in out, built; the library."""
-    csrc = os.path.join(REPO, "sound_bubble_tpu_torch", "csrc")
-
-    def read(name):
-        with open(os.path.join(csrc, name)) as fh:
-            return fh.read()
-
     walk = once(read("lstm_fwd32.cuh"),
                 'asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));',
                 "r = 1.0f / d;")
+    walk = once(walk, SHARED, HOST_SHARED)
     for fn, body in (("cp_async16(void* dst, const void* src)",
                       " std::memcpy(dst, src, 16); "),
                      ("cp_async_commit()", ""), ("cp_async_wait_all()", "")):
@@ -189,17 +275,160 @@ def build(out):
     with open(src, "w") as fh:
         fh.write(infer + "\nnamespace {\n" + seq + slab + "}\n"
                  + ENTRIES % {"smem": SMEM})
-    lib = os.path.join(out, "libwalk.so")
+    return ctypes.CDLL(compile_lib(out, src, "libwalk.so"))
+
+
+def compile_lib(out, src, name):
+    lib = os.path.join(out, name)
     subprocess.run(["g++", "-std=c++20", "-O2", "-fPIC", "-shared",
                     "-pthread", "-I", out, "-o", lib, src], check=True)
-    return ctypes.CDLL(lib)
+    return lib
+
+
+def build_stack(out):
+    """The host copy of rows 1 and 3's cluster kernel (csrc/stack_walk.cu)
+    in out (after `build`, which writes the walk's header there), built;
+    the library: its cluster barrier is a std::barrier over the cluster's
+    threads."""
+    stack = once(read("stack_walk.cu"), "#include <cuda_runtime.h>",
+                 '#include "cuda_runtime.h"')
+    stack = once(stack, SHARED, HOST_SHARED)
+    stack, n = re.subn(r"(void cp_async4\(void\* dst, const void\* src\) \{)"
+                       r".*?\n\}", r"\g<1> std::memcpy(dst, src, 4); }", stack,
+                       flags=re.S)
+    if n != 1:
+        raise RuntimeError("stack_walk.cu: cp_async4 not found")
+    stack, n = re.subn(r"(void cp_async_wait_but_newest\(\) \{).*?\n\}",
+                       r"\g<1> }", stack, flags=re.S)
+    if n != 1:
+        raise RuntimeError("stack_walk.cu: cp_async_wait_but_newest not "
+                           "found")
+    stack, n = re.subn(r"(void cluster_sync\(\) \{).*?\n\}",
+                       r"\g<1> emu::cluster_bar->arrive_and_wait(); }",
+                       stack, flags=re.S)
+    if n != 1 or "asm" in stack:
+        raise RuntimeError("stack_walk.cu: cluster_sync not found, or a "
+                           "device-only line is left")
+    src = os.path.join(out, "stack.cpp")
+    with open(src, "w") as fh:
+        fh.write(stack + STORAGE % {"smem": SMEM})
+    return ctypes.CDLL(compile_lib(out, src, "libstack.so"))
+
+
+# (name, NetConfig widths, use_film, steps) of rows 1 and 3's kernel: F = 17,
+# 9 (blocks 5-7 own no row), 21 at H = 16, 145 (the flagship's widths,
+# depth cut to 2), one block (the per-block route); with attention, chained
+# past W so that pos wraps
+STACK_CASES = (
+    ("small", dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=3),
+     True, 2),
+    ("f9", dict(stft_chunk_size=8, stft_pad_size=8, D=8, H=8, B=2), True, 1),
+    ("h16", dict(stft_chunk_size=24, stft_pad_size=16, D=16, H=16, B=2),
+     False, 1),
+    ("flagship", dict(stft_chunk_size=192, stft_pad_size=96, D=32, H=64,
+                      B=2), True, 1),
+    ("block1", dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=1),
+     False, 1),
+    ("attn_small", dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3,
+                        L=2, E=2, local_atten_len=5, use_attn=True), True, 7),
+    ("attn_flagship", dict(stft_chunk_size=192, stft_pad_size=96, D=32, H=64,
+                           B=2, L=4, E=2, local_atten_len=3, use_attn=True),
+     True, 4),
+)
+
+
+def stack_cases(lib, check, ptr):
+    """`sbt_stack_walk` / `sbt_stack_walk_attn` under the emulation against
+    `gridnet_stack_step_ref` / `_attn_ref`, each case's steps chained."""
+    import numpy as np
+    import torch
+
+    from sound_bubble_tpu_torch.models.tfgridnet.model import Net, NetConfig
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.weights import param_tree
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sbt_stack_walk.argtypes = [P] * 22 + [I] * 6 + [ctypes.c_float, P]
+    lib.sbt_stack_walk_attn.argtypes = ([P] * 40 + [I] * 10
+                                        + [ctypes.c_float, P])
+    lib.sbt_stack_walk_smem.argtypes = [I] * 6
+    lib.sbt_stack_walk_smem.restype = ctypes.c_size_t
+    lib.sbt_stack_walk_scratch.argtypes = [I] * 6
+    lib.sbt_stack_walk_scratch.restype = ctypes.c_size_t
+    for name, widths, use_film, steps in STACK_CASES:
+        cfg = NetConfig(conv_lstm=False, **widths)
+        rng = np.random.default_rng(len(name))
+        net = Net(cfg)
+        net.load_state_dict({k: torch.from_numpy(np.asarray(
+            rng.standard_normal(v.shape) * 0.3, np.float32))
+            for k, v in net.state_dict().items()})
+        tree = param_tree(net)
+        packed = sk.pack_stack_params(cfg, tree)
+        F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32))
+
+        fw, fb = (draw(B - 1, F, D), draw(B - 1, F, D)) if use_film \
+            else (None, None)
+        h, c = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+        attn = None
+        if cfg.use_attn:
+            pa = sk.pack_attn_params(cfg, tree)
+            W = cfg.local_atten_len
+            attn = (cfg.L, cfg.E, W)
+            rings = [torch.zeros(B, cfg.L * cfg.E, W, F),
+                     torch.zeros(B, D, W, F)]
+            rings_ref = [r.clone() for r in rings]
+        plan = sk.walk_plan(F, D, H, B, attn)
+        lib_plan = (lib.sbt_stack_walk_smem(F, D, H, *(attn or (0, 0, 0))),
+                    lib.sbt_stack_walk_scratch(B, F, D, H, *(
+                        (attn[0], attn[2]) if attn else (0, 0))))
+        if lib_plan != (plan["smem"], plan["scratch"]):
+            raise RuntimeError(f"{name}: the library's smem and scratch "
+                               f"{lib_plan}, walk_plan's {plan}")
+        hr, cr = h, c
+        for step in range(steps):
+            x = draw(F, D)
+            outs = [torch.full((F, D), float("nan")),
+                    torch.full((B, F, H), float("nan")),
+                    torch.full((B, F, H), float("nan"))]
+            scratch = torch.full((plan["scratch"],), float("nan"))
+            weights = [packed[k] for k in sk._WEIGHTS]
+            head = (ptr(x), ptr(fw), ptr(fb), *map(ptr, weights))
+            tail = (ptr(h), ptr(c), *map(ptr, outs), ptr(scratch))
+            dims = (B, F, D, H)
+            if attn is None:
+                rc = lib.sbt_stack_walk(*head, *tail, *dims,
+                                        int(use_film), plan["scratch"],
+                                        cfg.eps, None)
+                want = sk.gridnet_stack_step_ref(packed, x, hr, cr, fw, fb,
+                                                 cfg.eps)
+                got = outs
+            else:
+                pos = step % W
+                rc = lib.sbt_stack_walk_attn(
+                    *head, *[ptr(pa[k]) for k in sk._ATTN],
+                    *map(ptr, rings), *tail, *dims, cfg.L, cfg.E, W, pos,
+                    int(use_film), plan["scratch"], cfg.eps, None)
+                want = sk.gridnet_stack_step_attn_ref(
+                    packed, pa, x, hr, cr, *rings_ref, pos, cfg.L, fw, fb,
+                    cfg.eps)
+                got = outs + rings
+            if rc:
+                raise RuntimeError(f"{name}: the kernel refused the case "
+                                   f"({rc})")
+            check("stack", (name, step), got, want)
+            h, c = outs[1], outs[2]
+            hr, cr = want[1], want[2]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "_archive",
                                                   "emulate_fwd_walk"))
-    ap.add_argument("--only", default="infer,bseq,seq,slab")
+    ap.add_argument("--only", default="infer,bseq,seq,slab,stack")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
@@ -299,6 +528,8 @@ def main(argv=None):
                                     rows):
                     raise RuntimeError("slab refused the case")
                 check("slab", (rows, r, t_len, c, rev), got, want)
+    if "stack" in only:
+        stack_cases(build_stack(args.out), check, ptr)
     print(f"worst max-abs {worst} (tol {TOL}), {time.time() - t0:.1f} s")
     if not worst or max(worst.values()) > TOL:
         sys.exit(1)

@@ -8,10 +8,20 @@ Each TREE is a directory that holds a `sound_bubble_tpu_torch/` package
 (default: this checkout). In the order given, a child process imports that
 package, builds its CUDA kernels (nvcc's register report is printed) and
 times `gridnet_stack_step` with CUDA events, 200 launches after 10 warm-up
-ones: at the flagship width (`runs/finetune_r5`, 1 m FiLM) and, where the
-package has the conv_lstm branch, at the Orange Pi width
-(`runs/edge_orangpi_seeded`); then `lstm_slab_fwd` and `lstm_slab_bwd`, 20 launches after one, in
-fp32 at the flagship training path's shapes of chip_smoke.py's phase 6
+ones, and as 20 calls captured in one CUDA graph (`*_graph_ms`): at the
+flagship width (`runs/finetune_r5`, 1 m FiLM) and, where the package has
+the conv_lstm branch, at the Orange Pi width (`runs/edge_orangpi_seeded`);
+`gridnet_stack_step_attn` the same way at the attention nets' widths
+(`runs/attn_flagship_seeded`: row 3; `runs/attn_orangpi_seeded`: row 4),
+pos advancing a call; `FusedStreamer.feed` of the flagship and of the
+attention flagship, ms a chunk on the host clock (chip_smoke.py's
+`feed_ms`, 100 chunks) and as 20 chunks captured in one CUDA graph (None
+where the capture fails); the worst max-abs error of rows 1 and 3 against
+their plain versions over chained steps (`*_chain_err`: row 1 at the
+flagship's widths, 5 steps; row 3 at the attention flagship's, W + 5 = 105
+steps, the case of tests/test_torch_port_cuda.py's attention test); then
+`lstm_slab_fwd` and `lstm_slab_bwd`, 20 launches after one, in fp32 at the
+flagship training path's shapes of chip_smoke.py's phase 6
 (intra [145, 1252, 32], inter [313, 580, 32], H = 64) and in the mixed mode
 (bf16 x and weights, as the campaign trainer runs them) at the bf16 recipe's
 batch-8 shapes of phase 13 (intra [145, 2504, 32], inter [313, 1160, 32]);
@@ -44,6 +54,9 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = {"flagship": ("finetune_r5", [[0.0, 0.0, 1.0]]),
         "edge": ("edge_orangpi_seeded", None)}
+# the attention nets (rows 3 and 4), with the 1 m embedding
+ATTN_RUNS = {"attn_flagship": "attn_flagship_seeded",
+             "attn_orangpi": "attn_orangpi_seeded"}
 # (T, R, C, mixed) of the slab scans timed
 SLAB_SHAPES = {"intra": (145, 1252, 32, False), "inter": (313, 580, 32, False),
                "mixed_intra": (145, 2504, 32, True),
@@ -164,13 +177,9 @@ def cudnn_lstm(c, h, nd, dtype, dev, weights=None):
 def child(tree):
     sys.path.insert(0, REPO)          # chip_smoke.py's helpers
     sys.path.insert(0, os.path.abspath(tree))
-    import numpy as np
     import torch
 
     from sound_bubble_tpu_torch.ops.kernels import _build
-    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
-    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
-    from sound_bubble_tpu_torch.utils import load_pretrained
 
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
@@ -184,34 +193,8 @@ def child(tree):
            "ptxas": [ln.split(":", 1)[1].strip() for ln in log
                      if "Used" in ln or ("Function properties" in ln
                                          and "_kernel" not in ln)]}
-    for name, (run, dis) in RUNS.items():
-        if name == "edge" and not hasattr(sk, "lstm_down"):
-            continue
-        net = load_pretrained(os.path.join(REPO, "runs", run), device=dev)
-        fs = FusedStreamer(net, dis_embed=dis, device=dev)
-        cfg = net.cfg
-        rng = np.random.default_rng(0)
-
-        def draw(*shape):
-            return torch.from_numpy(
-                rng.standard_normal(shape).astype(np.float32)).to(dev)
-
-        F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
-        x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
-        fw, fb = fs.film if fs.film is not None else (None, None)
-        with torch.no_grad():
-            for _ in range(10):
-                sk.gridnet_stack_step(fs.packed, x, h0, c0, fw, fb,
-                                      eps=cfg.eps)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(200):
-                sk.gridnet_stack_step(fs.packed, x, h0, c0, fw, fb,
-                                      eps=cfg.eps)
-            end.record()
-            torch.cuda.synchronize()
-        out[f"{name}_ms"] = start.elapsed_time(end) / 200
+    time_stack_steps(out, dev)
+    chain_errors(out, dev)
 
     from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
     for name, (t_len, r, c, mixed) in SLAB_SHAPES.items():
@@ -239,6 +222,119 @@ def child(tree):
 
     time_forwards(out, dev)
     print(json.dumps(out), flush=True)
+
+
+def time_stack_steps(out, dev):
+    """The stack steps (rows 1-4) and FusedStreamer.feed, into out."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import feed_ms
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+    from sound_bubble_tpu_torch.utils import load_pretrained
+
+    runs = dict(RUNS, **{k: (v, [[0.0, 0.0, 1.0]])
+                         for k, v in ATTN_RUNS.items()})
+    for name, (run, dis) in runs.items():
+        if name == "edge" and not hasattr(sk, "lstm_down"):
+            continue
+        net = load_pretrained(os.path.join(REPO, "runs", run), device=dev)
+        fs = FusedStreamer(net, dis_embed=dis, device=dev)
+        cfg = net.cfg
+        rng = np.random.default_rng(0)
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
+        x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+        fw, fb = fs.film if fs.film is not None else (None, None)
+        if cfg.use_attn:
+            W, pos = cfg.local_atten_len, [0]
+            kr, vr = draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F)
+
+            def step():
+                sk.gridnet_stack_step_attn(
+                    fs.packed, fs.packed_attn, x, h0, c0, kr, vr, pos[0],
+                    cfg.L, fw, fb, eps=cfg.eps, checked=True)
+                pos[0] = (pos[0] + 1) % W
+        else:
+            def step():
+                sk.gridnet_stack_step(fs.packed, x, h0, c0, fw, fb,
+                                      eps=cfg.eps)
+        with torch.no_grad():
+            for _ in range(10):
+                step()
+            out[f"{name}_ms"] = events_ms(step, 200)
+        out[f"{name}_graph_ms"] = graph_ms(step, 20)
+        if name in ("flagship", "attn_flagship"):
+            out[f"{name}_feed_ms"] = feed_ms(fs, 100, rng)
+            win = draw(1, cfg.num_ch, cfg.n_fft)
+            fs.reset()
+            out[f"{name}_feed_graph_ms"] = graph_ms(lambda: fs.feed(win), 20)
+
+
+def chain_errors(out, dev):
+    """The worst max-abs error of x, h0, c0 (and the rings) against the
+    plain versions over chained steps (x new a step, the state carried),
+    into out: row 1 at the flagship's widths over 5 steps, row 3 at the
+    attention flagship's over W + 5 steps from zero rings (pos wraps); the
+    weights as tests/test_torch_port_cuda.py's attention case draws them
+    (the model's initial weights moved by 0.05 N(0, 1)), with FiLM."""
+    import numpy as np
+    import torch
+
+    from sound_bubble_tpu_torch.models.tfgridnet.model import Net, NetConfig
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.weights import param_tree
+
+    for name, attn in (("row1", False), ("row3", True)):
+        cfg = NetConfig(use_attn=attn, stft_chunk_size=192, stft_pad_size=96,
+                        D=32, H=64, B=6, conv_lstm=False)
+        rng = np.random.default_rng(0)
+        net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(torch.from_numpy(np.asarray(rng.standard_normal(
+                    tuple(p.shape)) * 0.05, np.float32)))
+        tree = param_tree(net)
+        packed = {k: v.to(dev) for k, v in sk.pack_stack_params(
+            cfg, tree).items()}
+        F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+        got = [draw(B, F, H) * 0.5, draw(B, F, H) * 0.5]
+        if attn:
+            pa = {k: v.to(dev) for k, v in sk.pack_attn_params(
+                cfg, tree).items()}
+            got += [torch.zeros((B, cfg.L * cfg.E, W, F), device=dev),
+                    torch.zeros((B, D, W, F), device=dev)]
+        want = [t.clone() for t in got]
+        err = []
+        with torch.no_grad():
+            for step in range(W + 5 if attn else 5):
+                x = draw(F, D)
+                if attn:
+                    xk, *got = sk.gridnet_stack_step_attn(
+                        packed, pa, x, *got, step % W, cfg.L, fw, fb,
+                        eps=cfg.eps)
+                    xr, *want = sk.gridnet_stack_step_attn_ref(
+                        packed, pa, x, *want, step % W, cfg.L, fw, fb,
+                        eps=cfg.eps)
+                else:
+                    xk, *got = sk.gridnet_stack_step(packed, x, *got, fw, fb,
+                                                     eps=cfg.eps)
+                    xr, *want = sk.gridnet_stack_step_ref(
+                        packed, x, *want, fw, fb, eps=cfg.eps)
+                err.append([float((a - b).abs().max())
+                            for a, b in zip([xk, *got], [xr, *want])])
+        out[f"{name}_chain_err"] = [max(col) for col in zip(*err)]
 
 
 def time_forwards(out, dev):
