@@ -11,7 +11,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
 3. kernel vs plain: `gridnet_stack_step` (row 1: `stack_walk_kernel<64,
-   false>`, one cluster of 8 blocks a call) against `gridnet_stack_step_ref`
+   false, false>`, one cluster of 8 blocks a call) against
+   `gridnet_stack_step_ref`
    on the card, 5 chained steps with the flagship's packed weights and
    FiLM;
 4. serving: the 9 goldens of `test_samples/` streamed chunk by chunk through
@@ -41,7 +42,8 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    library yardstick, `torch.profiler`'s split of one backward call among
    its kernels, and ms per train step;
 9. conv kernel vs plain: `gridnet_stack_step` on conv_lstm packs (row 2:
-   `stack_step_conv_kernel<false>`) against `gridnet_stack_step_ref`, 5
+   `stack_walk_kernel<64, false, true>`, one cluster of 8 blocks a call;
+   H = 8 at the ragged F) against `gridnet_stack_step_ref`, 5
    chained steps, at the Orange Pi width with the committed seeded weights
    (`runs/edge_orangpi_seeded`), the Raspberry Pi width (D=16) with seeded
    weights, and a ragged F (25 rows, lstm_down 4, with FiLM);
@@ -57,8 +59,9 @@ F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
    finetune step from the seeded weights on the kernel path against the
    plain path and against the JAX package's numbers
    (`runs/train_step_golden_edge_jax.json`);
-12. times of the conv kernel, its plain version, one edge 8 ms chunk, one
-   edge train step and the slab kernels at the edge step's shapes;
+12. times of the conv kernel (CUDA events, and 20 calls in one CUDA
+   graph), its plain version, one edge 8 ms chunk, one edge train step and
+   the slab kernels at the edge step's shapes;
 13. mixed slab kernels vs plain: the bf16 instantiation of `lstm_slab_fwd` /
    `lstm_slab_bwd` against their plain versions at the flagship recipe's
    shapes (batch 8 x 2.5 s: intra [145, 2504, 32] both directions, inter
@@ -83,8 +86,8 @@ W=100), seeded weights of the flagship and the Orange Pi configurations
 (`runs/attn_{flagship,orangpi}_seeded`, `tools/jax_goldens_attn.py`):
 
 16. attention kernels vs plain: `gridnet_stack_step_attn` (row 3:
-   `stack_walk_kernel<64, true>` and, on the conv_lstm pack, row 4:
-   `stack_step_conv_kernel<true>`) against `gridnet_stack_step_attn_ref`,
+   `stack_walk_kernel<64, true, false>` and, on the conv_lstm pack, row 4:
+   `stack_walk_kernel<64, true, true>`) against `gridnet_stack_step_attn_ref`,
    W + 5 = 105 chained steps (pos wraps the ring): x, h0, c0 and both rings;
 17. attention serving: the 9 goldens of `test_samples/` through
    `FusedStreamer` (the in-kernel route) on both nets, per sample against
@@ -1198,10 +1201,11 @@ def phase9_conv_kernel(dev, edge_net):
                 err = max(err, *[float((a - b).abs().max())
                                  for a, b in ((xk, xr), (hk, hr), (ck, cr))])
         grew = sk.gridnet_stack_step.conv_launches - before
+        plan = sk.conv_walk_plan(F, D, H, B, cfg.lstm_down)
         log(f"  {name}: F={F} D={D} H={H} B={B} s={cfg.lstm_down} (k*s = "
             f"{F // cfg.lstm_down * cfg.lstm_down}), FiLM {film}, 5 chained "
             f"steps, max-abs err {err:.3e} (tol {KERNEL_TOL}), conv kernel "
-            f"launches +{grew}")
+            f"launches +{grew}; launch {plan}")
         if not err <= KERNEL_TOL:
             fail(f"conv kernel disagrees with its plain version at {name}: "
                  f"{err} > {KERNEL_TOL}")
@@ -1359,6 +1363,7 @@ def phase12_edge_times(dev, streamer, mod, batch, card, ls):
     """Times of the conv kernel, its plain version, one edge chunk, one
     edge train step and the slab kernels at the edge step's shapes."""
     from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from tools.time_stack_kernels import graph_ms
 
     cfg = streamer.cfg
     F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
@@ -1383,6 +1388,10 @@ def phase12_edge_times(dev, streamer, mod, batch, card, ls):
         kernel_ms = cuda_ms(kernel, 200)
         plain_step()
         plain_ms = cuda_ms(plain_step, 3)
+        kernel_graph_ms = graph_ms(kernel, 20)
+        if kernel_graph_ms is None:
+            fail("the conv kernel's call could not be captured in a CUDA "
+                 "graph")
         streamer.reset()
         win = torch.from_numpy(rng.standard_normal(
             (1, cfg.num_ch, cfg.n_fft)).astype(np.float32))
@@ -1417,7 +1426,8 @@ def phase12_edge_times(dev, streamer, mod, batch, card, ls):
         f"{slab[name][1]:.4f} ms" for name in slab)
         + f"; 6 intra + 3 inter of each a step: {in_step:.2f} ms")
     log(f"phase 12 edge times on {card}: conv kernel {kernel_ms:.4f} ms "
-        f"(CUDA events, 200 launches); plain version {plain_ms:.3f} ms (3 "
+        f"(CUDA events, 200 launches; {kernel_graph_ms:.4f} ms a call as 20 "
+        f"calls in one CUDA graph); plain version {plain_ms:.3f} ms (3 "
         f"calls); FusedStreamer.feed {chunk_ms:.4f} ms per 8 ms chunk (host "
         f"clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
         f"library_ms: none (no single PyTorch call computes the stack "
@@ -3149,7 +3159,7 @@ def main():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "gridnet_stack_step_conv", "route": "cuda",
-        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:393",
         "launches": conv_launches, "max_abs_err": conv_err,
         **conv_times}, {
@@ -3171,7 +3181,7 @@ def main():
         "launches": served["flagship"][2],
         "max_abs_err": attn_errs["flagship"], **attn_times["flagship"]}, {
         "name": "gridnet_stack_step_conv_attn", "route": "cuda",
-        "source": "sound_bubble_tpu_torch/csrc/stack_step.cu",
+        "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:491",
         "launches": served["orangpi"][2],
         "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]},

@@ -109,22 +109,16 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sbt_stack_walk.argtypes = (
-                [ptr] * 22 + [i32] * 6 + [ctypes.c_float, ptr])
+                [ptr] * 25 + [i32] * 7 + [ctypes.c_float, ptr])
             lib.sbt_stack_walk.restype = i32
             lib.sbt_stack_walk_attn.argtypes = (
-                [ptr] * 40 + [i32] * 10 + [ctypes.c_float, ptr])
+                [ptr] * 43 + [i32] * 11 + [ctypes.c_float, ptr])
             lib.sbt_stack_walk_attn.restype = i32
             for fn in (lib.sbt_stack_walk_smem, lib.sbt_stack_walk_scratch):
-                fn.argtypes = [i32] * 6
+                fn.argtypes = [i32] * 7
                 fn.restype = ctypes.c_size_t
-            lib.sbt_stack_walk_clusters.argtypes = [i32] * 3
+            lib.sbt_stack_walk_clusters.argtypes = [i32] * 4
             lib.sbt_stack_walk_clusters.restype = i32
-            lib.sbt_stack_step_conv.argtypes = (
-                [ptr] * 27 + [i32] * 6 + [ctypes.c_float, ptr])
-            lib.sbt_stack_step_conv.restype = i32
-            lib.sbt_stack_step_conv_attn.argtypes = (
-                [ptr] * 46 + [i32] * 10 + [ctypes.c_float, ptr])
-            lib.sbt_stack_step_conv_attn.restype = i32
             lib.sbt_lstm_slab_fwd.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
             lib.sbt_lstm_slab_fwd.restype = i32
             lib.sbt_lstm_slab_bwd.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]

@@ -10,15 +10,15 @@ local causal attention after each block's inter step, `_kernel_attn` and
 kernels for tensors on the card and run `gridnet_stack_step_ref` /
 `gridnet_stack_step_attn_ref`, their plain PyTorch versions, for tensors on
 the CPU. There is no fallback between the two: a CUDA tensor goes to the
-kernel or the call raises. The plain intra BLSTM (rows 1 and 3 of PERF.md's
-table) launches `stack_walk_kernel<H, kAttn>` of
-`sound_bubble_tpu_torch/csrc/stack_walk.cu`: one cluster of eight blocks a
-call (`walk_plan`), two of which walk the intra BLSTM's directions while all
-eight share the row-parallel phases; `walk_phases_ref` runs the same phases
-in plain PyTorch, in the kernel's order. A conv_lstm pack (rows 2 and 4)
-launches `stack_step_conv_kernel<kAttn>` of `csrc/stack_step.cu`, one block
-a call. The design notes and the bounds of the kernels are in their
-sources.
+kernel or the call raises. Every pack launches `stack_walk_kernel<H, kAttn,
+kConv>` of `sound_bubble_tpu_torch/csrc/stack_walk.cu`: one cluster of eight
+blocks a call (`walk_plan`), two of which walk the intra BLSTM's directions
+while all eight share the row-parallel phases; the plain intra BLSTM (rows 1
+and 3 of PERF.md's table) and, on a conv_lstm pack (rows 2 and 4, kConv),
+the down conv and the up conv as row phases and the walk over the conv
+frames (`conv_walk_plan`). `walk_phases_ref` / `conv_walk_phases_ref` run
+the same phases in plain PyTorch, in the kernel's order. The design notes
+and the bounds of the kernels are in their source.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import FWD32_HIDDEN, fwd_smem
 
 SMEM_LIMIT_BYTES = 232448    # dynamic shared memory one H100 block can use
-CLUSTER = 8                  # blocks of the rows-1/3 kernel's cluster
+CLUSTER = 8                  # blocks of the stack kernel's cluster
 
 
 def _np(a):
@@ -167,12 +167,13 @@ def attn_ring_bytes(cfg, f_len: int) -> int:
     return cfg.B * cfg.L * cfg.local_atten_len * f_len * (cfg.E + vd) * 4
 
 
-# operand order of the kernels' C entry points (after x, film_w, film_b)
+# operand order of the kernels' C entry points (after x, film_w, film_b): a
+# conv_lstm pack gives its up conv in proj_w's and proj_b's places and its
+# down conv and PReLU slope after proj2_b (null for a plain pack)
 _WEIGHTS = ("i_ln", "wih_f", "wih_b", "whh", "b8", "proj_w", "proj_b",
             "t_ln", "wih2", "whh2", "b2", "proj2_w", "proj2_b")
-_WEIGHTS_CONV = ("down_cat", "down_b", "alpha", "i_ln", "wih_f", "wih_b",
-                 "whh", "b8", "up_flat", "up_b", "t_ln", "wih2", "whh2", "b2",
-                 "proj2_w", "proj2_b")
+_UP = {"proj_w": "up_flat", "proj_b": "up_b"}
+_DOWN = ("down_cat", "down_b", "alpha")
 # the attention operands, after the weights
 _ATTN = ("q_w", "q_b", "q_a", "q_ln", "k_w", "k_b", "k_a", "k_ln",
          "v_w", "v_b", "v_a", "v_ln", "o_w", "o_b", "o_a", "o_ln")
@@ -342,20 +343,36 @@ def _stack_ref(packed, attn, x, h0, c0, film_w, film_b, eps):
 
 # ------------------------------- the cluster kernel's phases, plain ----
 
+def conv_walk_tiles(f_len: int, s: int) -> list[tuple[int, int, int, int]]:
+    """(first frame, frames, first row, rows) owned by each block of the
+    stack kernel's cluster, for F = f_len rows and stride s (1: the plain
+    intra, a frame a row): ceil(k / 8) consecutive conv frames a block, k =
+    F // s, each frame its s rows (the last blocks may own fewer, or none);
+    the rows from k*s on, which take only the inter step, go to the block
+    after the last frame's (the last block if that one owns frames)."""
+    k = f_len // s
+    fc = -(-k // CLUSTER)
+    tail = min(CLUSTER - 1, -(-k // fc))
+    tiles = []
+    for c in range(CLUSTER):
+        q0 = min(k, c * fc)
+        nq = min(k, q0 + fc) - q0
+        tiles.append((q0, nq, q0 * s, f_len - q0 * s if c == tail else nq * s))
+    return tiles
+
+
 def walk_tiles(f_len: int) -> list[tuple[int, int]]:
     """(first row, rows) owned by each block of the rows-1/3 kernel's
     cluster: ceil(F / 8) consecutive rows a block (the last ones may own
     fewer, or none)."""
-    rc = -(-f_len // CLUSTER)
-    return [(min(f_len, c * rc), min(f_len, (c + 1) * rc) - min(f_len, c * rc))
-            for c in range(CLUSTER)]
+    return [(f0, n) for _, _, f0, n in conv_walk_tiles(f_len, 1)]
 
 
 def _phase_walk(p, b, z, hidden):
     """Blocks 0 and 1: each direction d of block b's intra BLSTM walks z
-    [F, D] on its own columns of the fused pack (gate g at g*2H + d*H of
+    [T, D] on its own columns of the fused pack (gate g at g*2H + d*H of
     w_ih, b8 and the diagonal block of whh), the backward one reversed, from
-    zero states. Returns y [F, 2H] (fwd | bwd, original row order)."""
+    zero states. Returns y [T, 2H] (fwd | bwd, original row order)."""
     H = hidden
     ys = []
     for d, w_ih in enumerate((p["wih_f"], p["wih_b"])):
@@ -378,13 +395,35 @@ def _phase_walk(p, b, z, hidden):
     return torch.cat(ys, dim=-1)
 
 
+def _phase_head(p, b, x, nq, eps):
+    """A block's intra head on its rows x [n, D], the walk's input rows:
+    the LayerNorm of every row (plain pack) or, on a conv_lstm pack, the
+    down conv of its nq frames (a frame's s rows as one [s*D] row times
+    down_cat laid out as [s*D, D]: row j*D + ci holds tap j of input ci),
+    PReLU and the LayerNorm."""
+    if "down_cat" not in p:
+        return _ln(x, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
+    d = x.shape[-1]
+    s = p["down_cat"].shape[-1] // d
+    w = p["down_cat"][b].reshape(d, s, d).transpose(0, 1).reshape(s * d, d)
+    z = _prelu(x[:nq * s].reshape(nq, s * d) @ w + p["down_b"][b],
+               p["alpha"][b, 0])
+    return _ln(z, p["i_ln"][b, 0], p["i_ln"][b, 1], eps)
+
+
 def _phase_rows(p, b, x, y, hr, c0, hidden, eps):
-    """A block's row phase on its rows: x [n, D] += y W_proj + b_proj; the
-    inter LayerNorm; the gates (z2 W_ih2 + b2) + hr (hr = h0 W_hh2, formed
-    during the first walk) and cell; x += h' W_proj2 + b_proj2. Returns
-    (x, h', c')."""
+    """A block's row phase on its rows x [n, D] from its frames' y [nq,
+    2H]: the intra tail, x += y W_proj + b_proj (on a conv_lstm pack the up
+    conv, y up_flat + up_b on the first nq*s rows, phase j of frame q to row
+    q*s + j; the rows past them keep x); the inter LayerNorm; the gates
+    (z2 W_ih2 + b2) + hr (hr = h0 W_hh2, formed during the first walk) and
+    cell; x += h' W_proj2 + b_proj2. Returns (x, h', c')."""
     H = hidden
-    x = x + y @ p["proj_w"][b] + p["proj_b"][b]
+    w, bias = ((p["proj_w"], p["proj_b"]) if "proj_w" in p
+               else (p["up_flat"], p["up_b"]))
+    d = x.shape[-1]
+    m = y.shape[0] * w.shape[-1] // d               # rows the tail reaches
+    x = torch.cat([x[:m] + (y @ w[b]).reshape(m, d) + bias[b], x[m:]])
     z2 = _ln(x, p["t_ln"][b, 0], p["t_ln"][b, 1], eps)
     g = (z2 @ p["wih2"][b] + p["b2"][b]) + hr
     c = torch.sigmoid(g[:, H:2 * H]) * c0 + torch.sigmoid(g[:, :H]) * \
@@ -456,56 +495,79 @@ def _phase_attn(pa, b, xs, tiles, pos, k_ring, v_ring, heads):
 
 def walk_phases_ref(packed, x, h0, c0, film_w=None, film_b=None,
                     eps: float = 1e-5, attn=None):
-    """The rows-1/3 cluster kernel's phases in plain PyTorch, in its launch
-    order: the same function as `gridnet_stack_step_ref` (attn None) or
+    """The stack kernel's phases in plain PyTorch, in its launch order: the
+    same function as `gridnet_stack_step_ref` (attn None) or
     `gridnet_stack_step_attn_ref` (attn = (packed_attn, k_ring, v_ring, pos,
     heads); the rings' slot pos written in place) and the same returns,
     computed block by block as the kernel's blocks do: each direction's walk
-    on its pack columns, the rows' phases tile by tile, every reduction over
-    the frame a partial a tile and a combine."""
+    on its pack columns, the rows' phases tile by tile (`conv_walk_tiles`),
+    every reduction over the frame a partial a tile and a combine. Rows 1/3
+    on a plain pack; on a conv_lstm pack see `conv_walk_phases_ref`."""
     n_blocks, _, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     p = packed
-    tiles = walk_tiles(x.shape[0])
-    # prologue: each block's x rows and block 0's z; blocks 2-7 form hr
-    xs = [x[f0:f0 + n] for f0, n in tiles]
-    z = torch.cat([_ln(r, p["i_ln"][0, 0], p["i_ln"][0, 1], eps) for r in xs])
+    tiles = conv_walk_tiles(x.shape[0], lstm_down(p) or 1)
+    rows_of = [(f0, n) for _, _, f0, n in tiles]
+    # prologue: each block's x rows and block 0's walk input; blocks 2-7
+    # form hr
+    xs = [x[f0:f0 + n] for f0, n in rows_of]
+
+    def walk_input(b):
+        return torch.cat([_phase_head(p, b, r, nq, eps)
+                          for r, (_, nq, _, _) in zip(xs, tiles)])
+
+    z = walk_input(0)
     hr = h0 @ p["whh2"]
     hs, cs = [], []
     for b in range(n_blocks):
         y = _phase_walk(p, b, z, hidden)
-        rows = [_phase_rows(p, b, r, y[f0:f0 + n], hr[b, f0:f0 + n],
+        rows = [_phase_rows(p, b, r, y[q0:q0 + nq], hr[b, f0:f0 + n],
                             c0[b, f0:f0 + n], hidden, eps)
-                for r, (f0, n) in zip(xs, tiles)]
+                for r, (q0, nq, f0, n) in zip(xs, tiles)]
         xs = [r[0] for r in rows]
         hs.append(torch.cat([r[1] for r in rows]))
         cs.append(torch.cat([r[2] for r in rows]))
         if attn is not None:
             pa, k_ring, v_ring, pos, heads = attn
-            xs = _phase_attn(pa, b, xs, tiles, int(pos), k_ring, v_ring,
+            xs = _phase_attn(pa, b, xs, rows_of, int(pos), k_ring, v_ring,
                              heads)
         if b + 1 < n_blocks:
             if film_w is not None:
                 xs = [r * film_w[b, f0:f0 + n] + film_b[b, f0:f0 + n]
-                      for r, (f0, n) in zip(xs, tiles)]
-            z = torch.cat([_ln(r, p["i_ln"][b + 1, 0], p["i_ln"][b + 1, 1],
-                               eps) for r in xs])
+                      for r, (f0, n) in zip(xs, rows_of)]
+            z = walk_input(b + 1)
     out = (torch.cat(xs), torch.stack(hs), torch.stack(cs))
     return out if attn is None else (*out, attn[1], attn[2])
+
+
+def conv_walk_phases_ref(packed, x, h0, c0, film_w=None, film_b=None,
+                         eps: float = 1e-5, attn=None):
+    """Rows 2/4's phases in plain PyTorch, in the kernel's launch order:
+    `walk_phases_ref` on a conv_lstm pack, the same function as
+    `gridnet_stack_step_ref` / `_attn_ref` there. Each block owns whole
+    conv frames (`conv_walk_tiles`): its head is the down conv of its
+    frames, PReLU and the LayerNorm; blocks 0 and 1 walk the k = F // s
+    frames; its tail is the up conv on its frames' rows; the rest as on a
+    plain pack."""
+    if lstm_down(packed) is None:
+        raise ValueError("conv_walk_phases_ref: not a conv_lstm pack")
+    return walk_phases_ref(packed, x, h0, c0, film_w, film_b, eps, attn)
 
 
 # --------------------------------------------------------- CUDA kernel ----
 
 def walk_plan(f_len: int, d: int, hidden: int, n_blocks: int,
-              attn=None) -> dict:
-    """The launch of the rows-1/3 kernel (`csrc/stack_walk.cu`) for F =
-    f_len rows of width D = d, H = hidden, B = n_blocks blocks, and attn =
-    (heads L, E, W) or None: one cluster of `ctas` blocks of `threads`
-    threads, `rows` rows a block, `smem` bytes of dynamic shared memory a
-    block (the walk's, then the block's rows and scratch) and `scratch`
-    floats of global scratch. Raises ValueError for a width the kernel does
-    not take: H outside 8, 16, 32, 64 (ROADMAP Queue 2 item 10), D not a
-    multiple of 4, or more shared memory than a block has."""
+              attn=None, lstm_down: int | None = None) -> dict:
+    """The launch of the stack kernel (`csrc/stack_walk.cu`) for F = f_len
+    rows of width D = d, H = hidden, B = n_blocks blocks, attn = (heads L,
+    E, W) or None and, for a conv_lstm pack, stride s = lstm_down (rows 2/4;
+    `conv_walk_plan`): one cluster of `ctas` blocks of `threads` threads,
+    at most `rows` rows (and, conv_lstm, `frames` conv frames) a block,
+    `smem` bytes of dynamic shared memory a block (the walk's, then the
+    block's staged operands, rows and scratch) and `scratch` floats of
+    global scratch. Raises ValueError for a width the kernel does not take:
+    H outside 8, 16, 32, 64 (ROADMAP Queue 2 item 10), D not a multiple of
+    4, F < s (no conv frame), or more shared memory than a block has."""
     if hidden not in FWD32_HIDDEN:
         raise ValueError(
             f"H={hidden}: the stack step's kernel takes H in "
@@ -516,35 +578,54 @@ def walk_plan(f_len: int, d: int, hidden: int, n_blocks: int,
                          "multiple of 4")
     if f_len < 1 or n_blocks < 1:
         raise ValueError(f"F={f_len}, B={n_blocks}: empty step")
-    rows = -(-f_len // CLUSTER)
+    s = lstm_down or 1
+    k = f_len // s
+    if k < 1:
+        raise ValueError(f"F={f_len} < lstm_down={s}: no conv frame")
+    frames = -(-k // CLUSTER)
+    rows = frames * s + f_len - k * s
 
     def al4(floats):    # each part of a block's region is 16-byte aligned
         return -(-floats // 4) * 4
 
-    # staged a block: proj_w, wih2, proj2_w; proj_b, b2, proj2_b, the inter
-    # and the next intra LayerNorm; the rows' c0 and FiLM. The rows: x, z;
-    # y, gates, h'
-    staged = 7 * hidden * d + 6 * d + 4 * hidden + rows * (hidden + 2 * d)
-    own = rows * (2 * d + 7 * hidden)
-    scratch = f_len * (d + 2 * hidden + 4 * hidden * n_blocks)  # z, y, hr
+    # staged a block: proj_w (up_flat [2H, s*D]), wih2, proj2_w; proj_b,
+    # b2, proj2_b, the inter and the next intra LayerNorm; the rows' c0 and
+    # FiLM; conv_lstm: the next down conv [s*D, D], its bias and PReLU
+    # slope. The rows: x, z, h'; the frames' y; the gates
+    staged = ((2 * s + 5) * hidden * d + 6 * d + 4 * hidden
+              + rows * (hidden + 2 * d))
+    if lstm_down is not None:
+        staged += s * d * d + d + 1
+    gates = rows * 4 * hidden
+    scratch = k * (d + 2 * hidden) + f_len * 4 * hidden * n_blocks  # z, y, hr
     if attn is not None:
         heads, e_dim, window = attn
         le = heads * e_dim
         # staged: q_w, k_w, v_w, o_w, their biases and PReLU slopes, the
-        # rows' LayerNorm affines. The rows: q | k | v, the attention
-        # output; the scores; the moments
+        # rows' LayerNorm affines. In the gates' place, after the inter
+        # step: q | k | v, the attention output; the scores; the moments
         staged += (2 * d * (le + d) + 2 * le + 2 * d + 4
                    + 2 * rows * (2 * e_dim + d // heads + d))
-        own += (al4(rows * (2 * le + d)) + rows * d + heads * window
-                + 2 * (3 * heads + 1))
+        gates = max(gates, al4(rows * (2 * le + d)) + rows * d
+                    + heads * window + 2 * (3 * heads + 1))
         scratch += CLUSTER * (2 * (3 * heads + 1) + heads * window)
+    own = rows * (2 * d + hidden) + frames * 2 * hidden + al4(gates)
     smem = fwd_smem(d, hidden, 1) + 4 * (al4(staged) + own)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"F={f_len}, D={d}, H={hidden}: a block needs "
                          f"{smem} B of shared memory, more than "
                          f"{SMEM_LIMIT_BYTES}")
-    return {"ctas": CLUSTER, "threads": 4 * hidden, "rows": rows,
+    plan = {"ctas": CLUSTER, "threads": 4 * hidden, "rows": rows,
             "smem": smem, "scratch": scratch}
+    if lstm_down is not None:
+        plan["frames"] = frames
+    return plan
+
+
+def conv_walk_plan(f_len: int, d: int, hidden: int, n_blocks: int, s: int,
+                   attn=None) -> dict:
+    """`walk_plan` of rows 2/4: a conv_lstm pack of stride s."""
+    return walk_plan(f_len, d, hidden, n_blocks, attn, s)
 
 
 def _check(name, t, shape, device):
@@ -565,8 +646,8 @@ def _check(name, t, shape, device):
 
 
 def _operands(packed):
-    """(the C entry point, its launch counter, operand names in its order,
-    their shapes, s or None): which kernel a pack goes to is decided here."""
+    """(the pack's weight operands in the C entry points' order, None for a
+    null pointer; their shapes by name; s or None)."""
     n_blocks, d, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     G, H2 = 8 * hidden, 2 * hidden
@@ -580,14 +661,15 @@ def _operands(packed):
     s = lstm_down(packed)
     if s is None:
         shapes.update(proj_w=(n_blocks, H2, d), proj_b=(n_blocks, d))
-        return "sbt_stack_walk", "launches", _WEIGHTS, shapes, None
+        return [packed[k] for k in _WEIGHTS] + [None] * 3, shapes, None
     if s < 1:
         raise ValueError(f"down_cat: shape {tuple(packed['down_cat'].shape)}"
                          ", expected [B, C, s*C] with s >= 1")
     shapes.update(down_cat=(n_blocks, d, s * d), down_b=(n_blocks, d),
                   alpha=(n_blocks, 1), up_flat=(n_blocks, H2, s * d),
                   up_b=(n_blocks, d))
-    return "sbt_stack_step_conv", "conv_launches", _WEIGHTS_CONV, shapes, s
+    weights = [packed[_UP.get(k, k)] for k in _WEIGHTS + _DOWN]
+    return weights, shapes, s
 
 
 def _attn_shapes(n_blocks, f_len, d, heads, e_dim):
@@ -611,9 +693,9 @@ def check_packed(packed, device, packed_attn=None, heads=None):
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    _, _, names, shapes, _ = _operands(packed)
-    for k in names:
-        _check(k, packed[k], shapes[k], device)
+    _, shapes, _ = _operands(packed)
+    for k, shape in shapes.items():
+        _check(k, packed[k], shape, device)
     if packed_attn is not None:
         n_blocks, d, _ = packed["wih2"].shape
         _, f_len, e_dim = packed_attn["q_ln"].shape[1:]
@@ -624,18 +706,19 @@ def check_packed(packed, device, packed_attn=None, heads=None):
             _check(k, packed_attn[k], shapes[k], device)
 
 
-_fits = {}   # (device, H, attention, smem) -> clusters the card holds
+_fits = {}   # (device, H, attention, conv, smem) -> clusters the card holds
 
 
-def _cluster_fits(lib, dev, hidden, attn, smem):
-    """Raise unless the card holds one cluster of the rows-1/3 kernel at
-    once (its eight blocks wait on each other at cluster barriers; the
-    hardware schedules a cluster's blocks together, so one that fits cannot
-    wait on a block that is not resident). Asked once a shape."""
-    key = (dev, hidden, attn, smem)
+def _cluster_fits(lib, dev, hidden, attn, conv, smem):
+    """Raise unless the card holds one cluster of the stack kernel at once
+    (its eight blocks wait on each other at cluster barriers; the hardware
+    schedules a cluster's blocks together, so one that fits cannot wait on
+    a block that is not resident). Asked once a shape."""
+    key = (dev, hidden, attn, conv, smem)
     if key not in _fits:
         with torch.cuda.device(dev):
-            _fits[key] = lib.sbt_stack_walk_clusters(hidden, int(attn), smem)
+            _fits[key] = lib.sbt_stack_walk_clusters(hidden, int(attn),
+                                                     int(conv), smem)
     if _fits[key] < 1:
         raise RuntimeError(
             f"a cluster of {CLUSTER} blocks of {4 * hidden} threads with "
@@ -645,7 +728,7 @@ def _cluster_fits(lib, dev, hidden, attn, smem):
 
 def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
     dev = x.device
-    entry, counter, names, _, s = _operands(packed)
+    weights, _, s = _operands(packed)
     n_blocks, d, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     f_len = x.shape[0]
@@ -660,25 +743,8 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
         window = k_ring.shape[2]
         if not 0 <= pos < window:
             raise ValueError(f"pos={pos}: outside the ring's {window} slots")
-    if s is None:
-        plan = walk_plan(f_len, d, hidden, n_blocks,
-                         None if attn is None else (heads, e_dim, window))
-    else:
-        threads = 8 * hidden
-        if threads % 32 or threads > 1024:
-            raise ValueError(f"H={hidden}: the kernel needs 8H threads, a "
-                             "multiple of 32 and at most 1024")
-        smem = (2 * f_len * d + 12 * hidden) * 4
-        if attn is not None:
-            # the scores [L, W] and 64 floats of reduction scratch; q, k, v
-            # and the attention output live in a global scratch, so that
-            # the L1 keeps its share of the SM (csrc/stack_step.cu)
-            smem += 4 * (heads * window + 64)
-        if smem > SMEM_LIMIT_BYTES:
-            raise ValueError(f"F={f_len}, D={d}: needs {smem} B of shared "
-                             f"memory, more than {SMEM_LIMIT_BYTES}")
-        if f_len // s < 1:
-            raise ValueError(f"F={f_len} < lstm_down={s}: no conv frame")
+    plan = walk_plan(f_len, d, hidden, n_blocks,
+                     None if attn is None else (heads, e_dim, window), s)
     _check("x", x, (f_len, d), dev)
     _check("h0", h0, (n_blocks, f_len, hidden), dev)
     _check("c0", c0, (n_blocks, f_len, hidden), dev)
@@ -694,59 +760,42 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
         film_shape = (n_blocks - 1, f_len, d)
         _check("film_w", film_w, film_shape, dev)
         _check("film_b", film_b, film_shape, dev)
-    if s is None:
-        # the row phases' weights go to shared memory in 16-byte pieces
-        staged = [(k, packed[k]) for k in ("proj_w", "wih2", "proj2_w")]
-        if attn is not None:
-            staged += [(k, packed_attn[k]) for k in ("q_w", "k_w", "v_w",
-                                                     "o_w")]
-        for k, t in staged:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{k}: not aligned to 16 bytes")
+    # the row phases' weights go to shared memory in 16-byte pieces
+    staged = [(k, packed[k]) for k in ("proj_w", "up_flat", "down_cat",
+                                       "wih2", "proj2_w") if k in packed]
+    if attn is not None:
+        staged += [(k, packed_attn[k]) for k in ("q_w", "k_w", "v_w", "o_w")]
+    for k, t in staged:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{k}: not aligned to 16 bytes")
 
     lib = _build.load_library()
+    _cluster_fits(lib, dev, hidden, attn is not None, s is not None,
+                  plan["smem"])
     x_out = torch.empty_like(x)
     h0_out = torch.empty_like(h0)
     c0_out = torch.empty_like(c0)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    if s is None:
-        _cluster_fits(lib, dev, hidden, attn is not None, plan["smem"])
-        scratch = empty(plan["scratch"])
-        bufs, dims = (scratch.data_ptr(),), (n_blocks, f_len, d, hidden)
-        tail = (plan["scratch"],)
-    else:
-        # gx [k, 8H], y [k, 2H] over the k = F // s conv frames; g2 [F, 4H]
-        n_rows = f_len // s
-        bufs = tuple(t.data_ptr() for t in (
-            empty(n_rows, 8 * hidden), empty(n_rows, 2 * hidden),
-            empty(f_len, 4 * hidden)))
-        dims, tail = (n_blocks, f_len, d, hidden, s), ()
+    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=dev)
+    entry, counter = "sbt_stack_walk", "launches"
     attn_ptrs, attn_dims = (), ()
     if attn is not None:
-        entry, counter = {"launches": ("sbt_stack_walk_attn",
-                                       "attn_launches"),
-                          "conv_launches": ("sbt_stack_step_conv_attn",
-                                            "conv_attn_launches")}[counter]
+        entry, counter = "sbt_stack_walk_attn", "attn_launches"
         attn_ptrs = (*[packed_attn[k].data_ptr() for k in _ATTN],
                      k_ring.data_ptr(), v_ring.data_ptr())
-        if s is not None:
-            # q, k [F, L*E]; v and the attention output [F, D]
-            attn_ptrs += (empty(f_len * (2 * heads * e_dim + 2 * d))
-                          .data_ptr(),)
         attn_dims = (heads, e_dim, window, pos)
+    if s is not None:
+        counter = "conv_" + counter
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
             x.data_ptr(),
             film_w.data_ptr() if use_film else None,
             film_b.data_ptr() if use_film else None,
-            *[packed[k].data_ptr() for k in names], *attn_ptrs,
-            h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
-            h0_out.data_ptr(), c0_out.data_ptr(), *bufs, *dims, *attn_dims,
-            int(use_film), *tail, float(eps), stream)
+            *[None if t is None else t.data_ptr() for t in weights],
+            *attn_ptrs, h0.data_ptr(), c0.data_ptr(), x_out.data_ptr(),
+            h0_out.data_ptr(), c0_out.data_ptr(), scratch.data_ptr(),
+            n_blocks, f_len, d, hidden, s or 0, *attn_dims, int(use_film),
+            plan["scratch"], float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     setattr(gridnet_stack_step, counter,
@@ -764,9 +813,9 @@ def gridnet_stack_step(packed, x, h0, c0, film_w=None, film_b=None,
     inter-LSTM state; film_w/film_b: [B-1, F, D] precomputed FiLM affines
     (None for unconditional models). Returns (x_out [F, D], h0', c0').
 
-    CUDA tensors launch `stack_walk_kernel<H, false>`, one cluster a call
-    (`gridnet_stack_step.launches` counts its launches), or
-    `stack_step_conv_kernel<false>` for a conv_lstm pack
+    CUDA tensors launch `stack_walk_kernel<H, false, false>`, one cluster
+    a call (`gridnet_stack_step.launches` counts its launches), or
+    `stack_walk_kernel<H, false, true>` for a conv_lstm pack
     (`gridnet_stack_step.conv_launches`); CPU tensors run
     `gridnet_stack_step_ref`. `checked=True` skips the weight checks for a
     `packed` that already passed `check_packed` on this device."""
@@ -790,9 +839,10 @@ def gridnet_stack_step_attn(packed, packed_attn, x, h0, c0, k_ring, v_ring,
     heads: cfg.L. The rings are updated IN PLACE (slot pos of every plane)
     and returned: (x_out, h0', c0', k_ring, v_ring).
 
-    CUDA tensors launch `stack_walk_kernel<H, true>`, one cluster a call
-    (`gridnet_stack_step.attn_launches`), or `stack_step_conv_kernel<true>`
-    for a conv_lstm pack (`gridnet_stack_step.conv_attn_launches`); CPU
+    CUDA tensors launch `stack_walk_kernel<H, true, false>`, one cluster a
+    call (`gridnet_stack_step.attn_launches`), or `stack_walk_kernel<H,
+    true, true>` for a conv_lstm pack
+    (`gridnet_stack_step.conv_attn_launches`); CPU
     tensors run `gridnet_stack_step_attn_ref`. `checked=True` skips the
     weight checks for packs that already passed `check_packed` on this
     device."""

@@ -4,10 +4,9 @@
 `ModelWrapper` (runtime/streaming.py) runs the model's own forward, whose
 block stack is ~B*(F+1) small LSTM cell steps (B*(F//s+1) for conv_lstm).
 `FusedStreamer` runs the same math with the whole block stack in one kernel
-launch per 8 ms chunk (`ops/kernels/stack_kernel.py`; CUDA sources
-`csrc/stack_walk.cu`, one cluster of 8 blocks a call, and, for conv_lstm,
-`csrc/stack_step.cu`); the STFT,
-features, convs and iSTFT around it are plain PyTorch: the model's own
+launch per 8 ms chunk (`ops/kernels/stack_kernel.py`; CUDA source
+`csrc/stack_walk.cu`, one cluster of 8 blocks a call, conv_lstm too); the
+STFT, features, convs and iSTFT around it are plain PyTorch: the model's own
 `encode` / `decode`, the look-back decode (`stft_back_pad > 0`) included,
 which at T=1 is JAX's T=1 branch (the current frame's samples from
 `stft_back_pad` on, the previous frame's last back+pad samples added onto

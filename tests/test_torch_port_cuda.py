@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-stack-step kernels (plain intra BLSTM and conv_lstm, each without and with
-the attention step; the plain intra BLSTM's, rows 1 and 3, as one cluster of
-eight blocks a call: one device kernel, capturable in a CUDA graph), the
+stack-step kernels (plain intra BLSTM and conv_lstm, rows 1-4, each without
+and with the attention step, as one cluster of eight blocks a call: one
+device kernel, capturable in a CUDA graph), the
 slab LSTM scans (forward and backward; the fp32
 forward, shared with the seq route's, at the training shapes too), the
 custom-VJP route's recurrences (rows 6-9: one direction and both
@@ -121,8 +121,10 @@ def test_kernel_matches_plain(size, use_film):
 @pytest.mark.parametrize("use_film", [False, True])
 @pytest.mark.parametrize("size", list(CONV_SIZES))
 def test_conv_kernel_matches_plain(size, use_film):
-    """3 chained steps; one launch of the conv kernel each, none of the
-    plain stack kernel."""
+    """3 chained steps against the plain version and against
+    `conv_walk_phases_ref` (the kernel's phases in its order), each with its
+    own state; one launch of the conv kernel each, none of the plain stack
+    kernel."""
     dev = _card()
     cfg, packed, a = _case(size, conv=True)
     packed = {k: v.to(dev) for k, v in packed.items()}
@@ -132,18 +134,21 @@ def test_conv_kernel_matches_plain(size, use_film):
     before = (sk.gridnet_stack_step.conv_launches,
               sk.gridnet_stack_step.launches)
     hk, ck = a["h0"], a["c0"]
-    hr, cr = hk, ck
+    refs = {fn: (hk, ck) for fn in (sk.gridnet_stack_step_ref,
+                                    sk.conv_walk_phases_ref)}
     for step in range(3):
         x = a["x"] * (1.0 + 0.5 * step)
         xk, hk, ck = sk.gridnet_stack_step(packed, x, hk, ck, fw, fb,
                                            eps=cfg.eps)
         torch.cuda.synchronize()
-        xr, hr, cr = sk.gridnet_stack_step_ref(packed, x, hr, cr, fw, fb,
-                                               eps=cfg.eps)
-        for g, w, name in ((xk, xr, "x"), (hk, hr, "h0"), (ck, cr, "c0")):
-            assert g.shape == w.shape, name
-            err = float((g - w).abs().max())
-            assert err <= TOL, f"step {step} {name}: {err}"
+        for fn, (hr, cr) in refs.items():
+            xr, hr, cr = fn(packed, x, hr, cr, fw, fb, eps=cfg.eps)
+            refs[fn] = hr, cr
+            for g, w, name in ((xk, xr, "x"), (hk, hr, "h0"),
+                               (ck, cr, "c0")):
+                assert g.shape == w.shape, name
+                err = float((g - w).abs().max())
+                assert err <= TOL, f"{fn.__name__} step {step} {name}: {err}"
     assert (sk.gridnet_stack_step.conv_launches,
             sk.gridnet_stack_step.launches) == (before[0] + 3, before[1])
 
@@ -182,8 +187,8 @@ def test_kernel_rejects_bad_operands():
                               c0)
 
 
-# ---- rows 1 and 3 (`csrc/stack_walk.cu`): the plain intra BLSTM's stack
-# steps, one cluster of eight blocks a call
+# ---- rows 1-4 (`csrc/stack_walk.cu`): the stack steps, one cluster of
+# eight blocks a call
 
 # F ragged against the walk's 8-frame slabs and the cluster's row tiles:
 # 17 (small), 145 (full); 9, where blocks 5-7 of the cluster own no row; B =
@@ -198,7 +203,7 @@ def _walk_case(widths, dev, seed=0, use_attn=False):
     """(cfg, packed, packed_attn or None, draw) on the card for a seeded
     net: the model's initial distribution with every leaf moved by 0.05
     N(0, 1), as the attention tests draw theirs."""
-    cfg = NetConfig(conv_lstm=False, use_attn=use_attn, **widths)
+    cfg = NetConfig(**{"conv_lstm": False, **widths}, use_attn=use_attn)
     rng = np.random.default_rng(seed)
     net = Net(cfg).init_weights(torch.Generator().manual_seed(seed))
     with torch.no_grad():
@@ -251,33 +256,47 @@ def test_walk_kernel_matches_plain_chained(size, use_film):
     assert grew == {n: 5 if n == "launches" else 0 for n in names}
 
 
-def _walk_step(attn, dev):
-    """A call of row 1's (attn False: the flagship's widths) or row 3's
-    (attn True: the attention flagship's, W cut to 7) wrapper on seeded
-    operands, as a function of no arguments; its counter's name."""
-    widths = dict(SIZES["full"])
-    if attn:
-        widths.update(L=4, E=2, local_atten_len=7)
-    cfg, packed, pa, draw = _walk_case(widths, dev, use_attn=attn)
+# the stack steps the walk tests call (`_walk_step`): row 1 at the
+# flagship's widths, row 3 at the attention flagship's (W cut to 7), rows 2
+# and 4 at the Orange Pi's (the conv_lstm pack, s = 5; W cut to 7)
+WALK_ROWS = {
+    1: dict(SIZES["full"]),
+    3: dict(SIZES["full"], L=4, E=2, local_atten_len=7),
+    2: dict(CONV_SIZES["orangepi"], conv_lstm=True),
+    4: dict(CONV_SIZES["orangepi"], conv_lstm=True, L=4, E=2,
+            local_atten_len=7)}
+
+
+def _walk_step(row, dev):
+    """A call of row 1-4's wrapper (`WALK_ROWS`) on seeded operands with
+    FiLM, as a function of no arguments; its counter's name."""
+    attn = row in (3, 4)
+    cfg, packed, pa, draw = _walk_case(WALK_ROWS[row], dev, use_attn=attn)
     F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
     x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
     fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    counter = ("conv_" if cfg.conv_lstm else "") + (
+        "attn_launches" if attn else "launches")
     if not attn:
         return (lambda: sk.gridnet_stack_step(
-            packed, x, h0, c0, fw, fb, eps=cfg.eps)), "launches"
+            packed, x, h0, c0, fw, fb, eps=cfg.eps)), counter
     W = cfg.local_atten_len
     kr = draw(B, cfg.L * cfg.E, W, F)
     vr = draw(B, D, W, F)
     return (lambda: sk.gridnet_stack_step_attn(
         packed, pa, x, h0, c0, kr, vr, 3, cfg.L, fw, fb,
-        eps=cfg.eps)), "attn_launches"
+        eps=cfg.eps)), counter
 
 
-def test_walk_refuses_other_widths():
-    """H = 48 raises on the card (the walk takes H in 8, 16, 32, 64;
-    ROADMAP Queue 2 item 10) and never runs the plain version."""
+@pytest.mark.parametrize("conv", [False, True])
+def test_walk_refuses_other_widths(conv):
+    """H = 48 raises on the card for a plain and a conv_lstm pack (the walk
+    takes H in 8, 16, 32, 64; ROADMAP Queue 2 item 10) and never runs the
+    plain version."""
     dev = _card()
-    cfg, packed, _, draw = _walk_case({**SIZES["small"], "H": 48}, dev)
+    widths = ({**CONV_SIZES["ragged"], "conv_lstm": True} if conv
+              else SIZES["small"])
+    cfg, packed, _, draw = _walk_case({**widths, "H": 48}, dev)
     F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
     with pytest.raises(ValueError, match="Queue 2 item 10"):
         sk.gridnet_stack_step(packed, draw(F, D), draw(B, F, H),
@@ -285,24 +304,29 @@ def test_walk_refuses_other_widths():
 
 
 def test_walk_plan_agrees_with_the_library():
-    """`walk_plan`'s shared memory and scratch are the library's, and one
-    cluster of each kernel fits the card, at the widths the repo runs."""
+    """`walk_plan`'s and `conv_walk_plan`'s shared memory and scratch are
+    the library's, and one cluster of each kernel fits the card, at the
+    widths the repo runs (the conv_lstm pack: s given)."""
     from sound_bubble_tpu_torch.ops.kernels import _build
 
     _card()
     lib = _build.load_library()
-    for f_len, d, h, b, attn in ((145, 32, 64, 6, None),
-                                 (145, 32, 64, 6, (4, 2, 100)),
-                                 (145, 32, 64, 1, None),
-                                 (17, 8, 8, 3, None), (25, 8, 8, 3, (2, 2, 5)),
-                                 (9, 8, 8, 2, None)):
-        plan = sk.walk_plan(f_len, d, h, b, attn)
+    for f_len, d, h, b, attn, s in (
+            (145, 32, 64, 6, None, None), (145, 32, 64, 6, (4, 2, 100), None),
+            (145, 32, 64, 1, None, None), (17, 8, 8, 3, None, None),
+            (25, 8, 8, 3, (2, 2, 5), None), (9, 8, 8, 2, None, None),
+            (145, 24, 64, 3, None, 5), (145, 24, 64, 3, (4, 2, 100), 5),
+            (145, 16, 64, 3, None, 5), (145, 24, 64, 1, None, 5),
+            (25, 8, 8, 3, None, 4), (25, 8, 8, 3, (2, 2, 5), 4)):
+        plan = (sk.walk_plan(f_len, d, h, b, attn) if s is None
+                else sk.conv_walk_plan(f_len, d, h, b, s, attn))
         heads, e, w = attn or (0, 0, 0)
-        assert lib.sbt_stack_walk_smem(f_len, d, h, heads, e, w) == \
+        assert lib.sbt_stack_walk_smem(f_len, d, h, s or 0, heads, e, w) == \
             plan["smem"]
-        assert lib.sbt_stack_walk_scratch(b, f_len, d, h, heads, w) == \
-            plan["scratch"]
+        assert lib.sbt_stack_walk_scratch(b, f_len, d, h, s or 0, heads,
+                                          w) == plan["scratch"]
         assert lib.sbt_stack_walk_clusters(h, int(attn is not None),
+                                           int(s is not None),
                                            plan["smem"]) >= 1
 
 
@@ -370,6 +394,39 @@ def test_attn_kernels_match_plain(size):
             assert err <= TOL, f"step {step} {name}: {err}"
     grew = {n: getattr(sk.gridnet_stack_step, n) - before[n] for n in names}
     assert grew == {n: W + 5 if n == counter else 0 for n in names}
+
+
+def test_conv_attn_chain_matches_phases():
+    """Row 4 at the Orange Pi width (W = 100) over W + 5 = 105 chained steps
+    from zero rings (pos wraps), with FiLM, against `conv_walk_phases_ref`
+    (the kernel's phases in its launch order, with their own state): x, h0,
+    c0 and both rings within 1e-4 at every step; one launch a step. The
+    weights are drawn as `test_attn_kernels_match_plain` draws them."""
+    dev = _card()
+    cfg, packed, pa, draw = _walk_case(
+        dict(CONV_SIZES["orangepi"], conv_lstm=True, L=4, E=2,
+             local_atten_len=100), dev, use_attn=True)
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+    fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    got = [draw(B, F, H) * 0.5, draw(B, F, H) * 0.5,
+           torch.zeros((B, cfg.L * cfg.E, W, F), device=dev),
+           torch.zeros((B, D, W, F), device=dev)]
+    want = [t.clone() for t in got]
+    before = sk.gridnet_stack_step.conv_attn_launches
+    with torch.no_grad():
+        for step in range(W + 5):
+            x = draw(F, D)
+            xk, *got = sk.gridnet_stack_step_attn(
+                packed, pa, x, *got, step % W, cfg.L, fw, fb, eps=cfg.eps)
+            torch.cuda.synchronize()
+            xr, *want = sk.conv_walk_phases_ref(
+                packed, x, want[0], want[1], fw, fb, eps=cfg.eps,
+                attn=(pa, want[2], want[3], step % W, cfg.L))
+            for name, g, w in zip(("x", "h0", "c0", "k_ring", "v_ring"),
+                                  [xk, *got], [xr, *want]):
+                err = float((g - w).abs().max())
+                assert err <= TOL, f"step {step} {name}: {err}"
+    assert sk.gridnet_stack_step.conv_attn_launches == before + W + 5
 
 
 def test_attn_kernel_rejects_bad_operands():
@@ -1223,7 +1280,7 @@ from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
 _build.build = lambda: (pathlib.Path({lib!r}), "")  # the built library
 import test_torch_port_cuda as t
 dev = torch.device("cuda")
-steps = [t._walk_step(attn, dev) for attn in (False, True)]
+steps = [t._walk_step(row, dev) for row in (1, 3, 2, 4)]
 before = {{}}
 with torch.no_grad():
     for step, counter in steps:
@@ -1245,8 +1302,8 @@ print(json.dumps({{
 
 @pytest.fixture(scope="module")
 def walk_profile():
-    """torch.profiler's device kernel records of 5 calls of row 1 and then
-    5 of row 3 (`_walk_step`), in one session of a fresh process that loads
+    """torch.profiler's device kernel records of 5 calls of each of rows 1,
+    3, 2 and 4 (`_walk_step`), in one session of a fresh process that loads
     the library this process built; and the launch counts there."""
     import json
     import subprocess
@@ -1264,29 +1321,31 @@ def walk_profile():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("attn", [False, True])
-def test_walk_is_one_device_kernel(attn, walk_profile):
-    """Rows 1 and 3 on the card are one kernel a call (the cluster form):
+@pytest.mark.parametrize("row", list(WALK_ROWS))
+def test_walk_is_one_device_kernel(row, walk_profile):
+    """Rows 1-4 on the card are one kernel a call (the cluster form):
     torch.profiler sees no other device work (no product, no copy, no
     cuBLAS or cuDNN kernel) over 5 calls of each, and the wrapper counts one
     launch a call. CUPTI now and then drops a record, so 4 or 5 kernel
     records of each pass."""
     names = walk_profile["names"]
     assert all("stack_walk_kernel" in n for n in names), names
+    attn, conv = (str(row in flags).lower() for flags in ((3, 4), (2, 4)))
     mine = [n for n in names
-            if f"stack_walk_kernel<64, {str(attn).lower()}>" in n]
+            if f"stack_walk_kernel<64, {attn}, {conv}>" in n]
     assert 4 <= len(mine) <= 5, names
-    counter = "attn_launches" if attn else "launches"
+    counter = ("conv_" if conv == "true" else "") + (
+        "attn_launches" if attn == "true" else "launches")
     assert walk_profile["launches"][counter] == 5
 
 
-@pytest.mark.parametrize("attn", [False, True])
-def test_walk_graph_replay_is_bit_equal(attn):
+@pytest.mark.parametrize("row", list(WALK_ROWS))
+def test_walk_graph_replay_is_bit_equal(row):
     """One call captured in a CUDA graph and replayed gives what the eager
     call gave, bit for bit (no host sync, no allocation in the kernel, no
     atomics: its sums run in a fixed order)."""
     dev = _card()
-    step, _ = _walk_step(attn, dev)
+    step, _ = _walk_step(row, dev)
     with torch.no_grad():
         eager = [t.clone() for t in step()]
         side = torch.cuda.Stream()

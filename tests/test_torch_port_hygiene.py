@@ -50,7 +50,7 @@ def test_port_sources_exist():
     assert "sound_bubble_tpu_torch/ops/kernels/lstm_train_kernel.py" in names
     assert "sound_bubble_tpu_torch/train_pt.py" in names
     assert "sound_bubble_tpu_torch/losses/multires_stft.py" in names
-    assert (PORT / "csrc" / "stack_step.cu").exists()
+    assert (PORT / "csrc" / "stack_walk.cu").exists()
     assert (PORT / "csrc" / "lstm_slab.cu").exists()
     assert (PORT / "csrc" / "lstm_seq.cu").exists()
     assert (PORT / "csrc" / "lstm_infer.cu").exists()

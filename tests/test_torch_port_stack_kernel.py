@@ -3,7 +3,9 @@
 wrapper) against the JAX Pallas kernel `gridnet_stack_step` run in interpret
 mode on the CPU, at a small size (F=17, D=8, H=8, B=3; the conv_lstm branch
 at F=25: the pack at lstm_down 5 and 4, the stack step at lstm_down 5
-without FiLM and at 4, ragged, with FiLM).
+without FiLM and at 4, ragged, with FiLM). The cluster kernel's phases in
+plain PyTorch (`walk_phases_ref`, `conv_walk_phases_ref`) are held to the
+same JAX results, and its tiles and launch plan are pinned.
 
 Tolerance 1e-5 absolute: both sides run the same fp32 math."""
 import jax
@@ -133,7 +135,11 @@ def test_pack_conv_matches_jax(s, rng):
 # (lstm_down, FiLM): F = 25 is a multiple of 5, not of 4 (ragged)
 @pytest.mark.parametrize("s,use_film", [(5, False), (4, True)])
 def test_stack_step_conv_matches_pallas_interpret(s, use_film, rng):
-    """3 chained steps, the state and x carried from one to the next."""
+    """3 chained steps, the state and x carried from one to the next: the
+    wrapper's CPU route and `conv_walk_phases_ref` (the rows-2 kernel's
+    phases in its launch order: whole conv frames a block, the down conv
+    and the up conv as row phases; s = 4 leaves row 24 to block 6), each
+    with its own state, against the JAX Pallas kernel in interpret mode."""
     cfg = NetConfig(**CONV, lstm_down=s)
     tree = _random_tree(rng, cfg)
     F, D, H, B = cfg.n_freqs, cfg.D, cfg.H, cfg.B
@@ -149,7 +155,8 @@ def test_stack_step_conv_matches_pallas_interpret(s, use_film, rng):
     fb = draw(B - 1, F, D) if use_film else None
     h0, c0 = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
     want = (None, jnp.asarray(h0), jnp.asarray(c0))
-    got = (None, torch.from_numpy(h0), torch.from_numpy(c0))
+    got = {fn: (None, torch.from_numpy(h0), torch.from_numpy(c0))
+           for fn in (tsk.gridnet_stack_step, tsk.conv_walk_phases_ref)}
     launches = tsk.gridnet_stack_step.conv_launches
     for _ in range(3):
         x = draw(F, D)
@@ -158,15 +165,53 @@ def test_stack_step_conv_matches_pallas_interpret(s, use_film, rng):
             None if fw is None else jnp.asarray(fw),
             None if fb is None else jnp.asarray(fb), eps=cfg.eps,
             interpret=True)
-        got = tsk.gridnet_stack_step(
-            packed_t, torch.from_numpy(x), got[1], got[2],
-            None if fw is None else torch.from_numpy(fw),
-            None if fb is None else torch.from_numpy(fb), eps=cfg.eps)
-        for g, w, name in zip(got, want, ("x", "h0", "c0")):
-            assert tuple(g.shape) == tuple(w.shape), name
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
-                                       rtol=0, err_msg=name)
+        for fn, state in got.items():
+            got[fn] = fn(packed_t, torch.from_numpy(x), state[1], state[2],
+                         None if fw is None else torch.from_numpy(fw),
+                         None if fb is None else torch.from_numpy(fb),
+                         eps=cfg.eps)
+            for g, w, name in zip(got[fn], want, ("x", "h0", "c0")):
+                assert tuple(g.shape) == tuple(w.shape), name
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           atol=TOL, rtol=0,
+                                           err_msg=f"{fn.__name__} {name}")
     assert tsk.gridnet_stack_step.conv_launches == launches
+
+
+def test_conv_walk_attn_phases_match_pallas_interpret(rng):
+    """`conv_walk_phases_ref` with attention, the row-4 kernel's phases in
+    plain PyTorch in its launch order (the conv tiles: a frame of 4 rows a
+    block, row 24 on block 6, none on block 7), against the JAX Pallas
+    `gridnet_stack_step_attn` in interpret mode, one step with FiLM: x, h0,
+    c0 and both rings."""
+    widths = dict(CONV, lstm_down=4, use_attn=True, L=2, E=2,
+                  local_atten_len=5)
+    cfg = NetConfig(**widths)
+    tree = _random_tree(rng, cfg)
+    jcfg = JaxConfig(**widths)
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x, fw, fb = draw(F, D), draw(B - 1, F, D), draw(B - 1, F, D)
+    h0, c0 = draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    kr, vr = draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F)
+    pos = 3
+    want = jsk.gridnet_stack_step_attn(
+        jsk.pack_stack_params(jcfg, _np_tree(tree)),
+        jsk.pack_attn_params(jcfg, _np_tree(tree)), *map(jnp.asarray, (
+            x, h0, c0, kr, vr)), jnp.asarray([pos], jnp.int32), cfg.L,
+        jnp.asarray(fw), jnp.asarray(fb), eps=cfg.eps, interpret=True)
+    got = tsk.conv_walk_phases_ref(
+        tsk.pack_stack_params(cfg, tree), torch.from_numpy(x),
+        torch.from_numpy(h0), torch.from_numpy(c0), torch.from_numpy(fw),
+        torch.from_numpy(fb), eps=cfg.eps,
+        attn=(tsk.pack_attn_params(cfg, tree), torch.from_numpy(kr),
+              torch.from_numpy(vr), pos, cfg.L))
+    for g, w, name in zip(got, want, ("x", "h0", "c0", "k_ring", "v_ring")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=0, err_msg=name)
 
 
 def test_check_packed(case):
@@ -235,10 +280,11 @@ def test_walk_plan():
                         "scratch": 145 * (32 + 128 + 256 * 6)}
     attn = tsk.walk_plan(145, 32, 64, 6, (4, 2, 100))
     # staged: 4 weights, their biases and slopes, 19 rows of 4 LayerNorm
-    # affines; the rows' q | k | v and output; scores [4, 100]; moments
+    # affines; the rows' q | k | v and output, scores [4, 100] and moments
+    # (19 * 80 + 400 + 26 floats) in the gates' place (19 * 256)
     assert attn["smem"] == flagship["smem"] + 4 * (
-        2 * 32 * (8 + 32) + 2 * 8 + 2 * 32 + 4 + 2 * 19 * (2 * 2 + 8 + 32)
-        + 19 * (16 + 64) + 400 + 26)
+        2 * 32 * (8 + 32) + 2 * 8 + 2 * 32 + 4 + 2 * 19 * (2 * 2 + 8 + 32))
+    assert 19 * (16 + 64) + 400 + 26 <= 19 * 256
     assert attn["scratch"] == flagship["scratch"] + 8 * (26 + 400)
     assert tsk.walk_plan(17, 8, 8, 3)["threads"] == 32
     assert [n for _, n in tsk.walk_tiles(145)] == [19] * 7 + [12]
@@ -250,3 +296,48 @@ def test_walk_plan():
         tsk.walk_plan(145, 30, 64, 6)
     with pytest.raises(ValueError, match="shared memory"):
         tsk.walk_plan(25, 8, 8, 3, (2, 2, 40000))
+
+
+def test_conv_walk_tiles_and_plan():
+    """Rows 2/4's tiles and launch, checkable without a card: whole conv
+    frames a block (ceil(k / 8)), the rows past the last frame on the block
+    after it; the shared memory (the walk's, then the staged up conv,
+    inter weights and next down conv, the vectors, 20 rows' c0 and FiLM;
+    the rows' x, z, gates, h' and the 4 frames' y) and scratch at both edge
+    widths, with and without attention; the widths it refuses."""
+    # F = 145, s = 5: 29 frames, 4 a block, the last block 1
+    tiles = tsk.conv_walk_tiles(145, 5)
+    assert [nq for _, nq, _, _ in tiles] == [4] * 7 + [1]
+    assert [(f0, n) for _, _, f0, n in tiles] == \
+        [(20 * c, 20) for c in range(7)] + [(140, 5)]
+    # F = 25, s = 4: 6 frames, one a block; row 24 on block 6
+    assert tsk.conv_walk_tiles(25, 4) == [
+        (c, 1, 4 * c, 4) for c in range(6)] + [(6, 0, 24, 1), (6, 0, 24, 0)]
+    # s = 1 is the plain intra's tiling
+    assert [(f0, n) for _, _, f0, n in tsk.conv_walk_tiles(145, 1)] == \
+        tsk.walk_tiles(145)
+    for d, walk in ((24, 37248), (16, 28800)):
+        staged = (15 * 64 * d + 6 * d + 256 + 20 * (64 + 2 * d)
+                  + 5 * d * d + d + 1)
+        own = 20 * (2 * d + 320) + 4 * 128
+        plan = tsk.conv_walk_plan(145, d, 64, 3, 5)
+        assert plan == {"ctas": 8, "threads": 256, "rows": 20, "frames": 4,
+                        "smem": walk + 4 * (-(-staged // 4) * 4 + own),
+                        "scratch": 29 * (d + 128) + 145 * 256 * 3}
+        assert walk == tsk.fwd_smem(d, 64, 1)
+        attn = tsk.conv_walk_plan(145, d, 64, 3, 5, (4, 2, 100))
+        assert attn["scratch"] == plan["scratch"] + 8 * (26 + 400)
+        assert plan["smem"] < attn["smem"] <= tsk.SMEM_LIMIT_BYTES
+    assert tsk.conv_walk_plan(145, 24, 64, 3, 5)["smem"] == 183088
+    # with attention, within the 196 KB shared-memory configuration (200,704
+    # B less the 1 KB the card keeps a block), as row 3 is
+    assert tsk.conv_walk_plan(145, 24, 64, 3, 5, (4, 2, 100))["smem"] == \
+        194944
+    with pytest.raises(ValueError, match="Queue 2 item 10"):
+        tsk.conv_walk_plan(145, 24, 48, 3, 5)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tsk.conv_walk_plan(145, 22, 64, 3, 5)
+    with pytest.raises(ValueError, match="no conv frame"):
+        tsk.conv_walk_plan(3, 8, 8, 3, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsk.conv_walk_plan(145, 40, 64, 3, 5)

@@ -2,7 +2,8 @@
 lstm_fwd32.cuh`) on the CPU, in all four of its kernels, against the plain
 versions: a check of the kernels' logic where there is no card and no nvcc.
 
-    python tools/emulate_fwd_walk.py [--out DIR] [--only infer,bseq,seq,slab]
+    python tools/emulate_fwd_walk.py [--out DIR]
+        [--only infer,bseq,seq,slab,stack]
 
 Copies the header and the kernels that include it (row 5's
 `csrc/lstm_infer.cu`; rows 6a and 8a from `csrc/lstm_seq.cu`, row 10a from
@@ -20,6 +21,14 @@ C = H = 8): every output within 1e-5 of `blstm_infer_ref`,
 `blstm_seq_fwd_ref`, `lstm_seq_fwd_ref` and `lstm_slab_fwd_ref`. Prints a
 line a case and the worst error a kernel; exits non-zero past 1e-5.
 About two minutes on 8 cores.
+
+`--only stack` runs the stack steps' cluster kernel (rows 1-4,
+`csrc/stack_walk.cu`, which includes the walk) the same way, all eight
+blocks of the cluster at once (a cluster barrier is a `std::barrier` over
+their threads, each block with shared memory of its own), through its C
+entry points against `gridnet_stack_step_ref` / `_attn_ref`: the plain and
+the conv_lstm intra, with and without attention, at small and at the edge
+and flagship widths (`STACK_CASES`).
 """
 import argparse
 import ctypes
@@ -286,7 +295,7 @@ def compile_lib(out, src, name):
 
 
 def build_stack(out):
-    """The host copy of rows 1 and 3's cluster kernel (csrc/stack_walk.cu)
+    """The host copy of rows 1-4's cluster kernel (csrc/stack_walk.cu)
     in out (after `build`, which writes the walk's header there), built;
     the library: its cluster barrier is a std::barrier over the cluster's
     threads."""
@@ -315,10 +324,14 @@ def build_stack(out):
     return ctypes.CDLL(compile_lib(out, src, "libstack.so"))
 
 
-# (name, NetConfig widths, use_film, steps) of rows 1 and 3's kernel: F = 17,
+# (name, NetConfig widths, use_film, steps) of rows 1-4's kernel: F = 17,
 # 9 (blocks 5-7 own no row), 21 at H = 16, 145 (the flagship's widths,
 # depth cut to 2), one block (the per-block route); with attention, chained
-# past W so that pos wraps
+# past W so that pos wraps; conv_lstm (rows 2 and 4): F = 25 at s = 4 (a
+# row past the last frame, blocks 6-7 own no frame), 145 at s = 5 (the
+# Orange Pi and Raspberry Pi widths, depth cut to 2: seven blocks of four
+# frames and one of one), 21 at s = 5 and H = 16 (one frame a block, the
+# tail row on block 4)
 STACK_CASES = (
     ("small", dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=3),
      True, 2),
@@ -334,6 +347,22 @@ STACK_CASES = (
     ("attn_flagship", dict(stft_chunk_size=192, stft_pad_size=96, D=32, H=64,
                            B=2, L=4, E=2, local_atten_len=3, use_attn=True),
      True, 4),
+    ("conv_ragged", dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8, B=3,
+                         conv_lstm=True, lstm_down=4), True, 2),
+    ("conv_orangepi", dict(stft_chunk_size=192, stft_pad_size=96, D=24, H=64,
+                           B=2, conv_lstm=True, lstm_down=5), False, 1),
+    ("conv_raspberrypi", dict(stft_chunk_size=192, stft_pad_size=96, D=16,
+                              H=64, B=2, conv_lstm=True, lstm_down=5),
+     True, 1),
+    ("conv_h16", dict(stft_chunk_size=24, stft_pad_size=16, D=16, H=16, B=2,
+                      conv_lstm=True, lstm_down=5), True, 2),
+    ("conv_attn_small", dict(stft_chunk_size=32, stft_pad_size=16, D=8, H=8,
+                             B=3, L=2, E=2, local_atten_len=5, use_attn=True,
+                             conv_lstm=True, lstm_down=4), True, 7),
+    ("conv_attn_orangepi", dict(stft_chunk_size=192, stft_pad_size=96, D=24,
+                                H=64, B=2, L=4, E=2, local_atten_len=3,
+                                use_attn=True, conv_lstm=True, lstm_down=5),
+     False, 4),
 )
 
 
@@ -348,15 +377,15 @@ def stack_cases(lib, check, ptr):
     from sound_bubble_tpu_torch.weights import param_tree
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sbt_stack_walk.argtypes = [P] * 22 + [I] * 6 + [ctypes.c_float, P]
-    lib.sbt_stack_walk_attn.argtypes = ([P] * 40 + [I] * 10
+    lib.sbt_stack_walk.argtypes = [P] * 25 + [I] * 7 + [ctypes.c_float, P]
+    lib.sbt_stack_walk_attn.argtypes = ([P] * 43 + [I] * 11
                                         + [ctypes.c_float, P])
-    lib.sbt_stack_walk_smem.argtypes = [I] * 6
+    lib.sbt_stack_walk_smem.argtypes = [I] * 7
     lib.sbt_stack_walk_smem.restype = ctypes.c_size_t
-    lib.sbt_stack_walk_scratch.argtypes = [I] * 6
+    lib.sbt_stack_walk_scratch.argtypes = [I] * 7
     lib.sbt_stack_walk_scratch.restype = ctypes.c_size_t
     for name, widths, use_film, steps in STACK_CASES:
-        cfg = NetConfig(conv_lstm=False, **widths)
+        cfg = NetConfig(**{"conv_lstm": False, **widths})
         rng = np.random.default_rng(len(name))
         net = Net(cfg)
         net.load_state_dict({k: torch.from_numpy(np.asarray(
@@ -381,9 +410,11 @@ def stack_cases(lib, check, ptr):
             rings = [torch.zeros(B, cfg.L * cfg.E, W, F),
                      torch.zeros(B, D, W, F)]
             rings_ref = [r.clone() for r in rings]
-        plan = sk.walk_plan(F, D, H, B, attn)
-        lib_plan = (lib.sbt_stack_walk_smem(F, D, H, *(attn or (0, 0, 0))),
-                    lib.sbt_stack_walk_scratch(B, F, D, H, *(
+        s = sk.lstm_down(packed)
+        plan = sk.walk_plan(F, D, H, B, attn, s)
+        lib_plan = (lib.sbt_stack_walk_smem(F, D, H, s or 0,
+                                            *(attn or (0, 0, 0))),
+                    lib.sbt_stack_walk_scratch(B, F, D, H, s or 0, *(
                         (attn[0], attn[2]) if attn else (0, 0))))
         if lib_plan != (plan["smem"], plan["scratch"]):
             raise RuntimeError(f"{name}: the library's smem and scratch "
@@ -395,10 +426,10 @@ def stack_cases(lib, check, ptr):
                     torch.full((B, F, H), float("nan")),
                     torch.full((B, F, H), float("nan"))]
             scratch = torch.full((plan["scratch"],), float("nan"))
-            weights = [packed[k] for k in sk._WEIGHTS]
+            weights = sk._operands(packed)[0]
             head = (ptr(x), ptr(fw), ptr(fb), *map(ptr, weights))
             tail = (ptr(h), ptr(c), *map(ptr, outs), ptr(scratch))
-            dims = (B, F, D, H)
+            dims = (B, F, D, H, s or 0)
             if attn is None:
                 rc = lib.sbt_stack_walk(*head, *tail, *dims,
                                         int(use_film), plan["scratch"],

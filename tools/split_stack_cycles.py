@@ -1,4 +1,4 @@
-"""Split one call of rows 1 and 3 (`stack_walk_kernel`, the cluster kernel of
+"""Split one call of rows 1-4 (`stack_walk_kernel`, the cluster kernel of
 `sound_bubble_tpu_torch/csrc/stack_walk.cu`) by phase, for each of the
 cluster's eight blocks, on one card.
 
@@ -9,11 +9,13 @@ Copies this checkout's `sound_bubble_tpu_torch/` into OUT_DIR (default
 0's phase boundaries in the copy's `stack_walk.cu` (into a `__device__`
 array read back through an extra C entry point), builds the copy and runs
 `gridnet_stack_step` and `gridnet_stack_step_attn` at the flagship's widths
-(F = 145, D = 32, H = 64, B = 6; attention L = 4, E = 2, W = 100) on a
-seeded net. Prints the card's name and power limit, then one JSON line: for
+(rows 1 and 3: F = 145, D = 32, H = 64, B = 6) and on a conv_lstm pack at
+the Orange Pi's (rows 2 and 4: D = 24, B = 3, s = 5; attention L = 4, E =
+2, W = 100), seeded nets, with FiLM. Prints the card's name and power
+limit, then one JSON line: for
 each kernel its ms a call (CUDA events, 20 calls, the stamped copy) and,
 for each block of the cluster, the cycles of one call by phase, summed
-over the six GridNet blocks (a phase ends at the stamp after it; a block's
+over the GridNet blocks (a phase ends at the stamp after it; a block's
 wait at a cluster barrier falls in the phase that ends there). The string
 edits raise if the source moved under them. Needs one NVIDIA card.
 """
@@ -32,11 +34,11 @@ ANCHORS = (
      "stage"),
     ("    sbt_fwd32::cp_async_wait_all();\n    cluster_sync();", "before",
      "walk (blocks 2-7: hr, then idle)"),
-    ("  // y and the staged data are in (after the first walk, hr)\n",
-     "after", "wait + barrier"),
-    ("      rows_matmul<1>(ys, H2, n, st.wp, H2, D", "before", "y, hr in"),
+    ("  // y, block b's hr and the staged data are in\n", "after",
+     "wait + barrier"),
+    ("      rows_matmul<1>(ys, H2, nq, st.wp, H2, sD", "before", "y, hr in"),
     ("      ln_rows(xs, zs, n, D, st.tln, st.tln + D, a.eps);\n", "before",
-     "proj"),
+     "proj / up conv"),
     ("      const size_t sb = ((size_t)b * F + f0) * H;\n", "before",
      "LayerNorm + gates"),
     ("      rows_matmul<1>(hs, H, n, st.wp2, H, D", "before", "cell"),
@@ -52,10 +54,10 @@ ANCHORS = (
      "attn 3: weighted values"),
     ("      // 4. the LayerNorm over the [F, D] frame, the residual\n",
      "before", "attn 3: out proj, moments + barrier"),
-    ("    // ---- the next block's FiLM and intra LayerNorm: the walk's "
-     "input\n", "before", "attn 4: LayerNorm, residual"),
+    ("    // ---- the next block's FiLM and intra head: the walk's input\n",
+     "before", "attn 4: LayerNorm, residual"),
     ("      cluster_sync();  // z is in; the staged data is free again\n",
-     "after", "FiLM, LayerNorm + barrier"),
+     "after", "FiLM, head (LayerNorm / down conv) + barrier"),
     ("  for (int i = tid; i < n * D; i += nt) a.x_out[f0 * D + i] = xs[i];\n",
      "after", "x out"),
 )
@@ -93,6 +95,9 @@ def instrument(out_dir):
         s = s.replace(old, new)
     s += ('\nextern "C" int sbt_stamps(long long* out) {\n'
           '  return (int)cudaMemcpyFromSymbol(out, g_stamp, '
+          'sizeof(g_stamp));\n}\n'
+          'extern "C" int sbt_stamps_clear(const long long* zeros) {\n'
+          '  return (int)cudaMemcpyToSymbol(g_stamp, zeros, '
           'sizeof(g_stamp));\n}\n')
     with open(path, "w") as fh:
         fh.write(s)
@@ -125,10 +130,15 @@ def child(out_dir):
     dev = torch.device("cuda")
     lib = _build.load_library()
     lib.sbt_stamps.argtypes = [ctypes.c_void_p]
+    lib.sbt_stamps_clear.argtypes = [ctypes.c_void_p]
     res = {}
-    for attn in (False, True):
+    for row, attn, widths in (
+            (1, False, dict(D=32, B=6, conv_lstm=False)),
+            (3, True, dict(D=32, B=6, conv_lstm=False)),
+            (2, False, dict(D=24, B=3, conv_lstm=True, lstm_down=5)),
+            (4, True, dict(D=24, B=3, conv_lstm=True, lstm_down=5))):
         cfg = NetConfig(use_attn=attn, stft_chunk_size=192, stft_pad_size=96,
-                        D=32, H=64, B=6, conv_lstm=False)
+                        H=64, **widths)
         rng = np.random.default_rng(0)
         tree = param_tree(Net(cfg).init_weights(
             torch.Generator().manual_seed(0)))
@@ -149,14 +159,22 @@ def child(out_dir):
 
             def call():
                 sk.gridnet_stack_step_attn(packed, pa, x, h0, c0, kr, vr, 3,
-                                           cfg.L, fw, fb, eps=cfg.eps)
+                                           cfg.L, fw, fb, eps=cfg.eps,
+                                           checked=True)
         else:
             def call():
-                sk.gridnet_stack_step(packed, x, h0, c0, fw, fb, eps=cfg.eps)
+                sk.gridnet_stack_step(packed, x, h0, c0, fw, fb, eps=cfg.eps,
+                                      checked=True)
+        # the stamps of the last call; none left of another row's, which
+        # may have more of them
+        sk.check_packed(packed, dev, *((pa, cfg.L) if attn else ()))
+        stamps = np.zeros((8, 256), np.int64)
+        torch.cuda.synchronize()
+        if lib.sbt_stamps_clear(stamps.ctypes.data):
+            raise RuntimeError("cudaMemcpyToSymbol failed")
         for _ in range(5):
             call()
         torch.cuda.synchronize()
-        stamps = np.zeros((8, 256), np.int64)
         if lib.sbt_stamps(stamps.ctypes.data):
             raise RuntimeError("cudaMemcpyFromSymbol failed")
         start = torch.cuda.Event(enable_timing=True)
@@ -166,7 +184,7 @@ def child(out_dir):
             call()
         end.record()
         torch.cuda.synchronize()
-        res["row3" if attn else "row1"] = {
+        res[f"row{row}"] = {
             "ms": start.elapsed_time(end) / 20,
             "cycles": {c: split(stamps[c]) for c in range(8)}}
     print(json.dumps(res), flush=True)

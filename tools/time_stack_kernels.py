@@ -13,13 +13,13 @@ flagship width (`runs/finetune_r5`, 1 m FiLM) and, where the package has
 the conv_lstm branch, at the Orange Pi width (`runs/edge_orangpi_seeded`);
 `gridnet_stack_step_attn` the same way at the attention nets' widths
 (`runs/attn_flagship_seeded`: row 3; `runs/attn_orangpi_seeded`: row 4),
-pos advancing a call; `FusedStreamer.feed` of the flagship and of the
-attention flagship, ms a chunk on the host clock (chip_smoke.py's
-`feed_ms`, 100 chunks) and as 20 chunks captured in one CUDA graph (None
-where the capture fails); the worst max-abs error of rows 1 and 3 against
-their plain versions over chained steps (`*_chain_err`: row 1 at the
-flagship's widths, 5 steps; row 3 at the attention flagship's, W + 5 = 105
-steps, the case of tests/test_torch_port_cuda.py's attention test); then
+pos advancing a call; `FusedStreamer.feed` of each of these four nets, ms
+a chunk on the host clock (chip_smoke.py's `feed_ms`, 100 chunks) and as
+20 chunks captured in one CUDA graph (None where the capture fails); the
+worst max-abs error of rows 1-4 against their plain versions over chained
+steps (`*_chain_err`: rows 1 and 2 at the flagship's and the Orange Pi's
+widths, 5 steps; rows 3 and 4 at the attention nets', W + 5 = 105 steps,
+the case of tests/test_torch_port_cuda.py's attention test); then
 `lstm_slab_fwd` and `lstm_slab_bwd`, 20 launches after one, in fp32 at the
 flagship training path's shapes of chip_smoke.py's phase 6
 (intra [145, 1252, 32], inter [313, 580, 32], H = 64) and in the mixed mode
@@ -263,26 +263,26 @@ def time_stack_steps(out, dev):
         else:
             def step():
                 sk.gridnet_stack_step(fs.packed, x, h0, c0, fw, fb,
-                                      eps=cfg.eps)
+                                      eps=cfg.eps, checked=True)
         with torch.no_grad():
             for _ in range(10):
                 step()
             out[f"{name}_ms"] = events_ms(step, 200)
         out[f"{name}_graph_ms"] = graph_ms(step, 20)
-        if name in ("flagship", "attn_flagship"):
-            out[f"{name}_feed_ms"] = feed_ms(fs, 100, rng)
-            win = draw(1, cfg.num_ch, cfg.n_fft)
-            fs.reset()
-            out[f"{name}_feed_graph_ms"] = graph_ms(lambda: fs.feed(win), 20)
+        out[f"{name}_feed_ms"] = feed_ms(fs, 100, rng)
+        win = draw(1, cfg.num_ch, cfg.n_fft)
+        fs.reset()
+        out[f"{name}_feed_graph_ms"] = graph_ms(lambda: fs.feed(win), 20)
 
 
 def chain_errors(out, dev):
     """The worst max-abs error of x, h0, c0 (and the rings) against the
     plain versions over chained steps (x new a step, the state carried),
-    into out: row 1 at the flagship's widths over 5 steps, row 3 at the
-    attention flagship's over W + 5 steps from zero rings (pos wraps); the
-    weights as tests/test_torch_port_cuda.py's attention case draws them
-    (the model's initial weights moved by 0.05 N(0, 1)), with FiLM."""
+    into out: rows 1 and 2 at the flagship's and the Orange Pi's widths
+    over 5 steps, rows 3 and 4 at the attention nets' over W + 5 steps from
+    zero rings (pos wraps); the weights as tests/test_torch_port_cuda.py's
+    attention case draws them (the model's initial weights moved by 0.05
+    N(0, 1)), with FiLM."""
     import numpy as np
     import torch
 
@@ -290,9 +290,14 @@ def chain_errors(out, dev):
     from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
     from sound_bubble_tpu_torch.weights import param_tree
 
-    for name, attn in (("row1", False), ("row3", True)):
+    flagship = dict(D=32, B=6, conv_lstm=False)
+    orangepi = dict(D=24, B=3, conv_lstm=True, lstm_down=5)
+    for name, attn, widths in (("row1", False, flagship),
+                               ("row3", True, flagship),
+                               ("row2", False, orangepi),
+                               ("row4", True, orangepi)):
         cfg = NetConfig(use_attn=attn, stft_chunk_size=192, stft_pad_size=96,
-                        D=32, H=64, B=6, conv_lstm=False)
+                        H=64, **widths)
         rng = np.random.default_rng(0)
         net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
         with torch.no_grad():
