@@ -860,8 +860,11 @@ def phase13_mixed_slab(dev, ls):
                 b_errs = rel_errs(got_b, want_b)
             grew = tuple(n - m for n, m in zip(mixed_counts(ls), before))
             wname = "bf16" if wdt == torch.bfloat16 else "fp32"
+            code = ls.DTYPES.index((torch.bfloat16, wdt))
             log(f"  {name} [T={t_len}, R={r}, C={c}], H={SLAB_H}, x bf16, "
-                f"weights {wname}: forward max-abs / peak (ys, hT, cT, "
+                f"weights {wname} (row 10b %d rows a block, %d blocks): "
+                % ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev), code=code)
+                + "forward max-abs / peak (ys, hT, cT, "
                 f"c_ckpt) {['%.2e' % e[1] for e in f_errs]}; backward "
                 f"(dx, dw_ih, dw_hh, db, dh0, dc0) "
                 f"{['%.2e' % e[1] for e in b_errs]}; two backward launches "
@@ -1037,13 +1040,15 @@ def bf16_step_times(dev, ls, mixed_rows, card):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) / 5 * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    slab_ms = sum(k * (mixed_rows[name]["fwd"][0] + mixed_rows[name]["bwd"][0])
-                  for name, k in SLAB_MIX)
+    fwd_ms, bwd_ms = (sum(k * mixed_rows[name][kind][0]
+                          for name, k in SLAB_MIX) for kind in ("fwd", "bwd"))
+    slab_ms = fwd_ms + bwd_ms
     log(f"phase 14 times on {card}: bf16 train step {step_ms:.2f} ms "
         f"(train_stream.train_step, batch 8 x 2.5 s, host clock, 5 steps), "
         f"peak device memory {peak_gb:.2f} GB; mixed slab launches 12 intra "
-        f"+ 6 inter of each kernel: {slab_ms:.2f} ms; the eager rest by "
-        f"difference {step_ms - slab_ms:.2f} ms")
+        f"+ 6 inter of each kernel: {slab_ms:.2f} ms (forward {fwd_ms:.2f}, "
+        f"backward {bwd_ms:.2f}); the eager rest by difference "
+        f"{step_ms - slab_ms:.2f} ms")
     return step_ms
 
 
@@ -1951,11 +1956,12 @@ def phase20_seq_kernels(dev, lk, ls):
             shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
                       for s in differ_share(g, w)] if mixed else []
             tiles = ""
-            if not mixed:
+            if not mixed or nd == 2:     # the walk's forwards
+                code = ls.DTYPES.index((xdt, wdt))
                 tiles = ("row %s %d rows a block, %d blocks; "
-                         % ("6a" if nd == 1 else "8a",
+                         % ("8b" if mixed else "6a" if nd == 1 else "8a",
                             *ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev),
-                                              nd)))
+                                              nd, code, bseq=mixed)))
             log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
                 f"{pname}: {tiles}rows {'/'.join(rows)} max-abs (max-abs / "
                 "peak) "
@@ -3148,6 +3154,10 @@ def main():
         "launches": (seq_mixed_n if mixed else seq_fp32_n)[i],
         "max_abs_err": seq_errs[name, mixed], **seq_times[name, mixed]}
         for mixed in (False, True) for i, name in enumerate(SEQ_NAMES)]
+    # row 8b: the walk of csrc/lstm_fwd32.cuh in its mixed mode
+    next(e for e in seq_entries if e["name"] == "blstm_seq_fwd_mixed")[
+        "kernel"] = ("seq_bfwd_mixed_kernel<64, bf16> / <64, float> "
+                     "(lstm_fwd32.cuh, RND_SEQ)")
 
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"
@@ -3170,6 +3180,8 @@ def main():
         "replaces": f"{slab_tpu}:229", "launches": bwd_n,
         "max_abs_err": bwd_err, **slab_times["bwd"]}, {
         "name": "lstm_slab_fwd_mixed", "route": "cuda", "source": slab_src,
+        "kernel": ("slab_fwd_mixed_kernel<64, bf16> / <64, float> "
+                   "(lstm_fwd32.cuh, RND_SLAB)"),
         "replaces": f"{slab_tpu}:125", "launches": mixed_fwd_n,
         "max_abs_err": mixed_fwd_err, **mixed_times["fwd"]}, {
         "name": "lstm_slab_bwd_mixed", "route": "cuda", "source": slab_src,

@@ -59,19 +59,28 @@
 // lane applies one (row, unit) cell and writes its y, four gates and c,
 // eight units a warp at four rows: 32-byte segments, no staging needed.
 //
+// Design of the mixed fused-direction forward (`seq_bfwd_mixed_kernel`,
+// row 8b): the same walk in its mixed mode (RND_SEQ: the Pallas body's
+// roundings, the header comment), a grid half a direction as row 8a; its
+// gx tile is bf16 and 4 frames a slab, so that 38 rows a block fit (both
+// directions of the bf16 recipe's intra BLSTM, R = 2504, in one wave of
+// 132 blocks; `fwd_row_tiles`), and with bf16 weights the slab projection
+// runs on the tensor cores.
+//
 // The first design (`seq_fwd_kernel`, simple first; it still runs the
-// mixed forwards, rows 6b and 8b; tensor cores, bf16 weights in shared
-// memory and wider row tiles are later work):
+// mixed single-direction forward, row 6b; the backward walks, rows 7 and 9,
+// run the same design for nd directions; tensor cores, bf16 weights in
+// shared memory and wider row tiles are later work):
 // - One thread block owns a tile of RT = 8 rows and walks all T steps
 //   itself, for nd directions at once; no block ever waits on another (no
 //   grid sync, no flags, no clusters). Thread (d, grp, j) computes unit j of
 //   direction d for RPT = 2 rows, so the state of those cells stays in its
 //   registers; the h (or the gate gradients) the next step needs go through
 //   shared memory, double-buffered: one __syncthreads a step.
-// - Forward: each direction's [w_ih; w_hh] lives in shared memory as fp32,
+// - Forward (one direction): [w_ih; w_hh] lives in shared memory as fp32,
 //   gate-interleaved float4 (w_i, w_f, w_g, w_o) per (input k, unit j):
-//   96 KB a direction at C = 32, H = 64. The next step's x tile is loaded
-//   into registers while this step computes.
+//   96 KB at C = 32, H = 64. The next step's x tile is loaded into
+//   registers while this step computes.
 // - Backward: each direction's W_hh^T in shared memory (64 KB at H = 64);
 //   the gates, c, the entering c and dy stream from global memory, read
 //   once each (the entering c is the previous step's c, or c0).
@@ -136,55 +145,50 @@ __device__ __forceinline__ float sig(float v) {
   }
 }
 
-template <int ND, typename XT, typename WT>
+template <typename XT, typename WT>
 __global__ void __launch_bounds__(512) seq_fwd_kernel(
-    const XT* __restrict__ x, const WT* __restrict__ w_ih_f,
-    const WT* __restrict__ w_ih_b, const WT* __restrict__ w_hh,
-    const WT* __restrict__ b, const float* __restrict__ h0,
-    const float* __restrict__ c0, XT* __restrict__ y,
-    GateT<XT, WT>* __restrict__ gates, float* __restrict__ cseq, int T,
-    int R, int C, int H) {
+    const XT* __restrict__ x, const WT* __restrict__ w_ih,
+    const WT* __restrict__ w_hh, const WT* __restrict__ b,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    XT* __restrict__ y, GateT<XT, WT>* __restrict__ gates,
+    float* __restrict__ cseq, int T, int R, int C, int H) {
   constexpr bool M = kMixed<XT, WT>;
   extern __shared__ float4 smem4[];
-  const int H4 = 4 * H, NH = ND * H, NH4 = ND * H4, K = C + H;
-  float4* wp = smem4;                                      // [ND][K*H]
-  float* xbuf = reinterpret_cast<float*>(wp + ND * K * H);  // [2][ND][RT][C]
-  float* hbuf = xbuf + 2 * ND * RT * C;                     // [2][ND][RT][H]
+  const int H4 = 4 * H, K = C + H;
+  float4* wp = smem4;                                      // [K*H]
+  float* xbuf = reinterpret_cast<float*>(wp + K * H);       // [2][RT][C]
+  float* hbuf = xbuf + 2 * RT * C;                          // [2][RT][H]
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int j = tid % H, grp = (tid / H) % G, d = tid / (G * H);
+  const int j = tid % H, grp = tid / H;
   const int r0 = blockIdx.x * RT;
 
-  // wp[dd][k*H + u] = (W[k][u], W[k][H+u], W[k][2H+u], W[k][3H+u]) with
-  // W = [w_ih; w_hh] of direction dd (w_hh: its diagonal block of the pack)
-  for (int i = tid; i < ND * K * H; i += nt) {
-    const int dd = i / (K * H), rem = i - dd * K * H;
-    const int k = rem / H, u = rem - k * H;
-    const WT* row = k < C ? (dd ? w_ih_b : w_ih_f) + (size_t)k * H4
-                          : w_hh + (size_t)(dd * H + k - C) * NH4 + dd * H4;
+  // wp[k*H + u] = (W[k][u], W[k][H+u], W[k][2H+u], W[k][3H+u]) with
+  // W = [w_ih; w_hh]
+  for (int i = tid; i < K * H; i += nt) {
+    const int k = i / H, u = i - k * H;
+    const WT* row = k < C ? w_ih + (size_t)k * H4 : w_hh + (size_t)(k - C) * H4;
     wp[i] = make_float4(ldf(row, u), ldf(row, H + u), ldf(row, 2 * H + u),
                         ldf(row, 3 * H + u));
   }
-  const WT* bd = b + d * H4;
-  const float4 bias = make_float4(ldf(bd, j), ldf(bd, H + j),
-                                  ldf(bd, 2 * H + j), ldf(bd, 3 * H + j));
+  const float4 bias = make_float4(ldf(b, j), ldf(b, H + j), ldf(b, 2 * H + j),
+                                  ldf(b, 3 * H + j));
   float c[RPT];
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {
     const int row = grp * RPT + q, r = r0 + row;
     // the mixed mode's recurrence product takes bf16(h)
-    const float h = ND == 1 && r < R ? h0[(size_t)r * H + j] : 0.f;
-    hbuf[d * RT * H + row * H + j] = M ? rb(h) : h;
-    c[q] = ND == 1 && r < R ? c0[(size_t)r * H + j] : 0.f;
+    const float h = r < R ? h0[(size_t)r * H + j] : 0.f;
+    hbuf[row * H + j] = M ? rb(h) : h;
+    c[q] = r < R ? c0[(size_t)r * H + j] : 0.f;
   }
-  // step 0's x tile: direction dd reads time dd ? T-1 : 0
-  for (int i = tid; i < ND * RT * C; i += nt) {
-    const int dd = i / (RT * C), rem = i - dd * RT * C;
-    const int row = rem / C, r = r0 + row, t = dd ? T - 1 : 0;
-    xbuf[i] = r < R ? ldf(x, ((size_t)t * R + r) * C + (rem - row * C)) : 0.f;
+  // step 0's x tile
+  for (int i = tid; i < RT * C; i += nt) {
+    const int row = i / C, r = r0 + row;
+    xbuf[i] = r < R ? ldf(x, (size_t)r * C + (i - row * C)) : 0.f;
   }
   __syncthreads();
 
-  const float4* wd = wp + d * K * H;
+  const float4* wd = wp;
   for (int n = 0; n < T; ++n) {
     const int cur = n & 1, nxt = cur ^ 1;
     // prefetch the next step's x tile into registers (stored after compute)
@@ -194,16 +198,14 @@ __global__ void __launch_bounds__(512) seq_fwd_kernel(
     for (int u = 0; u < PRE; ++u) {
       const int i = tid + u * nt;
       pre[u] = 0.f;
-      if (more && i < ND * RT * C) {
-        const int dd = i / (RT * C), rem = i - dd * RT * C;
-        const int row = rem / C, r = r0 + row;
-        const int t = dd ? T - 2 - n : n + 1;
+      if (more && i < RT * C) {
+        const int row = i / C, r = r0 + row;
         if (r < R)
-          pre[u] = ldf(x, ((size_t)t * R + r) * C + (rem - row * C));
+          pre[u] = ldf(x, ((size_t)(n + 1) * R + r) * C + (i - row * C));
       }
     }
-    const float* xr = xbuf + (cur * ND + d) * RT * C + grp * RPT * C;
-    const float* hr = hbuf + (cur * ND + d) * RT * H + grp * RPT * H;
+    const float* xr = xbuf + cur * RT * C + grp * RPT * C;
+    const float* hr = hbuf + cur * RT * H + grp * RPT * H;
     float4 acc[RPT];
 #pragma unroll
     for (int q = 0; q < RPT; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -233,16 +235,25 @@ __global__ void __launch_bounds__(512) seq_fwd_kernel(
         acc[q].z += bias.z; acc[q].w += bias.w;
       }
     }
+    // the gates: gx + h W_hh, the product summed on its own first, as the
+    // plain version adds them
+    float4 hw[RPT];
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) hw[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int m = 0; m < H; ++m) {
       const float4 w = wd[(C + m) * H + j];
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const float v = hr[q * H + m];
-        acc[q].x += v * w.x; acc[q].y += v * w.y;
-        acc[q].z += v * w.z; acc[q].w += v * w.w;
+        hw[q].x += v * w.x; hw[q].y += v * w.y;
+        hw[q].z += v * w.z; hw[q].w += v * w.w;
       }
     }
-    const int t_y = d ? T - 1 - n : n;   // original time of this output
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      acc[q].x += hw[q].x; acc[q].y += hw[q].y;
+      acc[q].z += hw[q].z; acc[q].w += hw[q].w;
+    }
 #pragma unroll
     for (int q = 0; q < RPT; ++q) {
       const int row = grp * RPT + q, r = r0 + row;
@@ -250,7 +261,8 @@ __global__ void __launch_bounds__(512) seq_fwd_kernel(
       if constexpr (M) {
         ig = sig<true>(rb(acc[q].x)); fg = sig<true>(rb(acc[q].y));
         gg = rb(tanhf(rb(acc[q].z))); og = sig<true>(rb(acc[q].w));
-        c[q] = fg * c[q] + rb(ig * gg);
+        // a multiply, then an add, as the plain version takes them
+        c[q] = __fadd_rn(__fmul_rn(fg, c[q]), rb(ig * gg));
         h = rb(og * rb(tanhf(rb(c[q]))));
       } else {
         ig = sig<false>(acc[q].x); fg = sig<false>(acc[q].y);
@@ -258,19 +270,19 @@ __global__ void __launch_bounds__(512) seq_fwd_kernel(
         c[q] = fg * c[q] + ig * gg;
         h = og * tanhf(c[q]);
       }
-      hbuf[(nxt * ND + d) * RT * H + row * H + j] = h;
+      hbuf[nxt * RT * H + row * H + j] = h;
       if (r < R) {
-        stf(y, ((size_t)t_y * R + r) * NH + d * H + j, h);
-        const size_t go = ((size_t)n * R + r) * NH4 + d * H + j;
-        stf(gates, go, ig); stf(gates, go + NH, fg);
-        stf(gates, go + 2 * NH, gg); stf(gates, go + 3 * NH, og);
-        cseq[((size_t)n * R + r) * NH + d * H + j] = c[q];
+        stf(y, ((size_t)n * R + r) * H + j, h);
+        const size_t go = ((size_t)n * R + r) * H4 + j;
+        stf(gates, go, ig); stf(gates, go + H, fg);
+        stf(gates, go + 2 * H, gg); stf(gates, go + 3 * H, og);
+        cseq[((size_t)n * R + r) * H + j] = c[q];
       }
     }
 #pragma unroll
     for (int u = 0; u < PRE; ++u) {
       const int i = tid + u * nt;
-      if (more && i < ND * RT * C) xbuf[nxt * ND * RT * C + i] = pre[u];
+      if (more && i < RT * C) xbuf[nxt * RT * C + i] = pre[u];
     }
     __syncthreads();
   }
@@ -380,25 +392,24 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t fwd_smem(int C, int H, int nd) {
-  return (size_t)nd * (C + H) * H * 16 + (size_t)2 * nd * RT * (C + H) * 4;
+size_t fwd_smem(int C, int H) {
+  return (size_t)(C + H) * H * 16 + (size_t)2 * RT * (C + H) * 4;
 }
 
 size_t bwd_smem(int H, int nd) {
   return (size_t)nd * 4 * H * H * 4 + (size_t)2 * nd * RT * 4 * H * 4;
 }
 
-template <int ND, typename XT, typename WT>
-int seq_fwd(const void* x, const void* w_ih_f, const void* w_ih_b,
-            const void* w_hh, const void* b, const float* h0,
-            const float* c0, void* y, void* gates, float* cseq, int T, int R,
-            int C, int H, cudaStream_t st) {
-  const size_t smem = fwd_smem(C, H, ND);
-  int err = set_smem((const void*)seq_fwd_kernel<ND, XT, WT>, smem);
+template <typename XT, typename WT>
+int seq_fwd(const void* x, const void* w_ih, const void* w_hh, const void* b,
+            const float* h0, const float* c0, void* y, void* gates,
+            float* cseq, int T, int R, int C, int H, cudaStream_t st) {
+  const size_t smem = fwd_smem(C, H);
+  int err = set_smem((const void*)seq_fwd_kernel<XT, WT>, smem);
   if (err) return err;
-  seq_fwd_kernel<ND, XT, WT><<<(R + RT - 1) / RT, ND * G * H, smem, st>>>(
-      (const XT*)x, (const WT*)w_ih_f, (const WT*)w_ih_b, (const WT*)w_hh,
-      (const WT*)b, h0, c0, (XT*)y, (GateT<XT, WT>*)gates, cseq, T, R, C, H);
+  seq_fwd_kernel<XT, WT><<<(R + RT - 1) / RT, G * H, smem, st>>>(
+      (const XT*)x, (const WT*)w_ih, (const WT*)w_hh, (const WT*)b, h0, c0,
+      (XT*)y, (GateT<XT, WT>*)gates, cseq, T, R, C, H);
   return (int)cudaGetLastError();
 }
 
@@ -470,6 +481,40 @@ int seq_bfwd32(const void* x, const void* w_ih_f, const void* w_ih_b,
                            (float*)gates, cseq, T, R, C, rows);
 }
 
+// ---- the mixed fused-direction forward (row 8b): the walk in its mixed
+// mode, bf16 x, y and gates, WT weights; the grid as row 8a's
+
+template <int H, typename WT>
+__global__ void __launch_bounds__(4 * H, 1) seq_bfwd_mixed_kernel(
+    const bf16* __restrict__ x, const WT* __restrict__ w_ih_f,
+    const WT* __restrict__ w_ih_b, const WT* __restrict__ w_hh,
+    const WT* __restrict__ b, bf16* __restrict__ y, bf16* __restrict__ gates,
+    float* __restrict__ cseq, int T, int R, int C, int rows) {
+  const int tiles = (R + rows - 1) / rows;
+  const int d = blockIdx.x >= tiles, tile = blockIdx.x - d * tiles;
+  sbt_fwd32::walk<H, sbt_fwd32::BSEQ, 0, bf16, WT, sbt_fwd32::RND_SEQ>(
+      x, d ? w_ih_b : w_ih_f, w_hh + d * (H * 8 * H + 4 * H), b + d * 4 * H,
+      nullptr, nullptr, {y + d * H, gates + d * H, cseq + d * H}, nullptr,
+      nullptr, nullptr, T, R, C, min(T, sbt_fwd32::KMAX / 2), d, rows, tile);
+}
+
+template <typename WT>
+int seq_bfwd_mixed(const void* x, const void* w_ih_f, const void* w_ih_b,
+                   const void* w_hh, const void* b, void* y, void* gates,
+                   float* cseq, int T, int R, int C, int H, int rows,
+                   cudaStream_t st) {
+  static void (*const ks[4])(const bf16*, const WT*, const WT*, const WT*,
+                             const WT*, bf16*, bf16*, float*, int, int, int,
+                             int) = {
+      seq_bfwd_mixed_kernel<8, WT>, seq_bfwd_mixed_kernel<16, WT>,
+      seq_bfwd_mixed_kernel<32, WT>, seq_bfwd_mixed_kernel<64, WT>};
+  constexpr bool tc = std::is_same<WT, bf16>::value;
+  return sbt_fwd32::launch_smem(
+      ks, sbt_fwd32::smem_mixed(C, H, rows, tc, true), H, T, R, rows, 2, st,
+      (const bf16*)x, (const WT*)w_ih_f, (const WT*)w_ih_b, (const WT*)w_hh,
+      (const WT*)b, (bf16*)y, (bf16*)gates, cseq, T, R, C, rows);
+}
+
 template <int ND, typename XT, typename WT>
 int seq_bwd(const void* gates, const float* cseq, const float* c0,
             const void* dy, const void* w_hh, const float* dhT,
@@ -499,11 +544,19 @@ int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
         return seq_bfwd32(x, w_ih_f, w_ih_b, w_hh, b, y, gates, cseq, T, R,
                           C, H, rows, st);
     case 1:
-      return seq_fwd<ND, bf16, bf16>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
-                                     gates, cseq, T, R, C, H, st);
+      if constexpr (ND == 1)
+        return seq_fwd<bf16, bf16>(x, w_ih_f, w_hh, b, h0, c0, y, gates,
+                                   cseq, T, R, C, H, st);
+      else
+        return seq_bfwd_mixed<bf16>(x, w_ih_f, w_ih_b, w_hh, b, y, gates,
+                                    cseq, T, R, C, H, rows, st);
     case 2:
-      return seq_fwd<ND, bf16, float>(x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
-                                      gates, cseq, T, R, C, H, st);
+      if constexpr (ND == 1)
+        return seq_fwd<bf16, float>(x, w_ih_f, w_hh, b, h0, c0, y, gates,
+                                    cseq, T, R, C, H, st);
+      else
+        return seq_bfwd_mixed<float>(x, w_ih_f, w_ih_b, w_hh, b, y, gates,
+                                     cseq, T, R, C, H, rows, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -536,11 +589,12 @@ int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
 // have the activations' type, the saved gates bf16 in the mixed mode. nd = 1:
 // w_ih_b is unused; nd = 2: h0, c0 (forward) and c0, dhT, dcT, dh0, dc0
 // (backward) are unused (zero states), and may be null. rows: rows a block
-// of the fp32 forwards (dtypes = 0; their shared memory is
-// sbt_lstm_fwd32_smem's; nd = 2 launches a grid of 2 x ceil(R / rows)
-// blocks), unused by the others.
-extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H, int nd) {
-  return fwd_smem(C, H, nd);
+// of the walk's forwards (dtypes = 0, and nd = 2 mixed; their shared memory
+// is sbt_lstm_fwd32_smem's / sbt_lstm_fwd_mixed_smem's; nd = 2 launches a
+// grid of 2 x ceil(R / rows) blocks), unused by row 6b's first design.
+// row 6b's (the first design's) shared memory
+extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H) {
+  return fwd_smem(C, H);
 }
 
 extern "C" size_t sbt_lstm_seq_bwd_smem(int H, int nd) {

@@ -29,11 +29,13 @@
 // dh chain, dx, dW), 0.40 ms, against ~145 MB, 0.043 ms: operations again.
 // In practice the recurrence bounds both: T dependent steps per row tile.
 //
-// Forward design, fp32 (`slab_fwd32_kernel`, row 10a): the walk of
-// csrc/lstm_fwd32.cuh, which this file shares with the seq route's fp32
-// forward. A `clock64()` split of the first design (below) found its frames
-// latency-bound, two thirds of each in a 96-long dot whose steps wait on
-// their shared loads. So: rows a block for one wave (`fwd_row_tiles`); per
+// Forward design (`slab_fwd32_kernel`, row 10a; `slab_fwd_mixed_kernel`,
+// row 10b): the walk of csrc/lstm_fwd32.cuh, which this file shares with
+// the seq route's forwards; the mixed one is its mixed mode (RND_SLAB). A
+// `clock64()` split of the first design (8-row blocks, each thread one
+// unit's 96-long dot over [x | h] for two rows, [W_ih; W_hh] re-read from
+// shared memory every frame) found its frames latency-bound, two thirds of
+// each in that dot, whose steps wait on their shared loads. So: rows a block for one wave (`fwd_row_tiles`); per
 // K-frame slab, gx = x W_ih + b for all the slab's frames x rows as one
 // register-tiled product into shared memory, the next slab's x tile copied
 // in by cp.async meanwhile; the chain keeps W_hh in registers (a lane holds
@@ -41,17 +43,6 @@
 // shuffles), four rows at a time as 16 independent accumulators a lane;
 // each lane then applies one (row, unit) cell. See the header for the
 // layout and why it, and not row 5's, was chosen.
-//
-// Forward design, mixed (`slab_fwd_kernel`, row 10b, the first design): one
-// thread block owns a row tile of RT = 8 rows and loops over all T frames
-// itself; rows of the last tile at or past R are computed on zeros and
-// never written. The weights are read once per block into shared memory,
-// gate-interleaved as float4 (w_i, w_f, w_g, w_o) per (input row k, hidden
-// unit j): 96 KB for C + H = 96, H = 64. Thread (j, grp) computes the four
-// gates of unit j for RPT = 2 rows over [x | h], so the cell state of those
-// cells never leaves its registers; the h that the next frame needs is
-// double-buffered in shared memory, one __syncthreads per frame. It beats
-// cuDNN's bf16 forward; moving it onto the fp32 design is later work.
 //
 // Backward design (from a torch.profiler split of the four-kernel version it
 // replaces: its walk took 73-75 % of a call in fp32, dx and the weight
@@ -105,11 +96,12 @@
 // expf / tanhf.
 //
 // The mixed mode (`_fwd_kernel` / `_bwd_kernel` with mixed=True, the
-// instantiation the JAX package's bf16 trunk launches) is the first forward
-// design's and the backward's code, templated on the activation type XT (x,
-// ys, dy, dx) and the weight type WT (w_ih, w_hh, b, hp): bf16 operands are widened to fp32 on load (products
-// of bf16 values are exact in fp32) and accumulated in fp32, and values are
-// rounded to bf16 exactly where the Pallas kernel rounds: the gates
+// instantiation the JAX package's bf16 trunk launches) is the walk's mixed
+// mode (the forward) and the backward's code, templated on the activation
+// type XT (x, ys, dy, dx) and the weight type WT (w_ih, w_hh, b, hp): bf16
+// operands are widened to fp32 on load (products of bf16 values are exact
+// in fp32) and accumulated in fp32, and values are rounded to bf16 exactly
+// where the Pallas kernel rounds: the gates
 // (gx + bf16(h) W_hh, with gx = x W_ih + b unrounded), each sigmoid / tanh
 // output, i*g, tanh's input c_t and the output h_t; the carried c stays
 // fp32. The backward keeps the fp32 gate gradients for db (summed per
@@ -119,9 +111,10 @@
 // none of them. The bound of a mixed scan counts 2 bytes for each bf16
 // tensor and its matrix products at the bf16 tensor-core rate (989 TFLOP/s
 // dense), the rate the work could reach; of them only the backward's gate
-// recompute with bf16 weights runs on the tensor cores, the rest is fp32 FMA
-// on the CUDA cores like the fp32 instantiation (dW, dx and the chain on
-// mma / wgmma tiles, and the forward, are later work).
+// recompute and the forward's slab projection with bf16 weights run on the
+// tensor cores, the rest is fp32 FMA on the CUDA cores like the fp32
+// instantiation (dW, dx and the chains on mma / wgmma tiles are later
+// work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -151,54 +144,9 @@ constexpr bool kMixed =
     std::is_same<XT, bf16>::value || std::is_same<WT, bf16>::value;
 
 constexpr int KMAX = 8;   // frames per slab (the TPU kernel's K)
-constexpr int G = 4;      // row groups per block
-constexpr int RPT = 2;    // rows per thread
-constexpr int RT = G * RPT;
 
 __device__ __forceinline__ float sigm(float v) {
   return 1.0f / (1.0f + expf(-v));
-}
-
-// acc[q][0..3] = b + xr[q] . w_ih[:, gate*H + j] + hr[q] . w_hh[:, gate*H + j]
-// xr / hr: shared rows (stride C / H) of the thread's RPT rows.
-__device__ __forceinline__ void gates4(const float4* __restrict__ wp,
-                                       const float* xr, const float* hr,
-                                       int C, int H, int j, float4 bias,
-                                       float4 (&acc)[RPT]) {
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) acc[q] = bias;
-  for (int k = 0; k < C; ++k) {
-    const float4 w = wp[k * H + j];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const float v = xr[q * C + k];
-      acc[q].x += v * w.x; acc[q].y += v * w.y;
-      acc[q].z += v * w.z; acc[q].w += v * w.w;
-    }
-  }
-  for (int m = 0; m < H; ++m) {
-    const float4 w = wp[(C + m) * H + j];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const float v = hr[q * H + m];
-      acc[q].x += v * w.x; acc[q].y += v * w.y;
-      acc[q].z += v * w.z; acc[q].w += v * w.w;
-    }
-  }
-}
-
-// wp[k*H + j] = (W[k][j], W[k][H+j], W[k][2H+j], W[k][3H+j]), W = [w_ih; w_hh]
-template <typename WT>
-__device__ void load_interleaved(float4* wp, const WT* __restrict__ w_ih,
-                                 const WT* __restrict__ w_hh, int C,
-                                 int H) {
-  const int H4 = 4 * H;
-  for (int i = threadIdx.x; i < (C + H) * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
-    const WT* row = k < C ? w_ih + (size_t)k * H4 : w_hh + (size_t)(k - C) * H4;
-    wp[i] = make_float4(ldf(row, j), ldf(row, H + j), ldf(row, 2 * H + j),
-                        ldf(row, 3 * H + j));
-  }
 }
 
 template <typename WT>
@@ -206,108 +154,6 @@ __device__ __forceinline__ float4 load_bias(const WT* __restrict__ b, int H,
                                             int j) {
   return make_float4(ldf(b, j), ldf(b, H + j), ldf(b, 2 * H + j),
                      ldf(b, 3 * H + j));
-}
-
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(1024) slab_fwd_kernel(
-    const XT* __restrict__ x, const WT* __restrict__ w_ih,
-    const WT* __restrict__ w_hh, const WT* __restrict__ b,
-    const float* __restrict__ h0, const float* __restrict__ c0,
-    XT* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
-    float* __restrict__ c_ckpt, int T, int R, int C, int H, int kf,
-    int reverse) {
-  constexpr bool M = kMixed<XT, WT>;
-  extern __shared__ float4 smem4[];
-  float4* wp = smem4;                                  // [(C+H)*H]
-  float* xbuf = reinterpret_cast<float*>(wp + (C + H) * H);  // [2][RT][C]
-  float* hbuf = xbuf + 2 * RT * C;                     // [2][RT][H]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int j = tid % H, grp = tid / H;
-  const int r0 = blockIdx.x * RT;
-
-  load_interleaved(wp, w_ih, w_hh, C, H);
-  const float4 bias = load_bias(b, H, j);
-  float c[RPT];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int row = grp * RPT + q, r = r0 + row;
-    // the mixed mode's recurrence matmul takes bf16(h)
-    const float h = r < R ? h0[(size_t)r * H + j] : 0.f;
-    hbuf[row * H + j] = M ? rb(h) : h;
-    c[q] = r < R ? c0[(size_t)r * H + j] : 0.f;
-  }
-  const int t_first = reverse ? T - 1 : 0;
-  for (int i = tid; i < RT * C; i += nt) {
-    const int row = i / C, r = r0 + row;
-    xbuf[i] = r < R ? ldf(x, ((size_t)t_first * R + r) * C + (i - row * C))
-                    : 0.f;
-  }
-  __syncthreads();
-
-  for (int n = 0; n < T; ++n) {
-    const int t = reverse ? T - 1 - n : n;
-    const int cur = n & 1, nxt = cur ^ 1;
-    const bool first = reverse ? (t == T - 1 || (t + 1) % kf == 0)
-                               : (t % kf == 0);
-    if (first) {
-      const int blk = t / kf;
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        const int r = r0 + grp * RPT + q;
-        if (r < R) c_ckpt[((size_t)blk * R + r) * H + j] = c[q];
-      }
-    }
-    // prefetch the next frame's x tile into registers (stored after compute)
-    float pre[4];
-    const bool more = n + 1 < T;
-    const int t_next = reverse ? t - 1 : t + 1;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = tid + u * nt;
-      pre[u] = 0.f;
-      if (more && i < RT * C) {
-        const int row = i / C, r = r0 + row;
-        if (r < R)
-          pre[u] = ldf(x, ((size_t)t_next * R + r) * C + (i - row * C));
-      }
-    }
-    float4 acc[RPT];
-    gates4(wp, xbuf + cur * RT * C + grp * RPT * C,
-           hbuf + cur * RT * H + grp * RPT * H, C, H, j, bias, acc);
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const int row = grp * RPT + q, r = r0 + row;
-      float h;
-      if constexpr (M) {
-        const float ig = rb(sigm(rb(acc[q].x))), fg = rb(sigm(rb(acc[q].y)));
-        const float gg = rb(tanhf(rb(acc[q].z))), og = rb(sigm(rb(acc[q].w)));
-        c[q] = fg * c[q] + rb(ig * gg);
-        h = rb(og * rb(tanhf(rb(c[q]))));
-      } else {
-        const float ig = sigm(acc[q].x), fg = sigm(acc[q].y);
-        const float gg = tanhf(acc[q].z), og = sigm(acc[q].w);
-        c[q] = fg * c[q] + ig * gg;
-        h = og * tanhf(c[q]);
-      }
-      hbuf[nxt * RT * H + row * H + j] = h;
-      if (r < R) stf(ys, ((size_t)t * R + r) * H + j, h);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = tid + u * nt;
-      if (more && i < RT * C) xbuf[nxt * RT * C + i] = pre[u];
-    }
-    __syncthreads();
-  }
-  const int last = T & 1;
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int row = grp * RPT + q, r = r0 + row;
-    if (r < R) {
-      hT[(size_t)r * H + j] = hbuf[last * RT * H + row * H + j];
-      cT[(size_t)r * H + j] = c[q];
-    }
-  }
 }
 
 // ---- the backward (row 11) ----------------------------------------------
@@ -911,26 +757,6 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t fwd_smem(int C, int H) {
-  return (size_t)(C + H) * H * 16 + (size_t)2 * RT * (C + H) * 4;
-}
-
-template <typename XT, typename WT>
-int slab_fwd(const void* x, const void* w_ih, const void* w_hh,
-             const void* b, const float* h0, const float* c0, void* ys,
-             float* hT, float* cT, float* c_ckpt, int T, int R, int C, int H,
-             int kf, int reverse, cudaStream_t st) {
-  const size_t smem = fwd_smem(C, H);
-  int err = set_smem((const void*)slab_fwd_kernel<XT, WT>, smem);
-  if (err) return err;
-  const int blocks = (R + RT - 1) / RT;
-  slab_fwd_kernel<XT, WT><<<blocks, G * H, smem, st>>>(
-      (const XT*)x, (const WT*)w_ih, (const WT*)w_hh, (const WT*)b, h0, c0,
-      (XT*)ys, hT, cT, c_ckpt, T, R, C, H, kf, reverse);
-  return (int)cudaGetLastError();
-}
-
-
 // ---- the fp32 forward (row 10a): csrc/lstm_fwd32.cuh's walk ------------
 
 template <int H>
@@ -944,6 +770,40 @@ __global__ void __launch_bounds__(4 * H, 1) slab_fwd32_kernel(
   sbt_fwd32::walk<H, sbt_fwd32::SLAB>(x, w_ih, w_hh, b, h0, c0,
                                       {ys, nullptr, nullptr}, hT, cT, c_ckpt,
                                       T, R, C, kf, reverse, rows, blockIdx.x);
+}
+
+// ---- the mixed forward (row 10b): the same walk in its mixed mode, bf16 x
+// and ys, WT weights
+
+template <int H, typename WT>
+__global__ void __launch_bounds__(4 * H, 1) slab_fwd_mixed_kernel(
+    const bf16* __restrict__ x, const WT* __restrict__ w_ih,
+    const WT* __restrict__ w_hh, const WT* __restrict__ b,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    bf16* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
+    float* __restrict__ c_ckpt, int T, int R, int C, int kf, int reverse,
+    int rows) {
+  sbt_fwd32::walk<H, sbt_fwd32::SLAB, 0, bf16, WT, sbt_fwd32::RND_SLAB>(
+      x, w_ih, w_hh, b, h0, c0, {ys, nullptr, nullptr}, hT, cT, c_ckpt, T, R,
+      C, kf, reverse, rows, blockIdx.x);
+}
+
+template <typename WT>
+int slab_fwd_mixed(const void* x, const void* w_ih, const void* w_hh,
+                   const void* b, const float* h0, const float* c0, void* ys,
+                   float* hT, float* cT, float* c_ckpt, int T, int R, int C,
+                   int H, int kf, int reverse, int rows, cudaStream_t st) {
+  static void (*const ks[4])(const bf16*, const WT*, const WT*, const WT*,
+                             const float*, const float*, bf16*, float*,
+                             float*, float*, int, int, int, int, int, int) = {
+      slab_fwd_mixed_kernel<8, WT>, slab_fwd_mixed_kernel<16, WT>,
+      slab_fwd_mixed_kernel<32, WT>, slab_fwd_mixed_kernel<64, WT>};
+  constexpr bool tc = std::is_same<WT, bf16>::value;
+  if (kf < 1 || kf > sbt_fwd32::KMAX) return (int)cudaErrorInvalidValue;
+  return sbt_fwd32::launch_smem(
+      ks, sbt_fwd32::smem_mixed(C, H, rows, tc, false), H, T, R, rows, 1, st,
+      (const bf16*)x, (const WT*)w_ih, (const WT*)w_hh, (const WT*)b, h0, c0,
+      (bf16*)ys, hT, cT, c_ckpt, T, R, C, kf, reverse, rows);
 }
 
 int slab_fwd32(const void* x, const void* w_ih, const void* w_hh,
@@ -1004,17 +864,22 @@ int slab_bwd(const void* x, const void* hp, const float* c_ckpt,
 // dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
 // 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); hp has the
 // weights' type, dy and dx the activations'.
-extern "C" size_t sbt_lstm_slab_fwd_smem(int C, int H) {
-  return fwd_smem(C, H);
-}
 
-// The fp32 forwards' (rows 6a and 10a) shared memory at `rows` rows a
-// block, 0 for a shape they do not take.
+// The fp32 forwards' (rows 5, 6a, 8a and 10a) shared memory at `rows` rows
+// a block, 0 for a shape they do not take.
 extern "C" size_t sbt_lstm_fwd32_smem(int C, int H, int rows) {
   return sbt_fwd32::smem_bytes(C, H, rows);
 }
 
-// rows: rows a block of the fp32 kernel (unused by the mixed ones).
+// The mixed forwards' (rows 10b and, bseq, 8b) shared memory at `rows` rows
+// a block for the pair dtypes (1 or 2), 0 for a shape they do not take.
+extern "C" size_t sbt_lstm_fwd_mixed_smem(int C, int H, int rows,
+                                          int dtypes, int bseq) {
+  if (dtypes != 1 && dtypes != 2) return 0;
+  return sbt_fwd32::smem_mixed(C, H, rows, dtypes == 1, bseq != 0);
+}
+
+// rows: rows a block of the walk (ops/kernels/lstm_slab.py:fwd_row_tiles).
 extern "C" int sbt_lstm_slab_fwd(const void* x, const void* w_ih,
                                  const void* w_hh, const void* b,
                                  const float* h0, const float* c0, void* ys,
@@ -1028,11 +893,11 @@ extern "C" int sbt_lstm_slab_fwd(const void* x, const void* w_ih,
       return slab_fwd32(x, w_ih, w_hh, b, h0, c0, ys, hT, cT, c_ckpt, T, R,
                         C, H, kf, reverse, rows, st);
     case 1:
-      return slab_fwd<bf16, bf16>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
-                                  c_ckpt, T, R, C, H, kf, reverse, st);
+      return slab_fwd_mixed<bf16>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                  c_ckpt, T, R, C, H, kf, reverse, rows, st);
     case 2:
-      return slab_fwd<bf16, float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
-                                   c_ckpt, T, R, C, H, kf, reverse, st);
+      return slab_fwd_mixed<float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                   c_ckpt, T, R, C, H, kf, reverse, rows, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

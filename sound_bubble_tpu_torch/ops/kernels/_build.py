@@ -125,12 +125,13 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_lstm_slab_bwd.restype = i32
             lib.sbt_lstm_slab_bwd_smem.argtypes = [i32] * 4
             lib.sbt_lstm_slab_bwd_smem.restype = ctypes.c_size_t
-            for fn in (lib.sbt_lstm_slab_fwd_smem, lib.sbt_lstm_seq_bwd_smem):
+            for fn in (lib.sbt_lstm_seq_bwd_smem, lib.sbt_lstm_seq_fwd_smem):
                 fn.argtypes = [i32, i32]
                 fn.restype = ctypes.c_size_t
-            for fn in (lib.sbt_lstm_seq_fwd_smem, lib.sbt_lstm_fwd32_smem):
-                fn.argtypes = [i32] * 3
-                fn.restype = ctypes.c_size_t
+            lib.sbt_lstm_fwd_mixed_smem.argtypes = [i32] * 5
+            lib.sbt_lstm_fwd_mixed_smem.restype = ctypes.c_size_t
+            lib.sbt_lstm_fwd32_smem.argtypes = [i32] * 3
+            lib.sbt_lstm_fwd32_smem.restype = ctypes.c_size_t
             lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_seq_fwd.restype = i32
             lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]

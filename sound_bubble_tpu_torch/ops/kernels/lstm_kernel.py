@@ -44,7 +44,7 @@ import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
-    BF16, F32, N_SM, _check, _check_fwd32_dims, _dispatch, _n_sm, _stream,
+    BF16, F32, N_SM, _check, _check_fwd_dims, _dispatch, _n_sm, _stream,
     fwd_row_tiles)
 
 HIDDEN = 64              # the hidden width the kernel is built for
@@ -141,7 +141,7 @@ def _launch(params, x):
         for k, shape in shapes.items():
             _check(f"{d}.{k}", params[d][k], shape, dev, F32)
             weights.append(params[d][k])
-    _check_fwd32_dims(x.transpose(0, 1), hidden)   # it reads [T, R, C]
+    _check_fwd_dims(x.transpose(0, 1), hidden)   # it reads [T, R, C]
     lib = _build.load_library()
     rows = row_tile(r, c_in, _n_sm(dev))[0]
     y = torch.empty((r, t_len, 2 * hidden), dtype=F32, device=dev)

@@ -10,15 +10,14 @@ same slab algorithm), for tensors on the CPU. A CUDA tensor goes to the kernel
 or the call raises. `lstm_slab` is the `torch.autograd.Function` over the
 two; `ops/rnn.py` routes every LSTM scan with T >= 2 through it.
 
-The float32 forward is the walk of `csrc/lstm_fwd32.cuh`, which the seq
-route's float32 forward shares: one block of 4H threads a tile of
-`fwd_row_tiles` rows (the fewest that keep the grid within one wave of the
-card's SMs), each K-frame slab's input projection as one product into
-shared memory before its walk, W_hh in registers, four rows at a time on
-the serial chain. It takes H in 8, 16, 32, 64 and C a multiple of 4
-(`_check_fwd32_dims`). The mixed forwards keep the first design (8-row
-tiles, [W_ih; W_hh] re-read from shared memory every frame), with its limits
-(4H <= 256, C <= 2H).
+The forward is the walk of `csrc/lstm_fwd32.cuh`, which the seq route's
+forwards share: one block of 4H threads a tile of `fwd_row_tiles` rows (the
+fewest that keep the grid within one wave of the card's SMs), each K-frame
+slab's input projection as one product into shared memory before its walk,
+W_hh in registers, four rows at a time on the serial chain. It takes H in
+8, 16, 32, 64 and C a multiple of 4; the mixed mode (bf16 x, its own
+roundings) C a multiple of 8, and with bf16 weights, whose slab projection
+runs on the tensor cores, C <= 64 (`_check_fwd_dims`).
 
 Layouts (JAX package): x [T, R, C] scan-major, w_ih [C, 4H], w_hh [H, 4H],
 one folded bias b [4H], gate order [i, f, g, o]; h0/c0 [R, H]. The forward
@@ -52,6 +51,8 @@ BWD_ROWS_MAX = 24            # rows of a backward block (csrc: BWD_ROWS_MAX)
 BWD_THREADS = 512            # threads of a backward block (csrc: BT)
 BWD_MA = 12                  # dW inputs of a backward thread (csrc: MA)
 FWD_ROWS_MAX = 24            # rows of an fp32 forward block (csrc: ROWS_MAX)
+FWD_ROWS_MAX_MIXED = 48      # rows of a mixed one (csrc: ROWS_MAX_MIXED)
+MIXED_TC_C_MAX = 64          # C of the tensor cores' projection (16 KS_MAX)
 FWD32_HIDDEN = (8, 16, 32, 64)   # H the fp32 forwards take
 F32, BF16 = torch.float32, torch.bfloat16
 # (x dtype, weight dtype) pairs the kernels take; the code the C entry points
@@ -196,68 +197,74 @@ def _dtype_code(x, w_hh) -> int:
     return DTYPES.index(pair)
 
 
-def _check_dims(x, w_hh, smem_fn):
-    """What the mixed forward kernel takes: 4H <= 256, C <= 2H, its shared
-    memory within a block's limit."""
-    t_len, r, c_in = x.shape
-    hidden = w_hh.shape[0]
-    if 4 * hidden > 256:
-        raise ValueError(f"H={hidden}: the kernels run 4H threads a block, "
-                         "at most 256")
-    if c_in > 2 * hidden:
-        raise ValueError(f"C={c_in} > 2H={2 * hidden}: the mixed forward "
-                         "kernel's x prefetch needs C <= 2H")
-    smem = smem_fn(c_in, hidden)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"C={c_in}, H={hidden}: needs {smem} B of shared "
-                         f"memory, more than {SMEM_LIMIT_BYTES}")
-    if t_len < 1 or r < 1:
-        raise ValueError(f"empty scan: x {tuple(x.shape)}")
-    return t_len, r, c_in, hidden
-
-
-def fwd_smem(c_in: int, hidden: int, rows: int) -> int:
-    """Shared memory of one fp32 forward block of `rows` rows (bytes), as
-    csrc/lstm_fwd32.cuh's `smem_bytes` lays it out: W_ih gate-interleaved,
-    the slab's gx (K frames x rows, each row H + 2 4-vectors), its x tile,
-    and h (double-buffered) and c at rows rounded up to 4, each row H + 8
+def fwd_smem(c_in: int, hidden: int, rows: int, code: int = 0,
+             bseq: bool = False) -> int:
+    """Shared memory of one forward block of `rows` rows (bytes), as
+    csrc/lstm_fwd32.cuh's `smem_bytes` (fp32, code 0) and `mixed_layout`
+    (the mixed pairs of DTYPES; bseq: row 8b's layout) lay it out: W_ih (fp32
+    gate-interleaved; for bf16 weights (code 1) bf16, transposed, each of
+    its 4H rows C rounded up to 16, plus 8), the slab's gx (K frames x rows,
+    each row H + 2 float 4-vectors; bseq: K / 2 frames, H + 8 bf16
+    4-vectors), its x tile (fp32, or bf16 at W_ih's row stride), and h
+    (double-buffered) and c at rows rounded up to 4, each row H + 8
     floats."""
     r4 = -(-rows // 4) * 4
-    return (16 * c_in * hidden + 16 * K * rows * (hidden + 2)
-            + 4 * K * rows * c_in + 12 * r4 * (hidden + 8))
+    hc = 12 * r4 * (hidden + 8)
+    if code == 0:
+        return (16 * c_in * hidden + 16 * K * rows * (hidden + 2)
+                + 4 * K * rows * c_in + hc)
+    xs = -(-c_in // 16) * 16 + 8 if code == 1 else c_in
+    n = (K // 2 if bseq else K) * rows
+    w = 8 * hidden * xs if code == 1 else 16 * c_in * hidden
+    gx = 8 * n * (hidden + 8) if bseq else 16 * n * (hidden + 2)
+    return w + gx + 2 * n * xs + hc
 
 
 def fwd_row_tiles(r: int, c_in: int, hidden: int, n_sm: int = N_SM,
-                  nd: int = 1) -> tuple[int, int]:
-    """(rows a block, blocks) of the fp32 forward walk for R = r rows and nd
-    directions (rows 6a, 10a: one; rows 5, 8a: two, each direction a grid
-    of its own ceil(r / rows) row tiles): the fewest rows that keep the grid
-    within one wave of n_sm blocks (one block an SM), fewer where the
-    block's shared memory would not fit (then the grid takes more waves). A
-    block walks its rows' T frames in series, so its rows set the kernel's
+                  nd: int = 1, code: int = 0,
+                  bseq: bool = False) -> tuple[int, int]:
+    """(rows a block, blocks) of the forward walk for R = r rows and nd
+    directions (rows 6a, 10: one; rows 5, 8: two, each direction a grid of
+    its own ceil(r / rows) row tiles), code the (x, weights) pair of DTYPES
+    and bseq row 8b's mixed layout (`fwd_smem`): the fewest rows that keep
+    the grid within one wave of n_sm blocks (one block an SM), up to
+    FWD_ROWS_MAX (fp32) or FWD_ROWS_MAX_MIXED, fewer where the block's
+    shared memory would not fit (then the grid takes more waves). A block
+    walks its rows' T frames in series, so its rows set the kernel's
     time."""
-    rows = min(FWD_ROWS_MAX, -(-nd * r // n_sm))
-    while rows < FWD_ROWS_MAX and nd * -(-r // rows) > n_sm:
+    cap = FWD_ROWS_MAX_MIXED if code else FWD_ROWS_MAX
+    rows = min(cap, -(-nd * r // n_sm))
+    while rows < cap and nd * -(-r // rows) > n_sm:
         rows += 1
-    while rows > 1 and fwd_smem(c_in, hidden, rows) > SMEM_LIMIT_BYTES:
+    while rows > 1 and fwd_smem(c_in, hidden, rows, code,
+                                bseq) > SMEM_LIMIT_BYTES:
         rows -= 1
     return rows, nd * -(-r // rows)
 
 
-def _check_fwd32_dims(x, hidden):
-    """What the fp32 forwards take: H in FWD32_HIDDEN, C a multiple of 4,
-    one row's shared memory within a block's limit; x 16-byte aligned (its
-    slab tiles are copied in 16-byte pieces)."""
+def _check_fwd_dims(x, hidden, code=0, bseq=False):
+    """What the forward walk takes for the (x, weights) pair `code` of
+    DTYPES (bseq: row 8b's mixed layout): H in FWD32_HIDDEN; C a multiple of
+    4, or of 8 in the mixed mode (its bf16 x tile is copied in 16-byte
+    pieces too), and with bf16 weights (code 1, the tensor cores'
+    projection) C <= MIXED_TC_C_MAX; one row's shared memory within a
+    block's limit; x 16-byte aligned."""
     t_len, r, c_in = x.shape
+    kind = "mixed" if code else "fp32"
     if hidden not in FWD32_HIDDEN:
-        raise ValueError(f"H={hidden}: the fp32 forward kernels take H in "
+        raise ValueError(f"H={hidden}: the {kind} forward kernels take H in "
                          f"{', '.join(map(str, FWD32_HIDDEN))}")
-    if c_in < 4 or c_in % 4:
-        raise ValueError(f"C={c_in}: the fp32 forward kernels take C a "
-                         "multiple of 4")
-    smem = fwd_smem(c_in, hidden, 1)
+    step = 8 if code else 4
+    if c_in < step or c_in % step:
+        raise ValueError(f"C={c_in}: the {kind} forward kernels take C a "
+                         f"multiple of {step}")
+    if code == 1 and c_in > MIXED_TC_C_MAX:
+        raise ValueError(f"C={c_in}: the mixed forward with bf16 weights "
+                         f"takes C <= {MIXED_TC_C_MAX} (its tensor-core "
+                         "projection)")
+    smem = fwd_smem(c_in, hidden, 1, code, bseq)
     if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"C={c_in}, H={hidden}: the fp32 forward needs "
+        raise ValueError(f"C={c_in}, H={hidden}: the {kind} forward needs "
                          f"{smem} B of shared memory, more than "
                          f"{SMEM_LIMIT_BYTES}")
     if x.data_ptr() % 16:
@@ -334,13 +341,8 @@ def _launch_fwd(w_ih, w_hh, b, x, h0, c0, reverse):
     code = _dtype_code(x, w_hh)
     wdt = w_hh.dtype
     lib = _build.load_library()
-    if code:
-        t_len, r, c_in, hidden = _check_dims(x, w_hh,
-                                             lib.sbt_lstm_slab_fwd_smem)
-        rows = 0
-    else:
-        t_len, r, c_in, hidden = _check_fwd32_dims(x, w_hh.shape[0])
-        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev))[0]
+    t_len, r, c_in, hidden = _check_fwd_dims(x, w_hh.shape[0], code)
+    rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), code=code)[0]
     for name, t, shape, dt in (("w_ih", w_ih, (c_in, 4 * hidden), wdt),
                                ("w_hh", w_hh, (hidden, 4 * hidden), wdt),
                                ("b", b, (4 * hidden,), wdt),

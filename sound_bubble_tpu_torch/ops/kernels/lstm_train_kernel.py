@@ -27,15 +27,17 @@ the kernel or the call raises.
   direction-major ([di_f, df_f, dg_f, do_f | di_b, ...]) at the walk's step;
   dy_b is read at the mirrored time.
 
-`lstm_seq_fwd` and `blstm_seq_fwd` in float32 launch the walk of
-`csrc/lstm_fwd32.cuh`, which they share with the slab scan's float32
-forward: rows a block from `lstm_slab.fwd_row_tiles` (one wave of the
-card's SMs; `blstm_seq_fwd` walks each direction in a grid half of its
-own), each 8-frame slab's input projection as one product into shared
-memory before its walk, W_hh in registers, four rows at a time on the
-serial chain; they take H in 8, 16, 32, 64 and C a multiple of 4. The
-backward walks and the mixed forwards run the first design (8-row tiles,
-4H <= 256, forward C <= 2H).
+`lstm_seq_fwd` in float32 and `blstm_seq_fwd` launch the walk of
+`csrc/lstm_fwd32.cuh`, which they share with the slab scan's forward: rows
+a block from `lstm_slab.fwd_row_tiles` (one wave of the card's SMs;
+`blstm_seq_fwd` walks each direction in a grid half of its own), each
+slab's input projection as one product into shared memory before its walk,
+W_hh in registers, four rows at a time on the serial chain; they take H in
+8, 16, 32, 64 and C a multiple of 4 (mixed: of 8, and C <= 64 with bf16
+weights). `blstm_seq_fwd`'s mixed mode keeps gx in bf16 at 4 frames a slab,
+so that 38 rows a block fit one wave at R = 2504. The backward walks and
+the mixed `lstm_seq_fwd` run the first design (8-row tiles, 4H <= 256,
+forward C <= 2H).
 
 `lstm_seq` and `blstm_seq` are the `torch.autograd.Function`s, the
 counterparts of `lstm_pallas_train` and `blstm_pallas_train`: their
@@ -61,8 +63,8 @@ import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
-    BF16, DTYPES, F32, SMEM_LIMIT_BYTES, _check, _check_fwd32_dims,
-    _dispatch, _mm, _n_sm, _stream, fwd_row_tiles, is_mixed, tanh_q)
+    BF16, DTYPES, F32, SMEM_LIMIT_BYTES, _check, _check_fwd_dims, _dispatch,
+    _mm, _n_sm, _stream, fwd_row_tiles, is_mixed, tanh_q)
 
 
 def sigmoid_x(v):
@@ -241,9 +243,10 @@ def _dtype_code(xdt, w_hh) -> int:
 
 
 def _check_dims(nd, hidden, smem, c_in=None):
-    """What the first-design kernels (every one but the fp32 forwards, which
-    `lstm_slab._check_fwd32_dims` checks) take: 4H <= 256, C <= 2H
-    (forward), shared memory within a block's limit."""
+    """What the first-design kernels (the backward walks and the mixed
+    `lstm_seq_fwd`; the walk's forwards are `lstm_slab._check_fwd_dims`')
+    take: 4H <= 256, C <= 2H (forward), shared memory within a block's
+    limit."""
     if 4 * hidden > 256:
         raise ValueError(f"H={hidden}: the kernels run 4H threads a "
                          "direction and row group, at most 256")
@@ -277,11 +280,14 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
     lib = _build.load_library()
     rows = 0
     if not code:
-        _check_fwd32_dims(x, hidden)
+        _check_fwd_dims(x, hidden)
         rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd)[0]
+    elif nd == 2:
+        _check_fwd_dims(x, hidden, code, bseq=True)
+        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd, code,
+                             bseq=True)[0]
     else:
-        _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden, nd),
-                    c_in)
+        _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden), c_in)
     operands = [(f"w_ih[{k}]", w, (c_in, 4 * hidden), wdt)
                 for k, w in enumerate(w_ihs)]
     operands += [("w_hh", w_hh, (nd * hidden, nd * 4 * hidden), wdt),

@@ -580,12 +580,24 @@ def test_slab_kernels_match_plain(shape, reverse):
     assert ls.lstm_slab_bwd.launches == b0 + 1
 
 
+# the mixed forward (row 10b, the walk's mixed mode) also at 19 rows a block
+# (the bf16 recipe's intra R = 2504 in one wave of 132 SMs), the edge
+# widths C = 24, 16 and C = H = 8
+MIXED_SLAB_SHAPES = {**{k: SLAB_SHAPES[k] for k in ("ragged", "short",
+                                                    "even", "narrow")},
+                     "rows19": (9, 2504, 32, 64), "c24": (11, 37, 24, 64),
+                     "c16": (11, 37, 16, 64)}
+
+
 @pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", ["ragged", "short", "even"])
+@pytest.mark.parametrize("shape", list(MIXED_SLAB_SHAPES))
 def test_mixed_slab_kernels_match_plain(shape, reverse, wdt):
     dev = _card()
-    a = _slab_case(SLAB_SHAPES[shape], dev)
+    a = _slab_case(MIXED_SLAB_SHAPES[shape], dev)
+    if shape == "rows19":
+        code = ls.DTYPES.index((torch.bfloat16, wdt))
+        assert ls.fwd_row_tiles(2504, 32, 64, 132, code=code) == (19, 132)
     a["x"], a["dy"] = a["x"].bfloat16(), a["dy"].bfloat16()
     for k in ("w_ih", "w_hh", "b"):
         a[k] = a[k].to(wdt)
@@ -865,7 +877,8 @@ def test_fp32_forward_layout_and_limits_agree_with_the_library():
 # (T, R, C, H) with R ragged against the row tile (8), T = 1, the training
 # widths and a narrow C and H; the three (x, weights) pairs
 SEQ_SHAPES = {"ragged": (13, 37, 32, 64), "one": (1, 9, 32, 64),
-              "narrow": (11, 5, 8, 8)}
+              "narrow": (11, 5, 8, 8), "wide": (9, 2504, 32, 64),
+              "c24": (13, 37, 24, 64), "c16": (13, 37, 16, 64)}
 SEQ_PAIRS = {"fp32": (torch.float32, torch.float32),
              "bf16": (torch.bfloat16, torch.bfloat16),
              "bf16_fp32w": (torch.bfloat16, torch.float32)}
@@ -918,6 +931,10 @@ def test_seq_kernels_match_plain(shape, pair):
     dev = _card()
     a = _seq_case(SEQ_SHAPES[shape], dev, pair)
     tol = TOL if pair == "fp32" else 1e-2
+    if shape == "wide" and pair != "fp32":   # row 8b's one-wave grid
+        code = ls.DTYPES.index(SEQ_PAIRS[pair])
+        assert ls.fwd_row_tiles(2504, 32, 64, 132, 2, code,
+                                bseq=True) == (38, 132)
     before = _seq_counts(lk)
     fargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
     got = lk.lstm_seq_fwd(*fargs)
@@ -1011,6 +1028,43 @@ def test_seq_route_on_card_goes_through_the_seq_kernels():
     assert (ls.lstm_slab_fwd.launches, ls.lstm_slab_bwd.launches) == slab
     with pytest.raises(NotImplementedError, match="reverse"):
         rnn.lstm(p, x, reverse=True, scan="seq")
+
+
+def test_mixed_forward_layout_and_limits_agree_with_the_library():
+    """The mixed forwards' (rows 10b and 8b) shared-memory formula is the
+    library's for both pairs and both layouts, and both refuse (ValueError,
+    no launch) an H, a C or a C past the tensor cores' projection that the
+    walk does not take."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    lib = _build.load_library()
+    for c, h in ((32, 64), (24, 64), (16, 64), (8, 8), (64, 32)):
+        for code in (1, 2):
+            for bseq in (0, 1):
+                for rows in (1, 9, 19, 38, 48):
+                    assert lib.sbt_lstm_fwd_mixed_smem(
+                        c, h, rows, code, bseq) == ls.fwd_smem(
+                            c, h, rows, code, bool(bseq))
+    for c, h, rows, code in ((32, 48, 1, 1), (12, 64, 1, 2), (72, 64, 1, 1),
+                             (32, 64, 49, 2), (32, 64, 1, 0)):
+        assert lib.sbt_lstm_fwd_mixed_smem(c, h, rows, code, 0) == 0
+    before = _seq_counts(lk) + [(ls.lstm_slab_fwd.launches,
+                                 ls.lstm_slab_fwd.mixed_launches)]
+    for shape, wdt, match in (((5, 9, 32, 48), torch.bfloat16, "H=48"),
+                              ((5, 9, 12, 64), torch.float32, "C=12"),
+                              ((5, 9, 72, 64), torch.bfloat16, "C=72")):
+        a = _slab_case(shape, dev)
+        w = [a[k].to(wdt) for k in ("w_ih", "w_hh", "b")]
+        x = a["x"].bfloat16()
+        with pytest.raises(ValueError, match=match):
+            ls.lstm_slab_fwd(*w, x, a["h0"], a["c0"], False)
+        p = {"w_ih": w[0], "w_hh": w[1], "b": w[2]}
+        with pytest.raises(ValueError, match=match):
+            lk.blstm_seq_fwd(*lk._blstm_pack(p, p), x)
+    assert _seq_counts(lk) + [(ls.lstm_slab_fwd.launches,
+                               ls.lstm_slab_fwd.mixed_launches)] == before
 
 
 def test_seq_kernels_reject_bad_operands():

@@ -352,8 +352,8 @@ def test_fp32_forward_rows_and_limits():
                                  ((3, 5, 30), 64, "C=30"),
                                  ((3, 5, 4096), 64, "shared memory")):
         with pytest.raises(ValueError, match=match):
-            tk._check_fwd32_dims(torch.zeros(shape), hidden)
-    assert tk._check_fwd32_dims(torch.zeros(3, 5, 24), 64) == (3, 5, 24, 64)
+            tk._check_fwd_dims(torch.zeros(shape), hidden)
+    assert tk._check_fwd_dims(torch.zeros(3, 5, 24), 64) == (3, 5, 24, 64)
 
 
 @pytest.mark.parametrize("r", [37, 580, 1252, 2504])
@@ -380,6 +380,47 @@ def test_blstm_fwd32_rows(r):
     if r == 1252:
         assert tk.fwd_row_tiles(r, 32, 64, nd=2) == (19, 132)
         assert tslab.fwd_smem(32, 64, 19) == 230016
+
+
+@pytest.mark.parametrize("r", [37, 580, 1252, 2504])
+def test_blstm_mixed_rows(r):
+    """Row 8b's grid (the walk's mixed mode: bf16 gx, 4 frames a slab): each
+    direction a half of ceil(R / rows) blocks, both halves in one wave of
+    the H100's 132 SMs at every training R, for both mixed pairs and C =
+    32, 24, 16; 38 rows a block at the bf16 recipe's R = 2504, where the
+    fp32 layout takes two waves of 19."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+
+    for code in (1, 2):
+        for c_in in (32, 24, 16):
+            rows, blocks = tk.fwd_row_tiles(r, c_in, 64, nd=2, code=code,
+                                            bseq=True)
+            half = -(-r // rows)
+            assert blocks == 2 * half <= 132
+            assert rows == -(-2 * r // 132)
+            assert tslab.fwd_smem(c_in, 64, rows, code, bseq=True) <= \
+                tslab.SMEM_LIMIT_BYTES
+    if r == 2504:
+        assert tk.fwd_row_tiles(r, 32, 64, nd=2, code=1, bseq=True) == \
+            (38, 132)
+        assert tslab.fwd_smem(32, 64, 38, 1, bseq=True) == 154752
+        assert tslab.fwd_smem(32, 64, 38, 2, bseq=True) == 164608
+        assert tk.fwd_row_tiles(r, 32, 64, nd=2) == (19, 264)
+
+
+def test_bf16_reciprocal_margin():
+    """The mixed walk's bf16 sigmoid (row 8b, `sig_m<RND_SEQ>` in
+    csrc/lstm_fwd32.cuh) takes 1 / d for a bf16 d >= 1 with `rcp1`, within
+    about an fp32 ulp of the IEEE quotient that XLA takes: for each of the
+    128 bf16 mantissas every fp32 value within 128 ulps of the quotient
+    rounds to the quotient's bf16."""
+    q = 1.0 / (1.0 + torch.arange(128, dtype=torch.float32) / 128)
+    want, lo, hi = q.bfloat16(), q, q
+    for _ in range(128):
+        lo = torch.nextafter(lo, torch.zeros_like(lo))
+        hi = torch.nextafter(hi, torch.full_like(hi, 2.0))
+        assert torch.equal(lo.bfloat16(), want)
+        assert torch.equal(hi.bfloat16(), want)
 
 
 ROUTE_ENV = ("SB_LSTM_FUSED", "SB_LSTM_CUSTOM_VJP", "SB_LSTM_PALLAS_TRAIN")

@@ -156,6 +156,50 @@ def test_fwd_row_tiles_past_the_budget():
     assert rows == tslab.FWD_ROWS_MAX and rows * blocks >= 10 ** 5
 
 
+# the mixed forward (row 10b, the walk's mixed mode) at the same R: the
+# bf16 recipe's batch 8 (intra 2504, inter 1160) and train_pt --bf16's
+# batch 4 (1252, 580); (rows, blocks) pinned for C = 32, and the block's
+# shared memory at the recipe's 19 rows: bf16 weights (the tensor cores'
+# transposed W_ih, rows of 40) and fp32 weights (gate-interleaved)
+MIXED_FWD_SMEM_19 = {1: 210432, 2: 220288}
+
+
+@pytest.mark.parametrize("code", [1, 2])
+def test_mixed_fwd_row_tiles_fit_one_wave(code):
+    """Row 10b's row tiles for both mixed pairs: one wave of the H100's 132
+    SMs at every training R, C = 32, 24, 16, within the block's shared
+    memory; the layout's bytes at 19 rows."""
+    for r, want in FWD_ONE_WAVE.items():
+        for c_in in (32, 24, 16):
+            rows, blocks = tslab.fwd_row_tiles(r, c_in, 64, code=code)
+            assert rows == -(-r // 132) and blocks <= 132
+            assert rows * blocks >= r > rows * (blocks - 1)
+            assert tslab.fwd_smem(c_in, 64, rows, code) <= \
+                tslab.SMEM_LIMIT_BYTES
+        assert tslab.fwd_row_tiles(r, 32, 64, code=code) == want
+    assert tslab.fwd_smem(32, 64, 19, code) == MIXED_FWD_SMEM_19[code]
+    # the x tile is bf16: half the fp32 layout's bytes of it at C = 32
+    assert tslab.fwd_smem(32, 64, 19, 2) == tslab.fwd_smem(32, 64, 19) - \
+        2 * 8 * 19 * 32
+
+
+def test_mixed_fwd_limits():
+    """What the mixed forwards refuse before any launch: H outside 8-64, C
+    not a multiple of 8 (bf16 x in 16-byte pieces), C past the tensor
+    cores' projection with bf16 weights (fp32 weights take it)."""
+    bf = torch.bfloat16
+    for shape, hidden, code, match in (((3, 5, 32), 48, 1, "H=48"),
+                                       ((3, 5, 12), 64, 2, "C=12"),
+                                       ((3, 5, 72), 64, 1, "C=72")):
+        with pytest.raises(ValueError, match=match):
+            tslab._check_fwd_dims(torch.zeros(shape, dtype=bf), hidden,
+                                    code)
+    assert tslab._check_fwd_dims(torch.zeros(3, 5, 72, dtype=bf), 64,
+                                   2) == (3, 5, 72, 64)
+    assert tslab._check_fwd_dims(torch.zeros(3, 5, 8, dtype=bf), 8,
+                                   1) == (3, 5, 8, 8)
+
+
 @pytest.mark.parametrize("t_len", [16, 13])
 def test_autograd_through_lstm_and_blstm_matches_jax_grad(t_len):
     """ops.rnn.lstm (with carried state) and blstm through the autograd

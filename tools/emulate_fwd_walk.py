@@ -1,9 +1,9 @@
-"""Run the fp32 LSTM forward walk (`sound_bubble_tpu_torch/csrc/
-lstm_fwd32.cuh`) on the CPU, in all four of its kernels, against the plain
+"""Run the LSTM forward walk (`sound_bubble_tpu_torch/csrc/
+lstm_fwd32.cuh`) on the CPU, in all of its kernels, against the plain
 versions: a check of the kernels' logic where there is no card and no nvcc.
 
     python tools/emulate_fwd_walk.py [--out DIR]
-        [--only infer,bseq,seq,slab,stack]
+        [--only infer,bseq,seq,slab,mixed,stack]
 
 Copies the header and the kernels that include it (row 5's
 `csrc/lstm_infer.cu`; rows 6a and 8a from `csrc/lstm_seq.cu`, row 10a from
@@ -21,6 +21,18 @@ C = H = 8): every output within 1e-5 of `blstm_infer_ref`,
 `blstm_seq_fwd_ref`, `lstm_seq_fwd_ref` and `lstm_slab_fwd_ref`. Prints a
 line a case and the worst error a kernel; exits non-zero past 1e-5.
 About two minutes on 8 cores.
+
+`--only mixed` runs the walk's mixed mode (rows 10b and 8b: bf16 x, bf16
+or fp32 weights) the same way, with a bf16 type that rounds to nearest
+even by bit operations in place of `cuda_bf16.h` and `mma.sync` m16n8k16
+done from the fragments of all 32 lanes (A rows g / g + 8, columns 2t,
+2t + 8; B rows 2t, 2t + 8, column g; D rows g / g + 8, columns 2t,
+2t + 1), against `lstm_slab_fwd_ref` and `blstm_seq_fwd_ref` under the
+card's bars (chip_smoke.py phases 13 and 20): every output within 1e-2 of
+its peak; the slab's ys within one bf16 ulp of its peak everywhere, the
+fused-direction forward's bf16 outputs bit-equal at all but 5 % of their
+elements; at rows a block 1, 9 and 19 (and 38, row 8b's one-wave tile),
+ragged R and T, both directions, C = 32, 24, 16 (and C = H = 8).
 
 `--only stack` runs the stack steps' cluster kernel (rows 1-4,
 `csrc/stack_walk.cu`, which includes the walk) the same way, all eight
@@ -62,10 +74,23 @@ HOST_CUDA = r"""
 #define __shared__
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __frcp_rn(float d) { return 1.0f / d; }
 struct uint3e { unsigned x, y, z; };
 inline thread_local uint3e threadIdx, blockIdx, blockDim;
 using std::max;
@@ -103,6 +128,7 @@ namespace emu {
 struct Warp {
   std::barrier<>* bar;
   float buf[32];
+  unsigned fa[32][4], fb[32][2];  // mma fragments of the 32 lanes
 };
 inline thread_local std::barrier<>* block_bar;
 inline thread_local std::barrier<>* cluster_bar;
@@ -197,6 +223,67 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   emu::warp->bar->arrive_and_wait();
   return r;
 }
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, D = A B + D, from the
+// fragments of all 32 lanes (a bf16 pair in a register: the lower column
+// or row in its low half)
+inline void emu_mma(float (&d)[4], const unsigned (&a)[4],
+                    const unsigned (&b)[2]) {
+  emu::Warp* w = emu::warp;
+  const int l = emu::lane;
+  for (int i = 0; i < 4; ++i) w->fa[l][i] = a[i];
+  w->fb[l][0] = b[0];
+  w->fb[l][1] = b[1];
+  w->bar->arrive_and_wait();
+  auto half = [](unsigned v, int k) {
+    return __uint_as_float((k & 1 ? v >> 16 : v & 0xffffu) << 16);
+  };
+  auto A = [&](int row, int k) {
+    return half(w->fa[(row & 7) * 4 + ((k & 7) >> 1)][(row >> 3) +
+                                                       2 * (k >> 3)], k);
+  };
+  auto B = [&](int k, int col) {
+    return half(w->fb[col * 4 + ((k & 7) >> 1)][k >> 3], k);
+  };
+  const int g = l >> 2, t = l & 3;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
+    out[i] = s;
+  }
+  w->bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+"""
+
+# cuda_bf16.h for the host: bf16 as its 16 bits, rounded to nearest even
+HOST_BF16 = r"""
+#pragma once
+#include <cstring>
+#include <cuda_runtime.h>
+struct __nv_bfloat16 { unsigned short x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)   // NaN stays NaN
+    return {(unsigned short)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const unsigned u = (unsigned)b.x << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
+}
 """
 
 STORAGE = r"""
@@ -223,9 +310,28 @@ extern "C" int emu_slab_fwd(const void* x, const void* w_ih,
                             const void* w_hh, const void* b, const float* h0,
                             const float* c0, void* ys, float* hT, float* cT,
                             float* c_ckpt, int T, int R, int C, int H,
-                            int kf, int reverse, int rows) {
+                            int kf, int reverse, int rows, int dtypes) {
+  if (dtypes == 1)
+    return slab_fwd_mixed<bf16>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                c_ckpt, T, R, C, H, kf, reverse, rows,
+                                nullptr);
+  if (dtypes == 2)
+    return slab_fwd_mixed<float>(x, w_ih, w_hh, b, h0, c0, ys, hT, cT,
+                                 c_ckpt, T, R, C, H, kf, reverse, rows,
+                                 nullptr);
   return slab_fwd32(x, w_ih, w_hh, b, h0, c0, ys, hT, cT, c_ckpt, T, R, C, H,
                     kf, reverse, rows, nullptr);
+}
+extern "C" int emu_bseq_fwd_mixed(const void* x, const void* w_ih_f,
+                                  const void* w_ih_b, const void* w_hh,
+                                  const void* b, void* y, void* gates,
+                                  float* cseq, int T, int R, int C, int H,
+                                  int rows, int dtypes) {
+  if (dtypes == 1)
+    return seq_bfwd_mixed<bf16>(x, w_ih_f, w_ih_b, w_hh, b, y, gates, cseq,
+                                T, R, C, H, rows, nullptr);
+  return seq_bfwd_mixed<float>(x, w_ih_f, w_ih_b, w_hh, b, y, gates, cseq,
+                               T, R, C, H, rows, nullptr);
 }
 """
 
@@ -264,13 +370,20 @@ def build(out):
                           r"\g<1>" + body + "}", walk, flags=re.S)
         if n != 1:
             raise RuntimeError(f"lstm_fwd32.cuh: {fn} not found")
+    walk, n = re.subn(r"(void mma16816\(float \(&d\)\[4\], const unsigned "
+                      r"\(&a\)\[4\],\s+const unsigned \(&b\)\[2\]\) \{)"
+                      r".*?\n\}", r"\g<1> emu_mma(d, a, b); }", walk,
+                      flags=re.S)
+    if n != 1:
+        raise RuntimeError("lstm_fwd32.cuh: mma16816 not found")
     walk = re.sub(r"k<<<(.*?), (4 \* H), (smem), st>>>\(args\.\.\.\);",
                   r"emu::launch(k, \1, \2, \3, args...);", walk)
     if "asm" in walk or "<<<" in walk:
         raise RuntimeError("lstm_fwd32.cuh: a device-only line is left")
     os.makedirs(out, exist_ok=True)
     for name, text in (("lstm_fwd32.cuh", walk),
-                       ("cuda_runtime.h", HOST_CUDA)):
+                       ("cuda_runtime.h", HOST_CUDA),
+                       ("cuda_bf16.h", HOST_BF16)):
         with open(os.path.join(out, name), "w") as fh:
             fh.write(text)
     infer = read("lstm_infer.cu").replace("#include <cuda_runtime.h>",
@@ -282,8 +395,8 @@ def build(out):
                "// The backward's shared memory at")
     src = os.path.join(out, "walk.cpp")
     with open(src, "w") as fh:
-        fh.write(infer + "\nnamespace {\n" + seq + slab + "}\n"
-                 + ENTRIES % {"smem": SMEM})
+        fh.write(infer + "\nnamespace {\nusing bf16 = __nv_bfloat16;\n" + seq
+                 + slab + "}\n" + ENTRIES % {"smem": SMEM})
     return ctypes.CDLL(compile_lib(out, src, "libwalk.so"))
 
 
@@ -455,11 +568,64 @@ def stack_cases(lib, check, ptr):
             hr, cr = want[1], want[2]
 
 
+# the card's bars on the mixed kernels (chip_smoke.py's MIXED_REL_TOL and
+# SEQ_MIXED_SHARE)
+MIXED_REL_TOL = 1e-2
+MIXED_SHARE = 0.05
+# (rows, R, T, C, H) of the mixed cases: rows a block 1, 9, 19 with a
+# ragged last tile, a ragged last slab, T = 1, the edge widths and
+# C = H = 8; row 8b also at its one-wave 38 rows
+MIXED_SLAB_CASES = ((1, 3, 10, 32, 64), (9, 19, 11, 32, 64),
+                    (19, 40, 9, 32, 64), (9, 12, 5, 24, 64),
+                    (5, 9, 1, 16, 64), (3, 7, 10, 8, 8))
+MIXED_BSEQ_CASES = MIXED_SLAB_CASES + ((38, 77, 6, 32, 64),)
+
+
+def mixed_cases(lib, ls, lk, check, draw, nan, ptr):
+    """Rows 10b and 8b (the walk's mixed mode) under the emulation against
+    `lstm_slab_fwd_ref` / `blstm_seq_fwd_ref`, bf16 x with bf16 (the
+    tensor-core projection) and fp32 weights."""
+    import numpy as np
+    import torch
+
+    bf = torch.bfloat16
+    for code, wdt in ((1, bf), (2, torch.float32)):
+        for rows, r, t_len, c, h in MIXED_SLAB_CASES:
+            rng = np.random.default_rng(10 * rows + r)
+            w = [draw(rng, *s, scale=h ** -0.5).to(wdt) for s in
+                 ((c, 4 * h), (h, 4 * h), (4 * h,))]
+            x = draw(rng, t_len, r, c).to(bf)
+            h0, c0 = draw(rng, r, h, scale=0.5), draw(rng, r, h, scale=0.5)
+            for rev in (False, True):
+                want = ls.lstm_slab_fwd_ref(*w, x, h0, c0, rev)
+                got = [nan(*t.shape).to(t.dtype) for t in want]
+                if lib.emu_slab_fwd(x.data_ptr(), *map(ptr, w), ptr(h0),
+                                    ptr(c0), *map(ptr, got), t_len, r, c, h,
+                                    ls.n_slabs(t_len)[0], int(rev), rows,
+                                    code):
+                    raise RuntimeError("mixed slab refused the case")
+                check("mixed_slab", (code, rows, r, t_len, c, h, rev), got,
+                      want)
+        for rows, r, t_len, c, h in MIXED_BSEQ_CASES:
+            rng = np.random.default_rng(10 * rows + r + 1)
+            w = [draw(rng, *s, scale=h ** -0.5).to(wdt) for s in
+                 ((c, 4 * h), (h, 4 * h), (4 * h,)) * 2]
+            x = draw(rng, t_len, r, c).to(bf)
+            pack = lk._blstm_pack(dict(zip(("w_ih", "w_hh", "b"), w[:3])),
+                                  dict(zip(("w_ih", "w_hh", "b"), w[3:])))
+            want = lk.blstm_seq_fwd_ref(*pack, x)
+            got = [nan(*t.shape).to(t.dtype) for t in want]
+            if lib.emu_bseq_fwd_mixed(*map(ptr, (x, *pack)), *map(ptr, got),
+                                      t_len, r, c, h, rows, code):
+                raise RuntimeError("mixed bseq refused the case")
+            check("mixed_bseq", (code, rows, r, t_len, c, h), got, want)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "_archive",
                                                   "emulate_fwd_walk"))
-    ap.add_argument("--only", default="infer,bseq,seq,slab,stack")
+    ap.add_argument("--only", default="infer,bseq,seq,slab,mixed,stack")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
@@ -473,7 +639,8 @@ def main(argv=None):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sbt_blstm_infer.argtypes = [P] * 8 + [I] * 5 + [P]
     lib.emu_seq_fwd.argtypes = [P] * 10 + [I] * 6
-    lib.emu_slab_fwd.argtypes = [P] * 10 + [I] * 7
+    lib.emu_slab_fwd.argtypes = [P] * 10 + [I] * 8
+    lib.emu_bseq_fwd_mixed.argtypes = [P] * 8 + [I] * 6
     torch.set_num_threads(1)
     only = args.only.split(",")
     worst = {}
@@ -486,6 +653,34 @@ def main(argv=None):
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         print(kind, case, " ".join(f"{e:.2e}" for e in errs), flush=True)
         worst[kind] = max(worst.get(kind, 0.0), *errs)
+
+    failed = []
+
+    def check_mixed(kind, case, got, want):
+        """The card's bars: each output within MIXED_REL_TOL of its peak;
+        slab: ys within one bf16 ulp of its peak everywhere; bseq: y and
+        the gates bit-equal at all but MIXED_SHARE of their elements."""
+        rel = [float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want)]
+        ok = max(rel) <= MIXED_REL_TOL and all(
+            g.dtype == w.dtype for g, w in zip(got, want))
+        if kind == "mixed_slab":
+            peak = float(want[0].float().abs().max())
+            ulp = 2.0 ** (np.floor(np.log2(peak)) - 7)
+            n_ulp = int(((got[0].float() - want[0].float()).abs()
+                         > ulp).sum())
+            extra = f"ys past one ulp of its peak: {n_ulp}"
+            ok = ok and n_ulp == 0
+        else:
+            shares = [float((g != w).float().mean()) for g, w in
+                      zip(got[:2], want[:2])]
+            extra = f"share differing (y, gates) {shares}"
+            ok = ok and max(shares) <= MIXED_SHARE
+        print(kind, case, "max-abs / peak", " ".join(f"{e:.2e}" for e in rel),
+              extra, "ok" if ok else "FAILS", flush=True)
+        if not ok:
+            failed.append((kind, case))
 
     def draw(rng, *shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale)
@@ -556,13 +751,18 @@ def main(argv=None):
                 if lib.emu_slab_fwd(x.data_ptr(), *map(ptr, w), ptr(h0),
                                     ptr(c0), *map(ptr, got), t_len, r, c,
                                     64, ls.n_slabs(t_len)[0], int(rev),
-                                    rows):
+                                    rows, 0):
                     raise RuntimeError("slab refused the case")
                 check("slab", (rows, r, t_len, c, rev), got, want)
+    if "mixed" in only:
+        mixed_cases(lib, ls, lk, check_mixed, draw, nan, ptr)
     if "stack" in only:
         stack_cases(build_stack(args.out), check, ptr)
-    print(f"worst max-abs {worst} (tol {TOL}), {time.time() - t0:.1f} s")
-    if not worst or max(worst.values()) > TOL:
+    print(f"worst max-abs {worst} (tol {TOL}), mixed cases past the card's "
+          f"bars: {failed}, {time.time() - t0:.1f} s")
+    if (not worst and not only == ["mixed"]) or max(worst.values(),
+                                                    default=0.0) > TOL \
+            or failed:
         sys.exit(1)
 
 

@@ -1,6 +1,6 @@
-"""Split one block's cycles of the fp32 LSTM forwards (rows 5, 6a, 8a and
-10a, the walk of `sound_bubble_tpu_torch/csrc/lstm_fwd32.cuh`) by phase, on
-one card.
+"""Split one block's cycles of the LSTM forwards on the walk of
+`sound_bubble_tpu_torch/csrc/lstm_fwd32.cuh` (rows 5, 6a, 8a, 10a and the
+mixed 8b and 10b) by phase, on one card.
 
     python tools/split_fwd_cycles.py [OUT_DIR]
 
@@ -11,8 +11,10 @@ shared memory, added into a `__device__` array at the block's end and read
 back through an extra C entry point a source), builds the copy and runs the
 slab forward at the flagship's intra [145, 1252, 32] and inter
 [313, 580, 32] shapes, the seq forward at the inter shape, its
-fused-direction forward (row 8a) at the intra shape and row 5's whole
-function at one stream ([R, T, C] = [1, 145, 32]). Prints the
+fused-direction forward (row 8a) at the intra shape, row 5's whole
+function at one stream ([R, T, C] = [1, 145, 32]) and, mixed (bf16 x and
+weights), the slab forward and the fused-direction forward at the bf16
+recipe's intra shape [145, 2504, 32]. Prints the
 card's name and power limit, then one JSON line a shape: cycles a frame of
 thread 0's block and their split (the x tile's wait and the slab's first
 barrier; the projection and c_ckpt; the second barrier and the next x
@@ -30,10 +32,12 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("wait x + barrier", "project + ckpt", "barrier + load_x",
           "h.W FMA", "reduce", "cell", "frame barrier")
-# (kernel, T, R, C) timed
-SHAPES = (("slab", 145, 1252, 32), ("slab", 313, 580, 32),
-          ("seq", 313, 580, 32), ("bseq", 145, 1252, 32),
-          ("infer", 145, 1, 32))
+# (kernel, T, R, C, mixed) timed; mixed: bf16 x and weights, at the bf16
+# recipe's batch 8 (rows 10b and 8b)
+SHAPES = (("slab", 145, 1252, 32, False), ("slab", 313, 580, 32, False),
+          ("seq", 313, 580, 32, False), ("bseq", 145, 1252, 32, False),
+          ("infer", 145, 1, 32, False), ("slab", 145, 2504, 32, True),
+          ("bseq", 145, 2504, 32, True))
 STAMP = ("#define ST(i, t0) do { if (threadIdx.x == 0) { long long _n = "
          "clock64(); sacc[i] += _n - t0; t0 = _n; } } while (0)\n")
 # (text of lstm_fwd32.cuh, its instrumented replacement), each found once
@@ -41,22 +45,22 @@ EDITS = (
     ("namespace sbt_fwd32 {\n",
      "namespace sbt_fwd32 {\nstatic __device__ unsigned long long "
      "g_split[16];\n" + STAMP),
-    ("    int rt, size_t base, size_t sbase, int T, const Out& o) {\n"
-     "  using D = Dims<H>;\n",
-     "    int rt, size_t base, size_t sbase, int T, const Out& o,\n"
-     "    unsigned long long* sacc) {\n"
+    ("    int rows, int rt, size_t base, size_t sbase, int T, const O& o,\n"
+     "    float4 bc) {\n  using D = Dims<H>;\n",
+     "    int rows, int rt, size_t base, size_t sbase, int T, const O& o,\n"
+     "    float4 bc, unsigned long long* sacc) {\n"
      "  using D = Dims<H>;\n  long long t0 = clock64();\n"),
     ("  int rho[3] = {0, 0, 0};", "  ST(3, t0);\n  int rho[3] = {0, 0, 0};"),
-    ("  cell<H, M>(v[0], g + rho[0]", "  ST(4, t0);\n  cell<H, M>(v[0], "
+    ("  cell<H, M, P>(v[0], g + rho[0]", "  ST(4, t0);\n  cell<H, M, P>(v[0], "
      "g + rho[0]"),
-    ("               base, sbase, T, o);\n}",
-     "               base, sbase, T, o);\n  ST(5, t0);\n}"),
-    ("                                 base, sbase, T, o);",
-     "                                 base, sbase, T, o, sacc);"),
-    ("                            sbase, T, o);                             "
-     "       \\",
-     "                            sbase, T, o, sacc);                       "
-     "       \\"),
+    ("                  rt, base, sbase, T, o, bc);\n}",
+     "                  rt, base, sbase, T, o, bc);\n  ST(5, t0);\n}"),
+    ("                                    base, sbase, T, o, bc);",
+     "                                    base, sbase, T, o, bc, sacc);"),
+    ("                               base, sbase, T, o, bc);                 "
+     "      \\",
+     "                               base, sbase, T, o, bc, sacc);           "
+     "      \\"),
     ("  const int nb = (T + kf - 1) / kf;\n",
      "  const int nb = (T + kf - 1) / kf;\n  __shared__ unsigned long long "
      "sacc[8];\n  if (tid < 8) sacc[tid] = 0;\n  const long long t_begin = "
@@ -131,17 +135,18 @@ def child(out_dir):
     for fn in readers.values():
         fn.argtypes = [ctypes.c_void_p]
     h = 64
-    for kind, t_len, r, c in SHAPES:
+    for kind, t_len, r, c, mixed in SHAPES:
         rng = np.random.default_rng(0)
+        adt = torch.bfloat16 if mixed else torch.float32
 
-        def draw(*shape, scale=1.0):
+        def draw(*shape, scale=1.0, dtype=adt):
             return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                    .astype(np.float32)).to(dev)
+                                    .astype(np.float32)).to(dev, dtype)
 
         args = (draw(c, 4 * h, scale=h ** -0.5),
                 draw(h, 4 * h, scale=h ** -0.5), draw(4 * h, scale=h ** -0.5),
-                draw(t_len, r, c), draw(r, h, scale=0.5),
-                draw(r, h, scale=0.5))
+                draw(t_len, r, c), draw(r, h, scale=0.5, dtype=torch.float32),
+                draw(r, h, scale=0.5, dtype=torch.float32))
 
         p = [dict(zip(("w_ih", "w_hh", "b"), args[:3])),
              dict(zip(("w_ih", "w_hh", "b"), (a.flip(0) for a in args[:3])))]
@@ -166,7 +171,8 @@ def child(out_dir):
         readers[kind](ctypes.cast(sums, ctypes.c_void_p))
         per = [v / sums[8] / t_len for v in sums[:8]]
         print(json.dumps({
-            "kernel": kind, "shape": [t_len, r, c], "blocks": sums[8],
+            "kernel": kind, "shape": [t_len, r, c], "mixed": mixed,
+            "blocks": sums[8],
             "cycles_per_frame": round(per[7], 1),
             "split": {p: round(v, 1) for p, v in zip(PHASES, per)},
             "share": {p: round(v / per[7], 3) for p, v in zip(PHASES, per)},

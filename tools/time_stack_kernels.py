@@ -32,7 +32,11 @@ single-direction `lstm_seq_fwd` (row 6) in fp32 at the inter LSTM's shape of
 phase 20 ([313, 580, 32]) and mixed at the recipe's batch 8
 ([313, 1160, 32]), the fused-direction `blstm_seq_fwd` (row 8) in fp32 at
 the intra BLSTM's ([145, 1252, 32]) and mixed at batch 8 ([145, 2504, 32]),
-each beside cuDNN's LSTM forward (`torch.nn.LSTM`) on the same x; then the
+each beside cuDNN's LSTM forward (`torch.nn.LSTM`) on the same x; the
+mixed forwards at batch 8 again with fp32 weights (`*_fp32w_fwd_ms`: the
+(bf16, fp32) pair of `train_pt --bf16`) and, where the tree's walk has a
+mixed mode, row 8b on the two-wave grid of 19 rows a block
+(`seq_mixed_intra_rows19_fwd_ms`) beside its one-wave 38; then the
 whole of the fused inference BLSTM `blstm_infer` (row 5), 200 calls after
 10, at chip_smoke.py's four ROW5_SHAPES, beside cuDNN's bidirectional LSTM
 with the same weights, and both again as 20 calls captured in one CUDA
@@ -348,7 +352,15 @@ def time_forwards(out, dev):
     import numpy as np
     import torch
 
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as ls
     from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+    t_len, r, c, _ = SLAB_SHAPES["mixed_intra"]
+    _, *w, x, h0, c0 = scan_operands(t_len, r, c, True, dev)
+    w = [a.float() for a in w]
+    with torch.no_grad():
+        ls.lstm_slab_fwd(*w, x, h0, c0, False)
+        out["slab_mixed_intra_fp32w_fwd_ms"] = events_ms(
+            lambda: ls.lstm_slab_fwd(*w, x, h0, c0, False), 20)
     for name, (t_len, r, c, mixed, nd) in SEQ_SHAPES.items():
         draw, *w, x, h0, c0 = scan_operands(t_len, r, c, mixed, dev)
         if nd == 1:
@@ -365,6 +377,20 @@ def time_forwards(out, dev):
             out[f"seq_{name}_fwd_ms"] = events_ms(lambda: fn(*fargs), 20)
             lstm(x)
             out[f"seq_{name}_cudnn_fwd_ms"] = events_ms(lambda: lstm(x), 20)
+            if mixed:
+                wargs = [a.float() if a is not x else a for a in fargs]
+                fn(*wargs)
+                out[f"seq_{name}_fp32w_fwd_ms"] = events_ms(
+                    lambda: fn(*wargs), 20)
+            if mixed and nd == 2 and hasattr(ls, "FWD_ROWS_MAX_MIXED"):
+                cap = ls.FWD_ROWS_MAX_MIXED
+                ls.FWD_ROWS_MAX_MIXED = 19
+                try:
+                    fn(*fargs)
+                    out[f"seq_{name}_rows19_fwd_ms"] = events_ms(
+                        lambda: fn(*fargs), 20)
+                finally:
+                    ls.FWD_ROWS_MAX_MIXED = cap
 
     from sound_bubble_tpu_torch.ops.kernels import lstm_kernel as rk
     rng = np.random.default_rng(0)
