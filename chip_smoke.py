@@ -113,7 +113,8 @@ PERF.md's kernel table):
 20. the four kernels against their plain versions at the flagship training
    shapes (intra [145, 1252, 32] both directions in one walk, inter
    [313, 580, 32]) and a ragged R (37), with (x, weights) in (fp32, fp32),
-   (bf16, bf16) and (bf16, fp32), row 6a's rows a block and blocks logged;
+   (bf16, bf16) and (bf16, fp32), the walks' rows a block and blocks
+   (rows 6, 8 and 9) logged;
    the two autograd Functions' outputs and gradients, kernels against plain
    versions;
 21. `train_pt --lstm_scan seq` on the flagship pretrain config, 1 epoch
@@ -1955,13 +1956,17 @@ def phase20_seq_kernels(dev, lk, ls):
                        for k in fn_got[1]}
             shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
                       for s in differ_share(g, w)] if mixed else []
-            tiles = ""
-            if not mixed or nd == 2:     # the walk's forwards
-                code = ls.DTYPES.index((xdt, wdt))
-                tiles = ("row %s %d rows a block, %d blocks; "
-                         % ("8b" if mixed else "6a" if nd == 1 else "8a",
-                            *ls.fwd_row_tiles(r, c, SLAB_H, ls._n_sm(dev),
-                                              nd, code, bseq=mixed)))
+            # the walks' grids: the forwards (rows 6, 8) and row 9
+            code, n_sm = ls.DTYPES.index((xdt, wdt)), ls._n_sm(dev)
+            sfx = "b" if mixed else "a"
+            tiles = ("row %s %d rows a block, %d blocks; "
+                     % (("6" if nd == 1 else "8") + sfx,
+                        *ls.fwd_row_tiles(r, c, SLAB_H, n_sm, nd, code,
+                                          bseq=mixed)))
+            if nd == 2:
+                tiles += ("row 9%s %d rows a block, %d blocks; "
+                          % (sfx, *lk.seq_bwd_row_tiles(r, SLAB_H, code,
+                                                        n_sm)))
             log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
                 f"{pname}: {tiles}rows {'/'.join(rows)} max-abs (max-abs / "
                 "peak) "
@@ -3129,6 +3134,13 @@ def main():
     # ---- 24. times
     seq_times = phase24_seq_times(dev, lk, card, seq_mod, seq_batch)
     seq_src = "sound_bubble_tpu_torch/csrc/lstm_seq.cu"
+    # rows 6b and 9 have sources of their own
+    srcs = {("lstm_seq_fwd", True):
+            "sound_bubble_tpu_torch/csrc/lstm_seq_fwd_mixed.cu",
+            ("blstm_seq_bwd", False):
+            "sound_bubble_tpu_torch/csrc/lstm_seq_bwd.cu",
+            ("blstm_seq_bwd", True):
+            "sound_bubble_tpu_torch/csrc/lstm_seq_bwd.cu"}
     seq_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_kernel.py"
     # the Pallas body of each row, and its mixed branch
     seq_lines = {"lstm_seq_fwd": (61, 75), "lstm_seq_bwd": (173, 204),
@@ -3149,15 +3161,23 @@ def main():
 
     seq_entries = [{
         "name": name + ("_mixed" if mixed else ""), "route": "cuda",
-        "source": seq_src,
+        "source": srcs.get((name, mixed), seq_src),
         "replaces": f"{seq_tpu}:{seq_lines[name][int(mixed)]}",
         "launches": (seq_mixed_n if mixed else seq_fp32_n)[i],
         "max_abs_err": seq_errs[name, mixed], **seq_times[name, mixed]}
         for mixed in (False, True) for i, name in enumerate(SEQ_NAMES)]
-    # row 8b: the walk of csrc/lstm_fwd32.cuh in its mixed mode
-    next(e for e in seq_entries if e["name"] == "blstm_seq_fwd_mixed")[
-        "kernel"] = ("seq_bfwd_mixed_kernel<64, bf16> / <64, float> "
-                     "(lstm_fwd32.cuh, RND_SEQ)")
+    # rows 8b and 6b: the walk of csrc/lstm_fwd32.cuh in its mixed mode;
+    # row 9: the backward walk
+    kernels = {"blstm_seq_fwd_mixed": "seq_bfwd_mixed_kernel<64, bf16> / "
+               "<64, float> (lstm_fwd32.cuh BSEQ, RND_SEQ)",
+               "lstm_seq_fwd_mixed": "seq_fwd_mixed_kernel<64, bf16> / "
+               "<64, float> (lstm_fwd32.cuh SEQ, RND_SEQ)",
+               "blstm_seq_bwd": "seq_bbwd_kernel<64, float, float>",
+               "blstm_seq_bwd_mixed": "seq_bbwd_kernel<64, bf16, bf16> / "
+               "<64, bf16, float>"}
+    for e in seq_entries:
+        if e["name"] in kernels:
+            e["kernel"] = kernels[e["name"]]
 
     slab_src = "sound_bubble_tpu_torch/csrc/lstm_slab.cu"
     slab_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_slab.py"

@@ -3,8 +3,9 @@
 // folded bias b [4H]), shared by four kernels (the walk's mode M): the slab
 // scan's forward (SLAB: `slab_fwd32_kernel`, csrc/lstm_slab.cu; ys, hT, cT
 // and the cell state entering each slab, c_ckpt), the custom-VJP route's
-// forward (SEQ: `seq_fwd32_kernel`, csrc/lstm_seq.cu; y and, every frame,
-// the post-activation gates and the cell state), and, one block a direction
+// forward (SEQ: `seq_fwd32_kernel` and the mixed `seq_fwd_mixed_kernel`,
+// csrc/lstm_seq.cu; y and, every frame, the post-activation gates and the
+// cell state), and, one block a direction
 // and row tile, both directions of a BLSTM from zero states: the route's
 // fused-direction forward (BSEQ: `seq_bfwd32_kernel`, csrc/lstm_seq.cu; the
 // same three outputs at the two-direction layout) and the fused inference
@@ -76,8 +77,8 @@
 // projection passes are as wide as its rows (one to four), so a pass of
 // one row at R = 1 computes no padding rows.
 //
-// The mixed mode (SLAB and BSEQ only): the walk is templated on the
-// activation type XT (x, y and BSEQ's saved gates), the weight type WT and
+// The mixed mode (SLAB, SEQ and BSEQ): the walk is templated on the
+// activation type XT (x, y and the saved gates), the weight type WT and
 // a rounding policy RND, and rounds to bf16 exactly where the Pallas body
 // it replaces rounds; with XT = WT = float and RND = EXACT every branch
 // below is the fp32 walk's. bf16 products are exact in fp32, so a bf16
@@ -87,7 +88,8 @@
 //   sigmoid and tanh in fp32 on the bf16 value, rounded once; c_t = f c +
 //   bf16(i g) in fp32 (c carried in fp32); h_t = bf16(o bf16(tanh(bf16(
 //   c_t)))); ys bf16, hT, cT and c_ckpt fp32.
-// - RND_SEQ (`lstm_train_kernel.py:_blstm_fwd_kernel`, mixed; row 8b): gx =
+// - RND_SEQ (`lstm_train_kernel.py:_fwd_kernel` and `_blstm_fwd_kernel`,
+//   mixed; rows 6b and 8b): gx =
 //   bf16(x W_ih) + b (rounded again when b is bf16); gates = bf16(gx +
 //   bf16(h) W_hh); each sigmoid as `jax.nn.sigmoid` lowers on bf16, 1 /
 //   (1 + exp(-v)) with each of its three ops rounded; tanh, c and h as
@@ -104,11 +106,13 @@
 //   gates of one unit). (bf16, fp32), `train_pt --bf16`'s, promotes to
 //   fp32 in the Pallas body and stays on FMA. The h . W_hh chain stays on
 //   the CUDA cores.
-// - BSEQ keeps gx in bf16 (half SLAB's fp32 gx) and walks KMAX / 2 frames
-//   a slab (the function does not depend on it), so that a block of up to
-//   ROWS_MAX_MIXED rows fits: 38 rows a block put both directions of the
-//   bf16 recipe's intra BLSTM (R = 2504) in one wave. Its fp32 bias, when
-//   W is fp32, is added in the cell, after the rounding of x W_ih.
+// - SEQ and BSEQ keep gx in bf16 (half SLAB's fp32 gx) and walk KMAX / 2
+//   frames a slab (the function does not depend on it), so that a block of
+//   up to ROWS_MAX_MIXED rows fits: 38 rows a block put both directions of
+//   the bf16 recipe's intra BLSTM (R = 2504) in one wave. Their fp32 bias,
+//   when W is fp32, is added in the cell, after the rounding of x W_ih.
+//   SEQ starts from h0 and c0: the first product takes bf16(h0), c0 stays
+//   fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -171,11 +175,12 @@ struct __align__(8) bf16x4 {
 
 // The layout of a mixed walk's shared memory (byte offsets): W_ih (the
 // tensor cores' transposed bf16 copy [4H][xs], or gate-interleaved float4
-// [C][H]), gx [kf*rows][GS] float4 (SLAB) or [kf*rows][GSB] bf16x4 (BSEQ),
-// the x tile [kf*rows][xs] bf16, h [2][R4][HS] and c [R4][HS] fp32. xs: C,
+// [C][H]), gx [kf*rows][GS] float4 (SLAB) or [kf*rows][GSB] bf16x4 (SEQ,
+// BSEQ), the x tile [kf*rows][xs] bf16, h [2][R4][HS] and c [R4][HS] fp32.
+// xs: C,
 // or for the tensor cores C rounded up to 16 (zeros past C) plus 8, a row
 // stride that keeps a fragment's loads on distinct banks. kf: frames a
-// slab, KMAX (SLAB) or KMAX / 2 (BSEQ).
+// slab, KMAX (SLAB) or KMAX / 2 (SEQ, BSEQ; `bseq`).
 struct MixedLayout {
   size_t gx, xs, hb, cs, total;
   int xstride;
@@ -210,9 +215,9 @@ inline size_t smem_bytes(int C, int H, int rows) {
 }
 
 // The same for a mixed walk (`mixed_layout`; tc: bf16 weights, the tensor
-// cores' projection; bseq: BSEQ's layout), 0 for a shape it does not take:
-// H in 8, 16, 32, 64; C a multiple of 8 (and, tc, at most 16 KS_MAX); 1 <=
-// rows <= ROWS_MAX_MIXED.
+// cores' projection; bseq: the bf16 gx of SEQ and BSEQ), 0 for a shape it
+// does not take: H in 8, 16, 32, 64; C a multiple of 8 (and, tc, at most
+// 16 KS_MAX); 1 <= rows <= ROWS_MAX_MIXED.
 inline size_t smem_mixed(int C, int H, int rows, bool tc, bool bseq) {
   if ((H != 8 && H != 16 && H != 32 && H != 64) || C < 8 || C % 8 ||
       (tc && C > 16 * KS_MAX) || rows < 1 || rows > ROWS_MAX_MIXED)
@@ -362,8 +367,8 @@ __device__ __forceinline__ unsigned ld32(const bf16* p) {
 // the four tiles' independent accumulators (one accumulator chain would
 // wait on each mma's latency in turn); lane (g, t) holds gates 2 (t & 1)
 // and 2 (t & 1) + 1 of unit 2 tile + t / 2 at rows g and g + 8. SLAB: gx =
-// x W_ih + b (fp32); BSEQ: bf16(bf16(x W_ih) + b). Rows past n are read as
-// row n - 1 and not stored.
+// x W_ih + b (fp32); GX bf16x4 (SEQ, BSEQ): bf16(bf16(x W_ih) + b). Rows
+// past n are read as row n - 1 and not stored.
 template <int H, int M, int NKS, typename GX>
 __device__ __forceinline__ void project_mma(const bf16* __restrict__ wt,
                                             const bf16* __restrict__ xt,
@@ -371,7 +376,8 @@ __device__ __forceinline__ void project_mma(const bf16* __restrict__ wt,
                                             const bf16* __restrict__ b,
                                             int xs, int n) {
   constexpr int NW = H / 8;
-  constexpr int GSX = M == BSEQ ? Dims<H>::GSB : Dims<H>::GS;
+  constexpr bool BGX = std::is_same<GX, bf16x4>::value;
+  constexpr int GSX = BGX ? Dims<H>::GSB : Dims<H>::GS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, hi = t & 1;
   unsigned bfr[4][NKS][2];
@@ -409,7 +415,7 @@ __device__ __forceinline__ void project_mma(const bf16* __restrict__ wt,
       if (p < n) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if constexpr (M == BSEQ) {
+          if constexpr (BGX) {
             reinterpret_cast<__nv_bfloat162*>(gx + p * GSX + u[j])[hi] =
                 __floats2bfloat162_rn(rb(d[j][2 * rr]) + b0[j],
                                       rb(d[j][2 * rr + 1]) + b1[j]);
@@ -428,8 +434,8 @@ __device__ __forceinline__ void project_mma(const bf16* __restrict__ wt,
 // rs + NRS m, P rows a pass, four inputs a step. A pass always computes
 // P rows (past n: the last row again, not stored), so its loads carry no
 // branch and can run ahead of the FMAs. Mixed (bf16 x, fp32 W_ih): the
-// sums start at 0; SLAB adds b after them, BSEQ (bf16 gx) stores
-// bf16(x W_ih) and its cells add b.
+// sums start at 0; SLAB adds b after them, SEQ and BSEQ (bf16 gx) store
+// bf16(x W_ih) and their cells add b.
 template <int H, int P = PASS, int RND = EXACT, typename XT = float,
           typename GX = float4>
 __device__ __forceinline__ void project(const float4* __restrict__ w4,
@@ -533,14 +539,14 @@ struct Policy {
   static_assert(RND == EXACT ? std::is_same<XT, float>::value &&
                                    std::is_same<WT, float>::value
                              : std::is_same<XT, bf16>::value &&
-                                   (M == SLAB || M == BSEQ),
-                "the mixed mode: bf16 x, SLAB or BSEQ");
+                                   (M == SLAB || M == SEQ || M == BSEQ),
+                "the mixed mode: bf16 x, SLAB, SEQ or BSEQ");
   static constexpr int kRnd = RND;
   static constexpr bool kMixed = RND != EXACT;
   // the projection on the tensor cores: bf16 x and weights
   static constexpr bool kTC = kMixed && std::is_same<WT, bf16>::value;
-  // BSEQ's bf16 gx; with fp32 weights b is added in the cell
-  static constexpr bool kBgx = kMixed && M == BSEQ;
+  // SEQ's and BSEQ's bf16 gx; with fp32 weights b is added in the cell
+  static constexpr bool kBgx = kMixed && (M == SEQ || M == BSEQ);
   static constexpr bool kBias = kBgx && !kTC;
   using GX = typename std::conditional<kBgx, bf16x4, float4>::type;
   using GT = typename std::conditional<kMixed, bf16, float>::type;
@@ -691,7 +697,7 @@ __device__ __forceinline__ void walk(
     hb = xs + KMAX * rows * C;
     cs = hb + 2 * r4 * HS;
   } else {
-    const MixedLayout L = mixed_layout(C, H, rows, P::kTC, M == BSEQ);
+    const MixedLayout L = mixed_layout(C, H, rows, P::kTC, P::kBgx);
     gx = reinterpret_cast<GX*>(smem + L.gx);
     xs = reinterpret_cast<XT*>(smem + L.xs);
     hb = reinterpret_cast<float*>(smem + L.hb);

@@ -7,104 +7,91 @@
 // - `sbt_lstm_seq_fwd`, nd = 1 <- `lstm_seq_fwd` (body `_fwd_kernel`):
 //   the LSTM (PyTorch cell, gate order [i, f, g, o], w_ih [C, 4H],
 //   w_hh [H, 4H], one folded bias b [4H]) over scan-major x [T, R, C] from
-//   (h0, c0), x@W_ih + b fused into each step; writes y [T, R, H], the
-//   post-activation gates [T, R, 4H] and the cell states c [T, R, H].
+//   (h0, c0); writes y [T, R, H], the post-activation gates [T, R, 4H] and
+//   the cell states c [T, R, H].
 // - `sbt_lstm_seq_fwd`, nd = 2 <- `_blstm_fwd` (body `_blstm_fwd_kernel`):
-//   both directions of a BLSTM from zero states in one walk, on the pack of
+//   both directions of a BLSTM from zero states, on the pack of
 //   `_blstm_pack` (w_hh [2H, 8H] block-diagonal, direction-major; b [8H]).
 //   Only the two diagonal H x 4H blocks are read and multiplied. At step n
 //   the forward direction reads x at time n and the backward one at
 //   T-1-n (no flipped copy); y [T, R, 2H] = [y_f | y_b] in original time,
 //   gates [T, R, 8H] gate-major with the direction inside and c [T, R, 2H]
 //   at the walk's step.
-// - `sbt_lstm_seq_bwd`, nd = 1 <- `lstm_seq_bwd` (body `_bwd_kernel`): the
+// - `sbt_lstm_seq_bwd` <- `lstm_seq_bwd` (body `_bwd_kernel`): the
 //   backward walk from the saved gates and c: per step the gate gradients
 //   dgates [T, R, 4H] and the carried (dh, dc), from (dhT, dcT) down to
 //   (dh0, dc0). dh = dgates @ W_hh^T.
-// - `sbt_lstm_seq_bwd`, nd = 2 <- the walk of `_bpt_bwd` (body
-//   `_blstm_bwd_kernel`): the same for both directions from zero, dy of the
-//   backward direction read at the mirrored time; dgates [T, R, 8H]
-//   direction-major at the walk's step.
-// The weight and input gradients (dW_ih, dW_hh, db, dx) are large products
-// outside these kernels, as in the JAX package (`_lpt_bwd`, `_bpt_bwd`).
+// The walk of `_bpt_bwd` (both directions' backward, row 9) is
+// csrc/lstm_seq_bwd.cu. The weight and input gradients (dW_ih, dW_hh, db,
+// dx) are large products outside these kernels, as in the JAX package
+// (`_lpt_bwd`, `_bpt_bwd`).
 //
 // What bounds them on an H100 (the flagship's training shapes in fp32,
 // batch 4 x 2.5 s): the fused-direction forward (intra, T = 145,
 // R = 1252, C = 32, H = 64) does 2*T*R*2*(C+H)*4H = 17.8 GFLOP, 0.27 ms at
 // 67 TFLOP/s, and must move ~0.58 GB (x in; y, gates, c out), 0.17 ms at
-// 3.35 TB/s: operations. Its backward walk does 2*T*R*2*4H*H = 11.9 GFLOP,
-// 0.18 ms, and must move ~0.93 GB (gates, c, dy in; dgates out), 0.28 ms:
-// bytes. The single-direction pair at the inter shape (T = 313, R = 580)
-// is half of each. In practice the recurrence bounds them all: T dependent
-// steps per row tile, each a [rows, K] x [K, 4H] product.
+// 3.35 TB/s: operations. The single-direction pair at the inter shape
+// (T = 313, R = 580) is half of it; its backward walk does 2*T*R*4H*H =
+// 5.9 GFLOP and must move ~0.47 GB (gates, c, dy in; dgates out): bytes.
+// In practice the recurrence bounds them all: T dependent steps per row
+// tile, each a [rows, K] x [K, 4H] product.
 //
-// Design of the fp32 forwards (`seq_fwd32_kernel`, row 6a, and
-// `seq_bfwd32_kernel`, row 8a): the walk of csrc/lstm_fwd32.cuh, shared with
-// the slab scan's fp32 forward; row 8a walks each direction in a grid half
-// of its own (4H threads a block, rows a block for one wave of both
-// halves: 19 at R = 1252, 132 blocks, where the first design's 8-row tiles
-// of 8H threads took two waves). It takes K = 8 frames a slab too (the
-// function does not depend on K; in fp32 only the order of the sum
-// changes). A `clock64()` split of
-// the first design (below) at [313, 580, 32] on an NVIDIA H100 80GB HBM3 at
-// 700 W (PERF.md §6) found 7,800 cycles a frame:
-// two thirds in the 96-long dot, latency-bound (each step waits on its
-// shared loads; 8 warps an SM), a third of that the x part; the gates and
-// c stores with the cell 19 %. So: rows a block for one wave (5 at
-// R = 580: 116 blocks, where 8-row tiles left 59 SMs idle); the input
-// projection of each slab as one register-tiled product into shared memory
-// before its walk, the next slab's x tile copied in by cp.async meanwhile;
-// W_hh in registers (row 11's layout: four lanes split a unit's inputs and
-// reduce by shuffles), four rows a group as 16 independent accumulators; a
-// lane applies one (row, unit) cell and writes its y, four gates and c,
-// eight units a warp at four rows: 32-byte segments, no staging needed.
+// The forwards (rows 6a `seq_fwd32_kernel`, 6b `seq_fwd_mixed_kernel` in
+// csrc/lstm_seq_fwd_mixed.cu, 8a `seq_bfwd32_kernel`, 8b
+// `seq_bfwd_mixed_kernel`) are the walk of
+// csrc/lstm_fwd32.cuh, shared with the slab scan's forward, in its modes SEQ
+// (one direction, from h0 and c0) and BSEQ (a grid half a direction): rows a
+// block for one wave of the card's SMs (`fwd_row_tiles`: 5 at R = 580 and 9
+// at R = 1160 in SEQ, 19 at R = 1252 and 38 at R = 2504 in BSEQ), each
+// slab's input projection as one product into shared memory before its
+// walk (on the tensor cores for bf16 weights), the next slab's x tile copied
+// in by cp.async meanwhile, W_hh in registers (four lanes split a unit's
+// inputs and reduce by shuffles), four rows a group; a lane applies one
+// (row, unit) cell and writes its y, four gates and c. The fp32 forwards
+// take K = 8 frames a slab; the mixed ones (RND_SEQ, the Pallas body's
+// roundings, the header's comment) keep gx in bf16 at 4 frames a slab.
+// A `clock64()` split of the design they replaced (PERF.md §6) found its
+// frames latency-bound in a 96-long dot over [x | h] a thread, W re-read
+// from shared memory every frame.
 //
-// Design of the mixed fused-direction forward (`seq_bfwd_mixed_kernel`,
-// row 8b): the same walk in its mixed mode (RND_SEQ: the Pallas body's
-// roundings, the header comment), a grid half a direction as row 8a; its
-// gx tile is bf16 and 4 frames a slab, so that 38 rows a block fit (both
-// directions of the bf16 recipe's intra BLSTM, R = 2504, in one wave of
-// 132 blocks; `fwd_row_tiles`), and with bf16 weights the slab projection
-// runs on the tensor cores.
-//
-// The first design (`seq_fwd_kernel`, simple first; it still runs the
-// mixed single-direction forward, row 6b; the backward walks, rows 7 and 9,
-// run the same design for nd directions; tensor cores, bf16 weights in
-// shared memory and wider row tiles are later work):
+// The single-direction backward (`seq_bwd_kernel`, rows 7a and 7b) is the
+// first design (simple first; tensor cores, weights in registers and wider
+// row tiles are later work):
 // - One thread block owns a tile of RT = 8 rows and walks all T steps
-//   itself, for nd directions at once; no block ever waits on another (no
-//   grid sync, no flags, no clusters). Thread (d, grp, j) computes unit j of
-//   direction d for RPT = 2 rows, so the state of those cells stays in its
-//   registers; the h (or the gate gradients) the next step needs go through
+//   itself (the template's ND = 2, both directions in one block, is no
+//   longer instantiated); no block ever waits on another. Thread (grp, j)
+//   computes unit j for RPT = 2 rows, so the state of those cells stays in
+//   its registers; the gate gradients the next step needs go through
 //   shared memory, double-buffered: one __syncthreads a step.
-// - Forward (one direction): [w_ih; w_hh] lives in shared memory as fp32,
-//   gate-interleaved float4 (w_i, w_f, w_g, w_o) per (input k, unit j):
-//   96 KB at C = 32, H = 64. The next step's x tile is loaded into
-//   registers while this step computes.
-// - Backward: each direction's W_hh^T in shared memory (64 KB at H = 64);
-//   the gates, c, the entering c and dy stream from global memory, read
-//   once each (the entering c is the previous step's c, or c0).
+// - W_hh^T in shared memory (64 KB at H = 64); the gates, c, the entering c
+//   and dy stream from global memory, read once each (the entering c is the
+//   previous step's c, or c0).
 // No TF32 and no fast-math: fp32 FMA throughout, expf / tanhf.
 //
 // The mixed mode (`mixed=True` in the Pallas bodies, the instantiations the
-// JAX package's bf16 trunk launches) is the same code, templated on the
-// activation type XT (x, y, dy, dgates) and the weight type WT: bf16 values
-// are widened on load and sums are taken in fp32, and values are rounded to
-// bf16 exactly where the Pallas body rounds: gx = bf16(x W_ih), then + b
-// (rounded again when b is bf16); the gates bf16(gx + bf16(h) W_hh); each
-// sigmoid as the body's `jax.nn.sigmoid` lowers on bf16, 1 / (1 + exp(-v))
-// with each of the three ops rounded; each tanh and tanh's input c_t; i*g;
-// the output h_t. The carried c stays fp32. The backward rounds the gate
-// gradients to bf16 for the dh chain and for their store. The bound of a
-// mixed launch counts 2 bytes for each bf16 tensor and its products at the
-// bf16 tensor-core rate (989 TFLOP/s dense), the rate the work could reach;
-// this first instantiation does fp32 FMA on the CUDA cores.
+// JAX package's bf16 trunk launches): bf16 values are widened on load and
+// sums are taken in fp32, and values are rounded to bf16 exactly where the
+// Pallas body rounds: gx = bf16(x W_ih), then + b (rounded again when b is
+// bf16); the gates bf16(gx + bf16(h) W_hh); each sigmoid as the body's
+// `jax.nn.sigmoid` lowers on bf16, 1 / (1 + exp(-v)) with each of the three
+// ops rounded; each tanh and tanh's input c_t; i*g; the output h_t. The
+// carried c stays fp32. The backward rounds the gate gradients to bf16 for
+// the dh chain and for their store. The bound of a mixed launch counts 2
+// bytes for each bf16 tensor and its products at the bf16 tensor-core rate
+// (989 TFLOP/s dense), the rate the work could reach.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "lstm_fwd32.cuh"
+
+// row 6b, csrc/lstm_seq_fwd_mixed.cu (a source of its own, so that its
+// instantiations compile beside this file's)
+int sbt_seq_fwd_mixed(int dtypes, const void* x, const void* w_ih,
+                      const void* w_hh, const void* b, const float* h0,
+                      const float* c0, void* y, void* gates, float* cseq,
+                      int T, int R, int C, int H, int rows, cudaStream_t st);
 
 namespace {
 
@@ -133,160 +120,6 @@ using GateT = typename std::conditional<kMixed<XT, WT>, bf16, float>::type;
 constexpr int G = 4;      // row groups per direction
 constexpr int RPT = 2;    // rows per thread
 constexpr int RT = G * RPT;
-constexpr int PRE = 4;    // x values a thread prefetches per step
-
-// sigmoid in fp32, or on a bf16 value with each op rounded
-template <bool M>
-__device__ __forceinline__ float sig(float v) {
-  if constexpr (M) {
-    return rb(1.f / rb(1.f + rb(expf(-v))));
-  } else {
-    return 1.f / (1.f + expf(-v));
-  }
-}
-
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(512) seq_fwd_kernel(
-    const XT* __restrict__ x, const WT* __restrict__ w_ih,
-    const WT* __restrict__ w_hh, const WT* __restrict__ b,
-    const float* __restrict__ h0, const float* __restrict__ c0,
-    XT* __restrict__ y, GateT<XT, WT>* __restrict__ gates,
-    float* __restrict__ cseq, int T, int R, int C, int H) {
-  constexpr bool M = kMixed<XT, WT>;
-  extern __shared__ float4 smem4[];
-  const int H4 = 4 * H, K = C + H;
-  float4* wp = smem4;                                      // [K*H]
-  float* xbuf = reinterpret_cast<float*>(wp + K * H);       // [2][RT][C]
-  float* hbuf = xbuf + 2 * RT * C;                          // [2][RT][H]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int j = tid % H, grp = tid / H;
-  const int r0 = blockIdx.x * RT;
-
-  // wp[k*H + u] = (W[k][u], W[k][H+u], W[k][2H+u], W[k][3H+u]) with
-  // W = [w_ih; w_hh]
-  for (int i = tid; i < K * H; i += nt) {
-    const int k = i / H, u = i - k * H;
-    const WT* row = k < C ? w_ih + (size_t)k * H4 : w_hh + (size_t)(k - C) * H4;
-    wp[i] = make_float4(ldf(row, u), ldf(row, H + u), ldf(row, 2 * H + u),
-                        ldf(row, 3 * H + u));
-  }
-  const float4 bias = make_float4(ldf(b, j), ldf(b, H + j), ldf(b, 2 * H + j),
-                                  ldf(b, 3 * H + j));
-  float c[RPT];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int row = grp * RPT + q, r = r0 + row;
-    // the mixed mode's recurrence product takes bf16(h)
-    const float h = r < R ? h0[(size_t)r * H + j] : 0.f;
-    hbuf[row * H + j] = M ? rb(h) : h;
-    c[q] = r < R ? c0[(size_t)r * H + j] : 0.f;
-  }
-  // step 0's x tile
-  for (int i = tid; i < RT * C; i += nt) {
-    const int row = i / C, r = r0 + row;
-    xbuf[i] = r < R ? ldf(x, (size_t)r * C + (i - row * C)) : 0.f;
-  }
-  __syncthreads();
-
-  const float4* wd = wp;
-  for (int n = 0; n < T; ++n) {
-    const int cur = n & 1, nxt = cur ^ 1;
-    // prefetch the next step's x tile into registers (stored after compute)
-    float pre[PRE];
-    const bool more = n + 1 < T;
-#pragma unroll
-    for (int u = 0; u < PRE; ++u) {
-      const int i = tid + u * nt;
-      pre[u] = 0.f;
-      if (more && i < RT * C) {
-        const int row = i / C, r = r0 + row;
-        if (r < R)
-          pre[u] = ldf(x, ((size_t)(n + 1) * R + r) * C + (i - row * C));
-      }
-    }
-    const float* xr = xbuf + cur * RT * C + grp * RPT * C;
-    const float* hr = hbuf + cur * RT * H + grp * RPT * H;
-    float4 acc[RPT];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < C; ++k) {
-      const float4 w = wd[k * H + j];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        const float v = xr[q * C + k];
-        acc[q].x += v * w.x; acc[q].y += v * w.y;
-        acc[q].z += v * w.z; acc[q].w += v * w.w;
-      }
-    }
-    // gx = x W_ih + b: bf16(x W_ih) + b in the mixed mode, rounded again
-    // when b is bf16
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if constexpr (M) {
-        constexpr bool WB = std::is_same<WT, bf16>::value;
-        acc[q].x = rb(acc[q].x) + bias.x; acc[q].y = rb(acc[q].y) + bias.y;
-        acc[q].z = rb(acc[q].z) + bias.z; acc[q].w = rb(acc[q].w) + bias.w;
-        if (WB) {
-          acc[q].x = rb(acc[q].x); acc[q].y = rb(acc[q].y);
-          acc[q].z = rb(acc[q].z); acc[q].w = rb(acc[q].w);
-        }
-      } else {
-        acc[q].x += bias.x; acc[q].y += bias.y;
-        acc[q].z += bias.z; acc[q].w += bias.w;
-      }
-    }
-    // the gates: gx + h W_hh, the product summed on its own first, as the
-    // plain version adds them
-    float4 hw[RPT];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) hw[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int m = 0; m < H; ++m) {
-      const float4 w = wd[(C + m) * H + j];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        const float v = hr[q * H + m];
-        hw[q].x += v * w.x; hw[q].y += v * w.y;
-        hw[q].z += v * w.z; hw[q].w += v * w.w;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      acc[q].x += hw[q].x; acc[q].y += hw[q].y;
-      acc[q].z += hw[q].z; acc[q].w += hw[q].w;
-    }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const int row = grp * RPT + q, r = r0 + row;
-      float ig, fg, gg, og, h;
-      if constexpr (M) {
-        ig = sig<true>(rb(acc[q].x)); fg = sig<true>(rb(acc[q].y));
-        gg = rb(tanhf(rb(acc[q].z))); og = sig<true>(rb(acc[q].w));
-        // a multiply, then an add, as the plain version takes them
-        c[q] = __fadd_rn(__fmul_rn(fg, c[q]), rb(ig * gg));
-        h = rb(og * rb(tanhf(rb(c[q]))));
-      } else {
-        ig = sig<false>(acc[q].x); fg = sig<false>(acc[q].y);
-        gg = tanhf(acc[q].z); og = sig<false>(acc[q].w);
-        c[q] = fg * c[q] + ig * gg;
-        h = og * tanhf(c[q]);
-      }
-      hbuf[nxt * RT * H + row * H + j] = h;
-      if (r < R) {
-        stf(y, ((size_t)n * R + r) * H + j, h);
-        const size_t go = ((size_t)n * R + r) * H4 + j;
-        stf(gates, go, ig); stf(gates, go + H, fg);
-        stf(gates, go + 2 * H, gg); stf(gates, go + 3 * H, og);
-        cseq[((size_t)n * R + r) * H + j] = c[q];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < PRE; ++u) {
-      const int i = tid + u * nt;
-      if (more && i < RT * C) xbuf[nxt * RT * C + i] = pre[u];
-    }
-    __syncthreads();
-  }
-}
 
 template <int ND, typename XT, typename WT>
 __global__ void __launch_bounds__(512) seq_bwd_kernel(
@@ -392,25 +225,8 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t fwd_smem(int C, int H) {
-  return (size_t)(C + H) * H * 16 + (size_t)2 * RT * (C + H) * 4;
-}
-
 size_t bwd_smem(int H, int nd) {
   return (size_t)nd * 4 * H * H * 4 + (size_t)2 * nd * RT * 4 * H * 4;
-}
-
-template <typename XT, typename WT>
-int seq_fwd(const void* x, const void* w_ih, const void* w_hh, const void* b,
-            const float* h0, const float* c0, void* y, void* gates,
-            float* cseq, int T, int R, int C, int H, cudaStream_t st) {
-  const size_t smem = fwd_smem(C, H);
-  int err = set_smem((const void*)seq_fwd_kernel<XT, WT>, smem);
-  if (err) return err;
-  seq_fwd_kernel<XT, WT><<<(R + RT - 1) / RT, G * H, smem, st>>>(
-      (const XT*)x, (const WT*)w_ih, (const WT*)w_hh, (const WT*)b, h0, c0,
-      (XT*)y, (GateT<XT, WT>*)gates, cseq, T, R, C, H);
-  return (int)cudaGetLastError();
 }
 
 // ---- the fp32 single-direction forward (row 6a): csrc/lstm_fwd32.cuh's
@@ -515,6 +331,10 @@ int seq_bfwd_mixed(const void* x, const void* w_ih_f, const void* w_ih_b,
       (const WT*)b, (bf16*)y, (bf16*)gates, cseq, T, R, C, rows);
 }
 
+// ---- the single-direction backward (rows 7a, 7b): the first design,
+// instantiated at ND = 1 only (the fused-direction backward, row 9, is the
+// walk of csrc/lstm_seq_bwd.cu)
+
 template <int ND, typename XT, typename WT>
 int seq_bwd(const void* gates, const float* cseq, const float* c0,
             const void* dy, const void* w_hh, const float* dhT,
@@ -545,15 +365,15 @@ int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
                           C, H, rows, st);
     case 1:
       if constexpr (ND == 1)
-        return seq_fwd<bf16, bf16>(x, w_ih_f, w_hh, b, h0, c0, y, gates,
-                                   cseq, T, R, C, H, st);
+        return sbt_seq_fwd_mixed(1, x, w_ih_f, w_hh, b, h0, c0, y, gates,
+                                 cseq, T, R, C, H, rows, st);
       else
         return seq_bfwd_mixed<bf16>(x, w_ih_f, w_ih_b, w_hh, b, y, gates,
                                     cseq, T, R, C, H, rows, st);
     case 2:
       if constexpr (ND == 1)
-        return seq_fwd<bf16, float>(x, w_ih_f, w_hh, b, h0, c0, y, gates,
-                                    cseq, T, R, C, H, st);
+        return sbt_seq_fwd_mixed(2, x, w_ih_f, w_hh, b, h0, c0, y, gates,
+                                 cseq, T, R, C, H, rows, st);
       else
         return seq_bfwd_mixed<float>(x, w_ih_f, w_ih_b, w_hh, b, y, gates,
                                      cseq, T, R, C, H, rows, st);
@@ -562,21 +382,20 @@ int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
   }
 }
 
-template <int ND>
 int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
                const float* c0, const void* dy, const void* w_hh,
                const float* dhT, const float* dcT, void* dg, float* dh0,
                float* dc0, int T, int R, int H, cudaStream_t st) {
   switch (dtypes) {
     case 0:
-      return seq_bwd<ND, float, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
-                                       dg, dh0, dc0, T, R, H, st);
-    case 1:
-      return seq_bwd<ND, bf16, bf16>(gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
-                                     dh0, dc0, T, R, H, st);
-    case 2:
-      return seq_bwd<ND, bf16, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
+      return seq_bwd<1, float, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
                                       dg, dh0, dc0, T, R, H, st);
+    case 1:
+      return seq_bwd<1, bf16, bf16>(gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
+                                    dh0, dc0, T, R, H, st);
+    case 2:
+      return seq_bwd<1, bf16, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
+                                     dg, dh0, dc0, T, R, H, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -586,20 +405,13 @@ int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
 
 // dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
 // 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); y, dy and dgates
-// have the activations' type, the saved gates bf16 in the mixed mode. nd = 1:
-// w_ih_b is unused; nd = 2: h0, c0 (forward) and c0, dhT, dcT, dh0, dc0
-// (backward) are unused (zero states), and may be null. rows: rows a block
-// of the walk's forwards (dtypes = 0, and nd = 2 mixed; their shared memory
-// is sbt_lstm_fwd32_smem's / sbt_lstm_fwd_mixed_smem's; nd = 2 launches a
-// grid of 2 x ceil(R / rows) blocks), unused by row 6b's first design.
-// row 6b's (the first design's) shared memory
-extern "C" size_t sbt_lstm_seq_fwd_smem(int C, int H) {
-  return fwd_smem(C, H);
-}
-
-extern "C" size_t sbt_lstm_seq_bwd_smem(int H, int nd) {
-  return bwd_smem(H, nd);
-}
+// have the activations' type, the saved gates bf16 in the mixed mode.
+// Forward, nd = 1: w_ih_b is unused; nd = 2: h0, c0 are unused (zero
+// states), and may be null. rows: rows a block of the walk (its shared
+// memory is sbt_lstm_fwd32_smem's, or, mixed, sbt_lstm_fwd_mixed_smem's with
+// bseq = 1; nd = 2 launches a grid of 2 x ceil(R / rows) blocks). The
+// backward here is one direction's (rows 7a, 7b; the fused-direction one is
+// sbt_blstm_seq_bwd, csrc/lstm_seq_bwd.cu).
 
 extern "C" int sbt_lstm_seq_fwd(const void* x, const void* w_ih_f,
                                 const void* w_ih_b, const void* w_hh,
@@ -622,15 +434,9 @@ extern "C" int sbt_lstm_seq_bwd(const void* gates, const float* cseq,
                                 const float* c0, const void* dy,
                                 const void* w_hh, const float* dhT,
                                 const float* dcT, void* dg, float* dh0,
-                                float* dc0, int T, int R, int H, int nd,
+                                float* dc0, int T, int R, int H,
                                 int dtypes, void* stream) {
   cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nd == 1)
-    return bwd_dtypes<1>(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
-                         dh0, dc0, T, R, H, st);
-  if (nd == 2)
-    return bwd_dtypes<2>(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
-                         dh0, dc0, T, R, H, st);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dtypes(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg, dh0,
+                    dc0, T, R, H, (cudaStream_t)stream);
 }

@@ -871,8 +871,9 @@ extern "C" size_t sbt_lstm_fwd32_smem(int C, int H, int rows) {
   return sbt_fwd32::smem_bytes(C, H, rows);
 }
 
-// The mixed forwards' (rows 10b and, bseq, 8b) shared memory at `rows` rows
-// a block for the pair dtypes (1 or 2), 0 for a shape they do not take.
+// The mixed forwards' (rows 10b and, bseq, 8b and 6b) shared memory at
+// `rows` rows a block for the pair dtypes (1 or 2), 0 for a shape they do
+// not take.
 extern "C" size_t sbt_lstm_fwd_mixed_smem(int C, int H, int rows,
                                           int dtypes, int bseq) {
   if (dtypes != 1 && dtypes != 2) return 0;

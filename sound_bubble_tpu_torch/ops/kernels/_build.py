@@ -41,24 +41,39 @@ def find_nvcc() -> str:
 
 
 def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
-    """Run the commands at once; (command, return code, output) of each.
-    Every process is waited for, or killed at the time limit."""
+    """Run the commands at once; (command, return code, output with the
+    seconds the process took) of each. Every process is waited for, or
+    killed at the time limit."""
+    t0 = time.monotonic()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    deadline = time.monotonic() + NVCC_TIMEOUT_S
-    done = []
+    deadline = t0 + NVCC_TIMEOUT_S
+    outs = [""] * len(procs)
+    ended = [0.0] * len(procs)
+
+    def wait(i):   # one thread a process, so each one's own end is seen
+        try:
+            outs[i] = procs[i].communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            outs[i] = "[killed at the time limit]\n"
+        ended[i] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
     try:
-        for cmd, proc in zip(cmds, procs):
-            out, _ = proc.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))
-            done.append((cmd, proc.returncode, out))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return done
+    return [(cmd, proc.returncode, f"{out}[{ended[i]:.2f} s]\n")
+            for i, (cmd, proc, out) in enumerate(zip(cmds, procs, outs))]
 
 
 def build() -> tuple[Path, str]:
@@ -125,17 +140,18 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_lstm_slab_bwd.restype = i32
             lib.sbt_lstm_slab_bwd_smem.argtypes = [i32] * 4
             lib.sbt_lstm_slab_bwd_smem.restype = ctypes.c_size_t
-            for fn in (lib.sbt_lstm_seq_bwd_smem, lib.sbt_lstm_seq_fwd_smem):
-                fn.argtypes = [i32, i32]
-                fn.restype = ctypes.c_size_t
+            lib.sbt_blstm_seq_bwd_smem.argtypes = [i32] * 3
+            lib.sbt_blstm_seq_bwd_smem.restype = ctypes.c_size_t
             lib.sbt_lstm_fwd_mixed_smem.argtypes = [i32] * 5
             lib.sbt_lstm_fwd_mixed_smem.restype = ctypes.c_size_t
             lib.sbt_lstm_fwd32_smem.argtypes = [i32] * 3
             lib.sbt_lstm_fwd32_smem.restype = ctypes.c_size_t
             lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_seq_fwd.restype = i32
-            lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+            lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
             lib.sbt_lstm_seq_bwd.restype = i32
+            lib.sbt_blstm_seq_bwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+            lib.sbt_blstm_seq_bwd.restype = i32
             lib.sbt_blstm_infer.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             lib.sbt_blstm_infer.restype = i32
             _lib = lib

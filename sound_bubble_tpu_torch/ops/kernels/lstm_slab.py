@@ -201,13 +201,13 @@ def fwd_smem(c_in: int, hidden: int, rows: int, code: int = 0,
              bseq: bool = False) -> int:
     """Shared memory of one forward block of `rows` rows (bytes), as
     csrc/lstm_fwd32.cuh's `smem_bytes` (fp32, code 0) and `mixed_layout`
-    (the mixed pairs of DTYPES; bseq: row 8b's layout) lay it out: W_ih (fp32
-    gate-interleaved; for bf16 weights (code 1) bf16, transposed, each of
-    its 4H rows C rounded up to 16, plus 8), the slab's gx (K frames x rows,
-    each row H + 2 float 4-vectors; bseq: K / 2 frames, H + 8 bf16
-    4-vectors), its x tile (fp32, or bf16 at W_ih's row stride), and h
-    (double-buffered) and c at rows rounded up to 4, each row H + 8
-    floats."""
+    (the mixed pairs of DTYPES; bseq: the bf16-gx layout of rows 8b and 6b)
+    lay it out: W_ih (fp32 gate-interleaved; for bf16 weights (code 1)
+    bf16, transposed, each of its 4H rows C rounded up to 16, plus 8), the
+    slab's gx (K frames x rows, each row H + 2 float 4-vectors; bseq: K / 2
+    frames, H + 8 bf16 4-vectors), its x tile (fp32, or bf16 at W_ih's row
+    stride), and h (double-buffered) and c at rows rounded up to 4, each row
+    H + 8 floats."""
     r4 = -(-rows // 4) * 4
     hc = 12 * r4 * (hidden + 8)
     if code == 0:
@@ -224,13 +224,13 @@ def fwd_row_tiles(r: int, c_in: int, hidden: int, n_sm: int = N_SM,
                   nd: int = 1, code: int = 0,
                   bseq: bool = False) -> tuple[int, int]:
     """(rows a block, blocks) of the forward walk for R = r rows and nd
-    directions (rows 6a, 10: one; rows 5, 8: two, each direction a grid of
+    directions (rows 6, 10: one; rows 5, 8: two, each direction a grid of
     its own ceil(r / rows) row tiles), code the (x, weights) pair of DTYPES
-    and bseq row 8b's mixed layout (`fwd_smem`): the fewest rows that keep
-    the grid within one wave of n_sm blocks (one block an SM), up to
-    FWD_ROWS_MAX (fp32) or FWD_ROWS_MAX_MIXED, fewer where the block's
-    shared memory would not fit (then the grid takes more waves). A block
-    walks its rows' T frames in series, so its rows set the kernel's
+    and bseq the bf16-gx layout of rows 8b and 6b (`fwd_smem`): the fewest
+    rows that keep the grid within one wave of n_sm blocks (one block an
+    SM), up to FWD_ROWS_MAX (fp32) or FWD_ROWS_MAX_MIXED, fewer where the
+    block's shared memory would not fit (then the grid takes more waves). A
+    block walks its rows' T frames in series, so its rows set the kernel's
     time."""
     cap = FWD_ROWS_MAX_MIXED if code else FWD_ROWS_MAX
     rows = min(cap, -(-nd * r // n_sm))
@@ -244,9 +244,9 @@ def fwd_row_tiles(r: int, c_in: int, hidden: int, n_sm: int = N_SM,
 
 def _check_fwd_dims(x, hidden, code=0, bseq=False):
     """What the forward walk takes for the (x, weights) pair `code` of
-    DTYPES (bseq: row 8b's mixed layout): H in FWD32_HIDDEN; C a multiple of
-    4, or of 8 in the mixed mode (its bf16 x tile is copied in 16-byte
-    pieces too), and with bf16 weights (code 1, the tensor cores'
+    DTYPES (bseq: the bf16-gx layout of rows 8b and 6b): H in FWD32_HIDDEN;
+    C a multiple of 4, or of 8 in the mixed mode (its bf16 x tile is copied in
+    16-byte pieces too), and with bf16 weights (code 1, the tensor cores'
     projection) C <= MIXED_TC_C_MAX; one row's shared memory within a
     block's limit; x 16-byte aligned."""
     t_len, r, c_in = x.shape

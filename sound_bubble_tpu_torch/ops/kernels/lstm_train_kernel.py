@@ -27,17 +27,19 @@ the kernel or the call raises.
   direction-major ([di_f, df_f, dg_f, do_f | di_b, ...]) at the walk's step;
   dy_b is read at the mirrored time.
 
-`lstm_seq_fwd` in float32 and `blstm_seq_fwd` launch the walk of
-`csrc/lstm_fwd32.cuh`, which they share with the slab scan's forward: rows
-a block from `lstm_slab.fwd_row_tiles` (one wave of the card's SMs;
-`blstm_seq_fwd` walks each direction in a grid half of its own), each
-slab's input projection as one product into shared memory before its walk,
-W_hh in registers, four rows at a time on the serial chain; they take H in
-8, 16, 32, 64 and C a multiple of 4 (mixed: of 8, and C <= 64 with bf16
-weights). `blstm_seq_fwd`'s mixed mode keeps gx in bf16 at 4 frames a slab,
-so that 38 rows a block fit one wave at R = 2504. The backward walks and
-the mixed `lstm_seq_fwd` run the first design (8-row tiles, 4H <= 256,
-forward C <= 2H).
+Both forwards launch the walk of `csrc/lstm_fwd32.cuh`, which they share
+with the slab scan's forward: rows a block from `lstm_slab.fwd_row_tiles`
+(one wave of the card's SMs; `blstm_seq_fwd` walks each direction in a grid
+half of its own), each slab's input projection as one product into shared
+memory before its walk, W_hh in registers, four rows at a time on the serial
+chain; they take H in 8, 16, 32, 64 and C a multiple of 4 (mixed: of 8, and
+C <= 64 with bf16 weights). Their mixed mode keeps gx in bf16 at 4 frames a
+slab, so that 9 rows a block fit one wave at the inter LSTM's R = 1160 and
+38 at the intra BLSTM's R = 2504. `blstm_seq_bwd` launches the backward walk
+of `csrc/lstm_seq_bwd.cu`: W_hh^T in registers, each direction a grid half
+of `seq_bwd_row_tiles` rows a block (one wave), the next frame's gates, c
+and dy copied into shared memory while a frame is walked; H in 8, 16, 32,
+64. `lstm_seq_bwd` runs the first design (8-row tiles, 4H <= 256).
 
 `lstm_seq` and `blstm_seq` are the `torch.autograd.Function`s, the
 counterparts of `lstm_pallas_train` and `blstm_pallas_train`: their
@@ -63,8 +65,11 @@ import torch
 
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
-    BF16, DTYPES, F32, SMEM_LIMIT_BYTES, _check, _check_fwd_dims, _dispatch,
-    _mm, _n_sm, _stream, fwd_row_tiles, is_mixed, tanh_q)
+    BF16, DTYPES, F32, FWD32_HIDDEN, N_SM, SMEM_LIMIT_BYTES, _check,
+    _check_fwd_dims, _dispatch, _mm, _n_sm, _stream, fwd_row_tiles,
+    is_mixed, tanh_q)
+
+SEQ_BWD_ROWS_MAX = 48        # rows of a row-9 block (csrc: ROWS_MAX)
 
 
 def sigmoid_x(v):
@@ -242,20 +247,37 @@ def _dtype_code(xdt, w_hh) -> int:
     return DTYPES.index(pair)
 
 
-def _check_dims(nd, hidden, smem, c_in=None):
-    """What the first-design kernels (the backward walks and the mixed
-    `lstm_seq_fwd`; the walk's forwards are `lstm_slab._check_fwd_dims`')
-    take: 4H <= 256, C <= 2H (forward), shared memory within a block's
-    limit."""
-    if 4 * hidden > 256:
-        raise ValueError(f"H={hidden}: the kernels run 4H threads a "
-                         "direction and row group, at most 256")
-    if c_in is not None and c_in > 2 * hidden:
-        raise ValueError(f"C={c_in} > 2H={2 * hidden}: the forward kernel's "
-                         "x prefetch needs C <= 2H")
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"{nd} direction(s), H={hidden}: needs {smem} B of "
-                         f"shared memory, more than {SMEM_LIMIT_BYTES}")
+def seq_bwd_smem(hidden: int, rows: int, code: int = 0) -> int:
+    """Shared memory of one row-9 block of `rows` rows (bytes), as
+    csrc/lstm_seq_bwd.cu's `bwd_layout` lays it out for the (x, weights)
+    pair `code` of DTYPES: the gate tiles [2][rows][4H + 8] (mixed: bf16,
+    4H + 16), the c tiles [3][rows][H + 8] float32, the dy tiles
+    [2][rows][H + 8] (x's dtype), the dg tiles [2][rp][4H + 8] float32 and
+    the dc slots [rp][H + 8] float32 (rp: rows rounded up to 4); with bf16
+    weights (code 1, the tensor cores' chain) the dg tiles bf16 and rp rows
+    rounded up to 16."""
+    tc = code == 1
+    rp = -(-rows // (16 if tc else 4)) * (16 if tc else 4)
+    eb = 2 if code else 4
+    return (2 * rows * (4 * hidden + (16 if code else 8)) * eb
+            + 12 * rows * (hidden + 8) + 2 * rows * (hidden + 8) * eb
+            + 2 * rp * (4 * hidden + 8) * (2 if tc else 4)
+            + 4 * rp * (hidden + 8))
+
+
+def seq_bwd_row_tiles(r: int, hidden: int, code: int = 0,
+                      n_sm: int = N_SM) -> tuple[int, int]:
+    """(rows a block, blocks) of row 9's backward walk for R = r rows, each
+    direction a grid half of ceil(r / rows) blocks: the fewest rows that
+    keep both halves within one wave of n_sm blocks (one block an SM), up to
+    SEQ_BWD_ROWS_MAX, fewer where the block's shared memory would not fit
+    (then the grid takes more waves)."""
+    rows = min(SEQ_BWD_ROWS_MAX, -(-2 * r // n_sm))
+    while rows < SEQ_BWD_ROWS_MAX and 2 * -(-r // rows) > n_sm:
+        rows += 1
+    while rows > 1 and seq_bwd_smem(hidden, rows, code) > SMEM_LIMIT_BYTES:
+        rows -= 1
+    return rows, 2 * -(-r // rows)
 
 
 def _count(fn, code):
@@ -277,17 +299,8 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
     wdt = w_hh.dtype
     t_len, r, c_in = x.shape
     hidden = w_ihs[0].shape[-1] // 4
-    lib = _build.load_library()
-    rows = 0
-    if not code:
-        _check_fwd_dims(x, hidden)
-        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd)[0]
-    elif nd == 2:
-        _check_fwd_dims(x, hidden, code, bseq=True)
-        rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd, code,
-                             bseq=True)[0]
-    else:
-        _check_dims(nd, hidden, lib.sbt_lstm_seq_fwd_smem(c_in, hidden), c_in)
+    # the mixed walk keeps gx in bf16 (rows 6b and 8b)
+    _check_fwd_dims(x, hidden, code, bseq=bool(code))
     operands = [(f"w_ih[{k}]", w, (c_in, 4 * hidden), wdt)
                 for k, w in enumerate(w_ihs)]
     operands += [("w_hh", w_hh, (nd * hidden, nd * 4 * hidden), wdt),
@@ -297,8 +310,9 @@ def _launch_fwd(fn, x, w_ihs, w_hh, b, h0, c0):
                                                     F32)]
     for name, t, shape, dt in operands:
         _check(name, t, shape, dev, dt)
-    if t_len < 1 or r < 1:
-        raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    rows = fwd_row_tiles(r, c_in, hidden, _n_sm(dev), nd, code,
+                         bseq=bool(code))[0]
+    lib = _build.load_library()
     y = torch.empty((t_len, r, nd * hidden), dtype=x.dtype, device=dev)
     gates = torch.empty((t_len, r, nd * 4 * hidden),
                         dtype=BF16 if code else F32, device=dev)
@@ -331,8 +345,12 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
                          "[nd*H, nd*4H]")
     t_len, r, width = c_seq.shape
     hidden = width // nd
-    lib = _build.load_library()
-    _check_dims(nd, hidden, lib.sbt_lstm_seq_bwd_smem(hidden, nd))
+    if nd == 2 and hidden not in FWD32_HIDDEN:
+        raise ValueError(f"H={hidden}: the fused-direction backward takes H "
+                         f"in {', '.join(map(str, FWD32_HIDDEN))}")
+    if nd == 1 and 4 * hidden > 256:
+        raise ValueError(f"H={hidden}: the backward kernel runs 4H threads a "
+                         "row group, at most 256")
     operands = [("gates", gates, (t_len, r, nd * 4 * hidden), gdt),
                 ("dy", dy, (t_len, r, nd * hidden), out_dtype),
                 ("w_hh", w_hh, (nd * hidden, nd * 4 * hidden), w_hh.dtype)]
@@ -343,6 +361,13 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
         _check(name, t, shape, dev, dt)
     if t_len < 1 or r < 1:
         raise ValueError(f"empty scan: c_seq {tuple(c_seq.shape)}")
+    if nd == 2:
+        # the walk copies its tiles in 16-byte pieces
+        for name, t in (("gates", gates), ("c_seq", c_seq), ("dy", dy)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not aligned to 16 bytes")
+        rows = seq_bwd_row_tiles(r, hidden, code, _n_sm(dev))[0]
+    lib = _build.load_library()
     dg = torch.empty((t_len, r, nd * 4 * hidden), dtype=out_dtype,
                      device=dev)
     dh0 = dc0 = None
@@ -354,10 +379,16 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        rc = lib.sbt_lstm_seq_bwd(
-            gates.data_ptr(), c_seq.data_ptr(), ptr(c0), dy.data_ptr(),
-            w_hh.data_ptr(), ptr(dhT), ptr(dcT), dg.data_ptr(), ptr(dh0),
-            ptr(dc0), t_len, r, hidden, nd, code, _stream(dev))
+        if nd == 2:
+            rc = lib.sbt_blstm_seq_bwd(
+                gates.data_ptr(), c_seq.data_ptr(), dy.data_ptr(),
+                w_hh.data_ptr(), dg.data_ptr(), t_len, r, hidden, code, rows,
+                _stream(dev))
+        else:
+            rc = lib.sbt_lstm_seq_bwd(
+                gates.data_ptr(), c_seq.data_ptr(), ptr(c0), dy.data_ptr(),
+                w_hh.data_ptr(), ptr(dhT), ptr(dcT), dg.data_ptr(), ptr(dh0),
+                ptr(dc0), t_len, r, hidden, code, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{rc}")
@@ -469,8 +500,10 @@ class _BlstmSeq(torch.autograd.Function):
         w_ih_f, w_ih_b, w_hh, x, y, gates, c_seq = ctx.saved_tensors
         whh_f_dt, b_f_dt, whh_b_dt, b_b_dt = ctx.dtypes
         hidden = w_hh.shape[0] // 2
-        dgates = blstm_seq_bwd(w_hh, gates, c_seq,
-                               dy.to(x.dtype).contiguous(), x.dtype)
+        dy = dy.to(x.dtype).contiguous()
+        if dy.data_ptr() % 16:     # the walk copies dy in 16-byte pieces
+            dy = dy.clone()
+        dgates = blstm_seq_bwd(w_hh, gates, c_seq, dy, x.dtype)
         dgf = dgates[..., :4 * hidden]     # walk step == original time
         dgb = dgates[..., 4 * hidden:]     # walk step == mirrored time
         # h entering each walk step, per direction; the backward direction's

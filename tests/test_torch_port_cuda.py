@@ -931,10 +931,14 @@ def test_seq_kernels_match_plain(shape, pair):
     dev = _card()
     a = _seq_case(SEQ_SHAPES[shape], dev, pair)
     tol = TOL if pair == "fp32" else 1e-2
-    if shape == "wide" and pair != "fp32":   # row 8b's one-wave grid
-        code = ls.DTYPES.index(SEQ_PAIRS[pair])
+    code = ls.DTYPES.index(SEQ_PAIRS[pair])
+    if shape == "wide" and pair != "fp32":   # rows 8b's and 6b's one wave
         assert ls.fwd_row_tiles(2504, 32, 64, 132, 2, code,
                                 bseq=True) == (38, 132)
+        assert ls.fwd_row_tiles(2504, 32, 64, 132, 1, code,
+                                bseq=True) == (19, 132)
+    if shape == "wide":                      # row 9's one wave
+        assert lk.seq_bwd_row_tiles(2504, 64, code, 132) == (38, 132)
     before = _seq_counts(lk)
     fargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
     got = lk.lstm_seq_fwd(*fargs)
@@ -1031,10 +1035,10 @@ def test_seq_route_on_card_goes_through_the_seq_kernels():
 
 
 def test_mixed_forward_layout_and_limits_agree_with_the_library():
-    """The mixed forwards' (rows 10b and 8b) shared-memory formula is the
-    library's for both pairs and both layouts, and both refuse (ValueError,
-    no launch) an H, a C or a C past the tensor cores' projection that the
-    walk does not take."""
+    """The mixed forwards' (rows 10b, 8b and 6b; 6b takes 8b's layout)
+    shared-memory formula is the library's for both pairs and both layouts,
+    and all three refuse (ValueError, no launch) an H, a C or a C past the
+    tensor cores' projection that the walk does not take."""
     from sound_bubble_tpu_torch.ops.kernels import _build
     from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
 
@@ -1063,8 +1067,49 @@ def test_mixed_forward_layout_and_limits_agree_with_the_library():
         p = {"w_ih": w[0], "w_hh": w[1], "b": w[2]}
         with pytest.raises(ValueError, match=match):
             lk.blstm_seq_fwd(*lk._blstm_pack(p, p), x)
+        with pytest.raises(ValueError, match=match):
+            lk.lstm_seq_fwd(*w, x, a["h0"], a["c0"])
     assert _seq_counts(lk) + [(ls.lstm_slab_fwd.launches,
                                ls.lstm_slab_fwd.mixed_launches)] == before
+
+
+def test_blstm_bwd_layout_and_limits_agree_with_the_library():
+    """Row 9's shared-memory formula (`seq_bwd_smem`) is the library's for
+    the three pairs, the library refuses an H or a row count it does not
+    take, and the wrapper raises (ValueError, no launch) for an H the walk
+    does not take and for a dy off 16-byte alignment."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+    from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
+
+    dev = _card()
+    lib = _build.load_library()
+    for h in (8, 16, 32, 64):
+        for code in (0, 1, 2):
+            for rows in (1, 5, 19, 38, 48):
+                assert lib.sbt_blstm_seq_bwd_smem(h, rows, code) == \
+                    lk.seq_bwd_smem(h, rows, code)
+    for h, rows in ((48, 1), (64, 0), (64, 49)):
+        assert lib.sbt_blstm_seq_bwd_smem(h, rows, 1) == 0
+    before = _seq_counts(lk)
+    a = _seq_case((5, 9, 32, 48), dev, "bf16")
+    with pytest.raises(ValueError, match="H=48"):
+        lk.blstm_seq_bwd(torch.zeros(96, 384, device=dev,
+                                     dtype=torch.bfloat16),
+                         torch.zeros(5, 9, 384, device=dev,
+                                     dtype=torch.bfloat16),
+                         torch.zeros(5, 9, 96, device=dev), a["dy2"],
+                         torch.bfloat16)
+    t_len, r, h = 5, 9, 64
+    dy = torch.zeros(t_len * r * 2 * h + 1, device=dev,
+                     dtype=torch.bfloat16)[1:].view(t_len, r, 2 * h)
+    with pytest.raises(ValueError, match="dy: not aligned"):
+        lk.blstm_seq_bwd(torch.zeros(2 * h, 8 * h, device=dev,
+                                     dtype=torch.bfloat16),
+                         torch.zeros(t_len, r, 8 * h, device=dev,
+                                     dtype=torch.bfloat16),
+                         torch.zeros(t_len, r, 2 * h, device=dev), dy,
+                         torch.bfloat16)
+    assert _seq_counts(lk) == before
 
 
 def test_seq_kernels_reject_bad_operands():

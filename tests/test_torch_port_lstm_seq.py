@@ -408,6 +408,106 @@ def test_blstm_mixed_rows(r):
         assert tk.fwd_row_tiles(r, 32, 64, nd=2) == (19, 264)
 
 
+@pytest.mark.parametrize("r", [37, 580, 1160])
+def test_seq_mixed_rows(r):
+    """Row 6b's grid (the walk's mixed mode SEQ, row 8b's layout: bf16 gx,
+    4 frames a slab): ceil(R / rows) blocks in one wave of the H100's 132
+    SMs, for both mixed pairs and C = 32, 24, 16; 9 rows a block, 129
+    blocks, at the bf16 recipe's inter R = 1160, where the first design took
+    145 blocks of 8."""
+    from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+
+    for code in (1, 2):
+        for c_in in (32, 24, 16):
+            rows, blocks = tk.fwd_row_tiles(r, c_in, 64, code=code,
+                                            bseq=True)
+            assert blocks == -(-r // rows) <= 132
+            assert rows == -(-r // 132)
+            assert tslab.fwd_smem(c_in, 64, rows, code, bseq=True) <= \
+                tslab.SMEM_LIMIT_BYTES
+    if r == 1160:
+        for code in (1, 2):
+            assert tk.fwd_row_tiles(r, 32, 64, code=code, bseq=True) == \
+                (9, 129)
+        assert tslab.fwd_smem(32, 64, 9, 1, bseq=True) == 54464
+        assert tslab.fwd_smem(32, 64, 9, 2, bseq=True) == 66176
+
+
+@pytest.mark.parametrize("r", [37, 580, 1252, 2504])
+def test_blstm_bwd_rows(r):
+    """Row 9's grid (csrc/lstm_seq_bwd.cu): each direction a half of
+    ceil(R / rows) blocks, both halves in one wave of the H100's 132 SMs at
+    every training R, in fp32 and both mixed pairs (the backward does not
+    see C); 19 rows a block at R = 1252 and 38 at R = 2504, 132 blocks,
+    where the first design took 157 and 313 blocks of 8 rows."""
+    for code in (0, 1, 2):
+        rows, blocks = tk.seq_bwd_row_tiles(r, 64, code)
+        assert blocks == 2 * -(-r // rows) <= 132
+        assert rows == -(-2 * r // 132)
+        assert tk.seq_bwd_smem(64, rows, code) <= tk.SMEM_LIMIT_BYTES
+    if r in (1252, 2504):
+        want = (19, 132) if r == 1252 else (38, 132)
+        assert all(tk.seq_bwd_row_tiles(r, 64, code) == want
+                   for code in (0, 1, 2))
+        # fp32; bf16 x and weights (the dg tile bf16 for the tensor cores'
+        # chain, its rows a multiple of 16); bf16 x with fp32 weights
+        assert tk.seq_bwd_smem(64, 19, 0) == 115488
+        assert tk.seq_bwd_smem(64, 38, 1) == 149632
+        assert tk.seq_bwd_smem(64, 38, 2) == 181120
+    if r == 2504:   # on 2 SMs: the most fp32 rows a block's memory takes
+        rows = tk.seq_bwd_row_tiles(r, 64, 0, n_sm=2)[0]
+        assert rows == 38 and tk.seq_bwd_smem(64, 39, 0) > \
+            tk.SMEM_LIMIT_BYTES >= tk.seq_bwd_smem(64, 38, 0)
+
+
+def test_seq_wrappers_refuse_before_launch():
+    """Rows 6 and 9's wrappers raise ValueError for an H, a C or an
+    alignment their kernels do not take before they build or launch
+    anything (here on CPU tensors, which the kernels never see)."""
+    def operands(t_len, r, c_in, hidden, xdt, wdt):
+        rng = np.random.default_rng(0)
+
+        def draw(*shape, dtype=torch.float32):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dtype)
+
+        return (draw(c_in, 4 * hidden, dtype=wdt),
+                draw(hidden, 4 * hidden, dtype=wdt),
+                draw(4 * hidden, dtype=wdt), draw(t_len, r, c_in, dtype=xdt),
+                draw(r, hidden), draw(r, hidden))
+
+    bf, f32 = torch.bfloat16, torch.float32
+    before = [(f.launches, f.mixed_launches) for f in
+              (tk.lstm_seq_fwd, tk.lstm_seq_bwd, tk.blstm_seq_bwd)]
+    for shape, wdt, match in (((3, 5, 32, 48), bf, "H=48"),
+                              ((3, 5, 12, 64), f32, "C=12"),
+                              ((3, 5, 72, 64), bf, "C=72")):
+        w_ih, w_hh, b, x, h0, c0 = operands(*shape, bf, wdt)
+        with pytest.raises(ValueError, match=match):
+            tk._launch_fwd(tk.lstm_seq_fwd, x, (w_ih,), w_hh, b, h0, c0)
+    for hidden, nd, match in ((48, 2, "H=48"), (80, 1, "H=80")):
+        t_len, r = 3, 5
+        gates = torch.zeros(t_len, r, nd * 4 * hidden)
+        c_seq = torch.zeros(t_len, r, nd * hidden)
+        w_hh = torch.zeros(nd * hidden, nd * 4 * hidden)
+        with pytest.raises(ValueError, match=match):
+            tk._launch_bwd(tk.blstm_seq_bwd, nd, gates, c_seq, None,
+                           torch.zeros(t_len, r, nd * hidden), None, None,
+                           w_hh, f32)
+    # row 9 copies its tiles in 16-byte pieces: dy 2 bytes past that
+    t_len, r, hidden = 3, 5, 8
+    dy = torch.zeros(t_len * r * 2 * hidden + 1, dtype=bf)[1:].view(
+        t_len, r, 2 * hidden)
+    with pytest.raises(ValueError, match="dy: not aligned"):
+        tk._launch_bwd(tk.blstm_seq_bwd, 2,
+                       torch.zeros(t_len, r, 8 * hidden, dtype=bf),
+                       torch.zeros(t_len, r, 2 * hidden), None, dy, None,
+                       None, torch.zeros(2 * hidden, 8 * hidden, dtype=bf),
+                       bf)
+    assert [(f.launches, f.mixed_launches) for f in
+            (tk.lstm_seq_fwd, tk.lstm_seq_bwd, tk.blstm_seq_bwd)] == before
+
+
 def test_bf16_reciprocal_margin():
     """The mixed walk's bf16 sigmoid (row 8b, `sig_m<RND_SEQ>` in
     csrc/lstm_fwd32.cuh) takes 1 / d for a bf16 d >= 1 with `rcp1`, within

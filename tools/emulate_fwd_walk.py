@@ -6,8 +6,9 @@ versions: a check of the kernels' logic where there is no card and no nvcc.
         [--only infer,bseq,seq,slab,mixed,stack]
 
 Copies the header and the kernels that include it (row 5's
-`csrc/lstm_infer.cu`; rows 6a and 8a from `csrc/lstm_seq.cu`, row 10a from
-`csrc/lstm_slab.cu`, cut out between their section comments) into DIR
+`csrc/lstm_infer.cu`; rows 6a, 8a and 8b from `csrc/lstm_seq.cu`, row 10
+from `csrc/lstm_slab.cu`, cut out between their section comments; row 6b's
+`csrc/lstm_seq_fwd_mixed.cu`) into DIR
 (default `_archive/emulate_fwd_walk`, listed in .gitignore), rewritten for
 the host: `rcp.approx` becomes a division, the `cp.async` helpers a
 `memcpy` and nothing, a launch a call of `emu::launch`. A header in place of
@@ -22,17 +23,34 @@ C = H = 8): every output within 1e-5 of `blstm_infer_ref`,
 line a case and the worst error a kernel; exits non-zero past 1e-5.
 About two minutes on 8 cores.
 
-`--only mixed` runs the walk's mixed mode (rows 10b and 8b: bf16 x, bf16
-or fp32 weights) the same way, with a bf16 type that rounds to nearest
+`--only mixed` runs the walk's mixed mode (rows 10b, 8b and 6b: bf16 x,
+bf16 or fp32 weights) the same way, with a bf16 type that rounds to nearest
 even by bit operations in place of `cuda_bf16.h` and `mma.sync` m16n8k16
 done from the fragments of all 32 lanes (A rows g / g + 8, columns 2t,
 2t + 8; B rows 2t, 2t + 8, column g; D rows g / g + 8, columns 2t,
-2t + 1), against `lstm_slab_fwd_ref` and `blstm_seq_fwd_ref` under the
-card's bars (chip_smoke.py phases 13 and 20): every output within 1e-2 of
-its peak; the slab's ys within one bf16 ulp of its peak everywhere, the
-fused-direction forward's bf16 outputs bit-equal at all but 5 % of their
-elements; at rows a block 1, 9 and 19 (and 38, row 8b's one-wave tile),
-ragged R and T, both directions, C = 32, 24, 16 (and C = H = 8).
+2t + 1), against `lstm_slab_fwd_ref`, `blstm_seq_fwd_ref` and
+`lstm_seq_fwd_ref` under the card's bars (chip_smoke.py phases 13 and 20):
+every output within 1e-2 of its peak; the slab's ys within one bf16 ulp of
+its peak everywhere, the seq forwards' bf16 outputs bit-equal at all but
+5 % of their elements; at rows a block 1, 9 and 19 (and 38, row 8b's
+one-wave tile), ragged R and T, both directions, C = 32, 24, 16 (and
+C = H = 8).
+
+`--only bwd` runs row 9's backward walk (`csrc/lstm_seq_bwd.cu`) the same
+way against `blstm_seq_bwd_ref` on the plain forward's gates and c, in
+fp32 (within 1e-4 of the peak) and both mixed pairs (the mixed bars), at
+rows a block 1, 19 and 38, tails of 1-3 rows, ragged R, T = 1 and H = 8,
+16, 32, 64 (`BWD_CASES`). `--only seqtest` runs rows 6b and 9 at the exact
+draws of tests/test_torch_port_cuda.py's `test_seq_kernels_match_plain`
+(every shape and pair, rows a block as the wrappers pick them on 132 SMs)
+under the card's bars. These and `--only mixed` take ~1-14 minutes; the
+test's `wide` shape (R = 2504) takes most of `seqtest`'s. With fp32
+weights a bf16 x times fp32 w product is inexact, so the plain version's
+bf16 roundings follow its fp32 matmul's summation order, which is MKL's
+here and cuBLAS's on the card: row 6b with fp32 weights fails `c24` (y
+1.26e-02 of its peak) and `wide` (gates 1.57e-02) here, while on the card
+only `c24` fails (at the same 1.26e-02; `tools/mixed_order_sensitivity.py
+--device cuda`).
 
 `--only stack` runs the stack steps' cluster kernel (rows 1-4,
 `csrc/stack_walk.cu`, which includes the walk) the same way, all eight
@@ -106,6 +124,7 @@ inline int cudaGetLastError() { return 0; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 template <typename T> inline T __ldcg(const T* p) { return *p; }
 struct dim3 {
   unsigned x, y, z;
@@ -322,6 +341,14 @@ extern "C" int emu_slab_fwd(const void* x, const void* w_ih,
   return slab_fwd32(x, w_ih, w_hh, b, h0, c0, ys, hT, cT, c_ckpt, T, R, C, H,
                     kf, reverse, rows, nullptr);
 }
+extern "C" int emu_seq_fwd_mixed(const void* x, const void* w_ih,
+                                 const void* w_hh, const void* b,
+                                 const float* h0, const float* c0, void* y,
+                                 void* gates, float* cseq, int T, int R,
+                                 int C, int H, int rows, int dtypes) {
+  return sbt_seq_fwd_mixed(dtypes, x, w_ih, w_hh, b, h0, c0, y, gates,
+                           cseq, T, R, C, H, rows, nullptr);
+}
 extern "C" int emu_bseq_fwd_mixed(const void* x, const void* w_ih_f,
                                   const void* w_ih_b, const void* w_hh,
                                   const void* b, void* y, void* gates,
@@ -390,14 +417,30 @@ def build(out):
                                           '#include "cuda_runtime.h"')
     seq = cut(read("lstm_seq.cu"),
               "// ---- the fp32 single-direction forward (row 6a)",
-              "template <int ND, typename XT, typename WT>\nint seq_bwd(")
+              "// ---- the single-direction backward (rows 7a, 7b)")
     slab = cut(read("lstm_slab.cu"), "// ---- the fp32 forward (row 10a)",
                "// The backward's shared memory at")
+    seq6b = once(read("lstm_seq_fwd_mixed.cu"), "#include <cuda_runtime.h>",
+                 '#include "cuda_runtime.h"')
     src = os.path.join(out, "walk.cpp")
     with open(src, "w") as fh:
         fh.write(infer + "\nnamespace {\nusing bf16 = __nv_bfloat16;\n" + seq
-                 + slab + "}\n" + ENTRIES % {"smem": SMEM})
+                 + slab + "}\n" + seq6b + ENTRIES % {"smem": SMEM})
     return ctypes.CDLL(compile_lib(out, src, "libwalk.so"))
+
+
+def build_bwd(out):
+    """The host copy of row 9's backward walk (csrc/lstm_seq_bwd.cu) in out
+    (after `build`, which writes the walk's header there), built; the
+    library, called through its own C entry points."""
+    bwd = once(read("lstm_seq_bwd.cu"), SHARED, HOST_SHARED)
+    bwd = bwd.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
+    if "asm" in bwd or "<<<" in bwd:
+        raise RuntimeError("lstm_seq_bwd.cu: a device-only line is left")
+    src = os.path.join(out, "bwd.cpp")
+    with open(src, "w") as fh:
+        fh.write(bwd + STORAGE % {"smem": SMEM})
+    return ctypes.CDLL(compile_lib(out, src, "libbwd.so"))
 
 
 def compile_lib(out, src, name):
@@ -621,11 +664,134 @@ def mixed_cases(lib, ls, lk, check, draw, nan, ptr):
             check("mixed_bseq", (code, rows, r, t_len, c, h), got, want)
 
 
+# (rows, R, T, C, H) of row 9's backward walk: rows a block 1, 19 and 38
+# (its one-wave tiles at the training R), tails of 1-3 rows in the last
+# group, a ragged last tile, T = 1, the edge widths, H = 8, 16, 32
+BWD_CASES = ((1, 3, 10, 32, 64), (19, 40, 9, 32, 64), (38, 77, 6, 32, 64),
+             (9, 12, 5, 24, 64), (5, 9, 1, 16, 64), (3, 7, 10, 8, 8),
+             (2, 5, 7, 16, 16), (7, 15, 4, 32, 32), (13, 27, 3, 16, 64))
+# tests/test_torch_port_cuda.py's SEQ_SHAPES (T, R, C, H) and its pairs
+TEST_SEQ_SHAPES = {"ragged": (13, 37, 32, 64), "one": (1, 9, 32, 64),
+                   "narrow": (11, 5, 8, 8), "wide": (9, 2504, 32, 64),
+                   "c24": (13, 37, 24, 64), "c16": (13, 37, 16, 64)}
+SEQ_TOL = 1e-4   # the card's fp32 bar on the seq kernels, of the peak
+
+
+def mixed_seq_cases(lib, lk, check, draw, nan, ptr):
+    """Row 6b (the walk's mixed mode SEQ) under the emulation against
+    `lstm_seq_fwd_ref`, bf16 x with bf16 and fp32 weights."""
+    import numpy as np
+    import torch
+
+    for code, wdt in ((1, torch.bfloat16), (2, torch.float32)):
+        for rows, r, t_len, c, h in MIXED_SLAB_CASES:
+            rng = np.random.default_rng(10 * rows + r + 2)
+            w = [draw(rng, *s, scale=h ** -0.5).to(wdt) for s in
+                 ((c, 4 * h), (h, 4 * h), (4 * h,))]
+            x = draw(rng, t_len, r, c).to(torch.bfloat16)
+            h0, c0 = draw(rng, r, h, scale=0.5), draw(rng, r, h, scale=0.5)
+            want = lk.lstm_seq_fwd_ref(*w, x, h0, c0)
+            got = [nan(*t.shape).to(t.dtype) for t in want]
+            if lib.emu_seq_fwd_mixed(*map(ptr, (x, *w, h0, c0, *got)), t_len,
+                                     r, c, h, rows, code):
+                raise RuntimeError("mixed seq refused the case")
+            check("mixed_seq", (code, rows, r, t_len, c, h), got, want)
+
+
+def bwd_run(libb, pack, gates, c_seq, dy, code, rows):
+    """Row 9's walk under the emulation: dgates."""
+    import torch
+
+    t_len, r, h2 = c_seq.shape
+    got = torch.full((t_len, r, 4 * h2), float("nan")).to(dy.dtype)
+    if libb.sbt_blstm_seq_bwd(gates.data_ptr(), c_seq.data_ptr(),
+                              dy.data_ptr(), pack[2].data_ptr(),
+                              got.data_ptr(), t_len, r, h2 // 2, code, rows,
+                              None):
+        raise RuntimeError("row 9 refused the case")
+    return got
+
+
+def bwd_cases(libb, lk, check, draw, ptr):
+    """Row 9 (csrc/lstm_seq_bwd.cu) under the emulation against
+    `blstm_seq_bwd_ref` on the plain forward's gates and c, in fp32 and
+    both mixed pairs."""
+    import numpy as np
+    import torch
+
+    for code, (xdt, wdt) in enumerate(lk.DTYPES):
+        for rows, r, t_len, c, h in BWD_CASES:
+            rng = np.random.default_rng(10 * rows + r + 3)
+            w = [draw(rng, *s, scale=h ** -0.5).to(wdt) for s in
+                 ((c, 4 * h), (h, 4 * h), (4 * h,)) * 2]
+            x = draw(rng, t_len, r, c).to(xdt)
+            pack = lk._blstm_pack(dict(zip(("w_ih", "w_hh", "b"), w[:3])),
+                                  dict(zip(("w_ih", "w_hh", "b"), w[3:])))
+            _, gates, c_seq = lk.blstm_seq_fwd_ref(*pack, x)
+            dy = draw(rng, t_len, r, 2 * h).to(xdt)
+            want = lk.blstm_seq_bwd_ref(pack[2], gates, c_seq, dy, xdt)
+            got = bwd_run(libb, pack, gates, c_seq, dy, code, rows)
+            check("bwd", (code, rows, r, t_len, c, h), [got], [want])
+
+
+def test_draws(shape, seed):
+    """The operands of tests/test_torch_port_cuda.py's `_slab_case` on the
+    CPU (the same draws in the same order)."""
+    import numpy as np
+    import torch
+
+    t_len, r, c, h = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(s) * scale)
+                                .astype(np.float32))
+
+    return dict(w_ih=draw(c, 4 * h, scale=0.3), w_hh=draw(h, 4 * h, scale=0.3),
+                b=draw(4 * h, scale=0.1), x=draw(t_len, r, c),
+                h0=draw(r, h, scale=0.5), c0=draw(r, h, scale=0.5),
+                dy=draw(t_len, r, h), dhT=draw(r, h), dcT=draw(r, h))
+
+
+def seq_test_cases(lib, libb, ls, lk, check, nan, ptr):
+    """Rows 6b and 9 at the exact draws of `test_seq_kernels_match_plain`
+    (every shape and pair; rows a block as the wrappers pick them on 132
+    SMs), under the card's bars."""
+    import torch
+
+    for name, shape in TEST_SEQ_SHAPES.items():
+        t_len, r, c, h = shape
+        a, b = test_draws(shape, 0), test_draws(shape, 1)
+        dy2 = torch.cat([a["dy"], b["dy"]], dim=-1)
+        for code, (xdt, wdt) in enumerate(lk.DTYPES):
+            w = [a[k].to(wdt) for k in ("w_ih", "w_hh", "b")]
+            wb = [b[k].to(wdt) for k in ("w_ih", "w_hh", "b")]
+            x = a["x"].to(xdt)
+            if code:   # row 6b
+                rows = ls.fwd_row_tiles(r, c, h, 132, 1, code, bseq=True)[0]
+                want = lk.lstm_seq_fwd_ref(*w, x, a["h0"], a["c0"])
+                got = [nan(*t.shape).to(t.dtype) for t in want]
+                if lib.emu_seq_fwd_mixed(*map(ptr, (x, *w, a["h0"], a["c0"],
+                                                    *got)), t_len, r, c, h,
+                                         rows, code):
+                    raise RuntimeError("mixed seq refused the case")
+                check("test_row6b", (name, code, rows), got, want)
+            pack = lk._blstm_pack(dict(zip(("w_ih", "w_hh", "b"), w)),
+                                  dict(zip(("w_ih", "w_hh", "b"), wb)))
+            _, gates, c_seq = lk.blstm_seq_fwd_ref(*pack, x)
+            dy = dy2.to(xdt)
+            want = lk.blstm_seq_bwd_ref(pack[2], gates, c_seq, dy, xdt)
+            rows = lk.seq_bwd_row_tiles(r, h, code, 132)[0]
+            got = bwd_run(libb, pack, gates, c_seq, dy, code, rows)
+            check("test_row9", (name, code, rows), [got], [want])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "_archive",
                                                   "emulate_fwd_walk"))
-    ap.add_argument("--only", default="infer,bseq,seq,slab,mixed,stack")
+    ap.add_argument("--only",
+                    default="infer,bseq,seq,slab,mixed,bwd,seqtest,stack")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
@@ -641,6 +807,7 @@ def main(argv=None):
     lib.emu_seq_fwd.argtypes = [P] * 10 + [I] * 6
     lib.emu_slab_fwd.argtypes = [P] * 10 + [I] * 8
     lib.emu_bseq_fwd_mixed.argtypes = [P] * 8 + [I] * 6
+    lib.emu_seq_fwd_mixed.argtypes = [P] * 9 + [I] * 6
     torch.set_num_threads(1)
     only = args.only.split(",")
     worst = {}
@@ -654,18 +821,24 @@ def main(argv=None):
         print(kind, case, " ".join(f"{e:.2e}" for e in errs), flush=True)
         worst[kind] = max(worst.get(kind, 0.0), *errs)
 
-    failed = []
+    failed, checked = [], []
 
     def check_mixed(kind, case, got, want):
-        """The card's bars: each output within MIXED_REL_TOL of its peak;
-        slab: ys within one bf16 ulp of its peak everywhere; bseq: y and
-        the gates bit-equal at all but MIXED_SHARE of their elements."""
+        """The card's bars: fp32 (row 9 and the tests' draws) each output
+        within SEQ_TOL of its peak; mixed each output within MIXED_REL_TOL
+        of its peak; slab: ys within one bf16 ulp of its peak everywhere;
+        the seq walks: their bf16 outputs (y, gates; dgates) bit-equal at
+        all but MIXED_SHARE of their elements."""
         rel = [float((g.float() - w.float()).abs().max())
                / max(float(w.float().abs().max()), 1e-30)
                for g, w in zip(got, want)]
-        ok = max(rel) <= MIXED_REL_TOL and all(
+        fp32 = want[0].dtype == torch.float32
+        ok = max(rel) <= (SEQ_TOL if fp32 else MIXED_REL_TOL) and all(
             g.dtype == w.dtype for g, w in zip(got, want))
-        if kind == "mixed_slab":
+        checked.append(kind)
+        if fp32:
+            extra = ""
+        elif kind == "mixed_slab":
             peak = float(want[0].float().abs().max())
             ulp = 2.0 ** (np.floor(np.log2(peak)) - 7)
             n_ulp = int(((got[0].float() - want[0].float()).abs()
@@ -756,12 +929,19 @@ def main(argv=None):
                 check("slab", (rows, r, t_len, c, rev), got, want)
     if "mixed" in only:
         mixed_cases(lib, ls, lk, check_mixed, draw, nan, ptr)
+        mixed_seq_cases(lib, lk, check_mixed, draw, nan, ptr)
+    if "bwd" in only or "seqtest" in only:
+        libb = build_bwd(args.out)
+        libb.sbt_blstm_seq_bwd.argtypes = [P] * 5 + [I] * 5 + [P]
+        if "bwd" in only:
+            bwd_cases(libb, lk, check_mixed, draw, ptr)
+        if "seqtest" in only:
+            seq_test_cases(lib, libb, ls, lk, check_mixed, nan, ptr)
     if "stack" in only:
         stack_cases(build_stack(args.out), check, ptr)
     print(f"worst max-abs {worst} (tol {TOL}), mixed cases past the card's "
           f"bars: {failed}, {time.time() - t0:.1f} s")
-    if (not worst and not only == ["mixed"]) or max(worst.values(),
-                                                    default=0.0) > TOL \
+    if (not worst and not checked) or max(worst.values(), default=0.0) > TOL \
             or failed:
         sys.exit(1)
 

@@ -14,7 +14,8 @@ slab forward at the flagship's intra [145, 1252, 32] and inter
 fused-direction forward (row 8a) at the intra shape, row 5's whole
 function at one stream ([R, T, C] = [1, 145, 32]) and, mixed (bf16 x and
 weights), the slab forward and the fused-direction forward at the bf16
-recipe's intra shape [145, 2504, 32]. Prints the
+recipe's intra shape [145, 2504, 32] and the seq forward (row 6b, also with
+fp32 weights) at its inter shape [313, 1160, 32]. Prints the
 card's name and power limit, then one JSON line a shape: cycles a frame of
 thread 0's block and their split (the x tile's wait and the slab's first
 barrier; the projection and c_ckpt; the second barrier and the next x
@@ -32,12 +33,13 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("wait x + barrier", "project + ckpt", "barrier + load_x",
           "h.W FMA", "reduce", "cell", "frame barrier")
-# (kernel, T, R, C, mixed) timed; mixed: bf16 x and weights, at the bf16
-# recipe's batch 8 (rows 10b and 8b)
-SHAPES = (("slab", 145, 1252, 32, False), ("slab", 313, 580, 32, False),
-          ("seq", 313, 580, 32, False), ("bseq", 145, 1252, 32, False),
-          ("infer", 145, 1, 32, False), ("slab", 145, 2504, 32, True),
-          ("bseq", 145, 2504, 32, True))
+# (kernel, T, R, C, (x, weights) pair code of lstm_slab.DTYPES) timed; the
+# mixed pairs at the bf16 recipe's batch 8 (rows 10b, 8b and 6b)
+SHAPES = (("slab", 145, 1252, 32, 0), ("slab", 313, 580, 32, 0),
+          ("seq", 313, 580, 32, 0), ("bseq", 145, 1252, 32, 0),
+          ("infer", 145, 1, 32, 0), ("slab", 145, 2504, 32, 1),
+          ("bseq", 145, 2504, 32, 1), ("seq", 313, 1160, 32, 1),
+          ("seq", 313, 1160, 32, 2))
 STAMP = ("#define ST(i, t0) do { if (threadIdx.x == 0) { long long _n = "
          "clock64(); sacc[i] += _n - t0; t0 = _n; } } while (0)\n")
 # (text of lstm_fwd32.cuh, its instrumented replacement), each found once
@@ -110,6 +112,7 @@ def instrument(out_dir):
     open(path, "w").write(src)
     for name, reader in (("lstm_slab.cu", "sbt_split_slab"),
                          ("lstm_seq.cu", "sbt_split_seq"),
+                         ("lstm_seq_fwd_mixed.cu", "sbt_split_seq6b"),
                          ("lstm_infer.cu", "sbt_split_infer")):
         with open(os.path.join(csrc, name), "a") as fh:
             fh.write(READER.format(name=reader))
@@ -130,22 +133,25 @@ def child(out_dir):
         sys.exit("needs an NVIDIA card")
     dev = torch.device("cuda")
     lib = _build.load_library()
+    # each source keeps stamps of its own: row 6b's is lstm_seq_fwd_mixed.cu
     readers = {"slab": lib.sbt_split_slab, "seq": lib.sbt_split_seq,
-               "bseq": lib.sbt_split_seq, "infer": lib.sbt_split_infer}
+               "seq6b": lib.sbt_split_seq6b, "bseq": lib.sbt_split_seq,
+               "infer": lib.sbt_split_infer}
     for fn in readers.values():
         fn.argtypes = [ctypes.c_void_p]
     h = 64
-    for kind, t_len, r, c, mixed in SHAPES:
+    for kind, t_len, r, c, code in SHAPES:
         rng = np.random.default_rng(0)
-        adt = torch.bfloat16 if mixed else torch.float32
+        xdt, wdt = ls.DTYPES[code]
 
-        def draw(*shape, scale=1.0, dtype=adt):
+        def draw(*shape, scale=1.0, dtype=wdt):
             return torch.from_numpy((rng.standard_normal(shape) * scale)
                                     .astype(np.float32)).to(dev, dtype)
 
         args = (draw(c, 4 * h, scale=h ** -0.5),
                 draw(h, 4 * h, scale=h ** -0.5), draw(4 * h, scale=h ** -0.5),
-                draw(t_len, r, c), draw(r, h, scale=0.5, dtype=torch.float32),
+                draw(t_len, r, c, dtype=xdt),
+                draw(r, h, scale=0.5, dtype=torch.float32),
                 draw(r, h, scale=0.5, dtype=torch.float32))
 
         p = [dict(zip(("w_ih", "w_hh", "b"), args[:3])),
@@ -166,12 +172,14 @@ def child(out_dir):
 
         sums = (ctypes.c_ulonglong * 16)()
         run()
-        readers[kind](ctypes.cast(sums, ctypes.c_void_p))
+        reader = readers["seq6b" if kind == "seq" and code else kind]
+        reader(ctypes.cast(sums, ctypes.c_void_p))
         run()
-        readers[kind](ctypes.cast(sums, ctypes.c_void_p))
+        reader(ctypes.cast(sums, ctypes.c_void_p))
         per = [v / sums[8] / t_len for v in sums[:8]]
         print(json.dumps({
-            "kernel": kind, "shape": [t_len, r, c], "mixed": mixed,
+            "kernel": kind, "shape": [t_len, r, c],
+            "pair": [str(xdt), str(wdt)],
             "blocks": sums[8],
             "cycles_per_frame": round(per[7], 1),
             "split": {p: round(v, 1) for p, v in zip(PHASES, per)},

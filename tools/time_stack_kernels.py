@@ -27,14 +27,17 @@ flagship training path's shapes of chip_smoke.py's phase 6
 batch-8 shapes of phase 13 (intra [145, 2504, 32], inter [313, 1160, 32]);
 and, for each of these four shapes, `torch.profiler`'s split of one
 `lstm_slab_bwd` call among the kernels it launches (device us by kernel
-name); then the seq route's forwards, 20 launches after one: the
-single-direction `lstm_seq_fwd` (row 6) in fp32 at the inter LSTM's shape of
-phase 20 ([313, 580, 32]) and mixed at the recipe's batch 8
-([313, 1160, 32]), the fused-direction `blstm_seq_fwd` (row 8) in fp32 at
-the intra BLSTM's ([145, 1252, 32]) and mixed at batch 8 ([145, 2504, 32]),
-each beside cuDNN's LSTM forward (`torch.nn.LSTM`) on the same x; the
-mixed forwards at batch 8 again with fp32 weights (`*_fp32w_fwd_ms`: the
-(bf16, fp32) pair of `train_pt --bf16`) and, where the tree's walk has a
+name); then the seq route's walks, 20 launches after one: the
+single-direction `lstm_seq_fwd` (row 6) and its backward `lstm_seq_bwd`
+(row 7) in fp32 at the inter LSTM's shape of phase 20 ([313, 580, 32]) and
+mixed at the recipe's batch 8 ([313, 1160, 32]), the fused-direction
+`blstm_seq_fwd` (row 8) and its backward `blstm_seq_bwd` (row 9) in fp32
+at the intra BLSTM's ([145, 1252, 32]) and mixed at batch 8
+([145, 2504, 32]), each forward beside cuDNN's LSTM forward
+(`torch.nn.LSTM`) on the same x, each backward (`*_bwd_ms`) on its
+forward's gates and c; the mixed walks at batch 8 again with fp32 weights
+(`*_fp32w_fwd_ms`, `*_fp32w_bwd_ms`: the (bf16, fp32) pair of `train_pt
+--bf16`) and, where the tree's walk has a
 mixed mode, row 8b on the two-wave grid of 19 rows a block
 (`seq_mixed_intra_rows19_fwd_ms`) beside its one-wave 38; then the
 whole of the fused inference BLSTM `blstm_infer` (row 5), 200 calls after
@@ -372,16 +375,34 @@ def time_forwards(out, dev):
                 dict(zip(("w_ih", "w_hh", "b"), w)),
                 dict(zip(("w_ih", "w_hh", "b"), wb))), x)
         lstm = cudnn_lstm(c, 64, nd, x.dtype, dev)
+        dy = draw(t_len, r, nd * 64, dtype=x.dtype)
+
+        def bwd(args):
+            """The row's backward walk (7 or 9) on the forward's gates and
+            c for args."""
+            _, gates, c_seq = fn(*args)
+            w_hh = args[1] if nd == 1 else args[2]
+            if nd == 1:
+                return lambda: lk.lstm_seq_bwd(gates, c_seq, h0, dy, h0, c0,
+                                               w_hh, x.dtype)
+            return lambda: lk.blstm_seq_bwd(w_hh, gates, c_seq, dy, x.dtype)
+
         with torch.no_grad():
             fn(*fargs)
             out[f"seq_{name}_fwd_ms"] = events_ms(lambda: fn(*fargs), 20)
             lstm(x)
             out[f"seq_{name}_cudnn_fwd_ms"] = events_ms(lambda: lstm(x), 20)
+            step = bwd(fargs)
+            step()
+            out[f"seq_{name}_bwd_ms"] = events_ms(step, 20)
             if mixed:
                 wargs = [a.float() if a is not x else a for a in fargs]
                 fn(*wargs)
                 out[f"seq_{name}_fp32w_fwd_ms"] = events_ms(
                     lambda: fn(*wargs), 20)
+                step = bwd(wargs)
+                step()
+                out[f"seq_{name}_fp32w_bwd_ms"] = events_ms(step, 20)
             if mixed and nd == 2 and hasattr(ls, "FWD_ROWS_MAX_MIXED"):
                 cap = ls.FWD_ROWS_MAX_MIXED
                 ls.FWD_ROWS_MAX_MIXED = 19
