@@ -107,14 +107,15 @@ W=100), seeded weights of the flagship and the Orange Pi configurations
    `tools/jax_train_step_golden.py`); ms per step, peak memory.
 
 Phases 20-24 drive the custom-VJP kernel route (`--lstm_scan seq`:
-`ops/kernels/lstm_train_kernel.py` on `csrc/lstm_seq.cu`, rows 6-9 of
-PERF.md's kernel table):
+`ops/kernels/lstm_train_kernel.py` on `csrc/lstm_seq.cu`,
+`csrc/lstm_seq_fwd_mixed.cu` and, rows 7 and 9, the backward walk of
+`csrc/lstm_seq_bwd.cu`; rows 6-9 of PERF.md's kernel table):
 
 20. the four kernels against their plain versions at the flagship training
    shapes (intra [145, 1252, 32] both directions in one walk, inter
    [313, 580, 32]) and a ragged R (37), with (x, weights) in (fp32, fp32),
    (bf16, bf16) and (bf16, fp32), the walks' rows a block and blocks
-   (rows 6, 8 and 9) logged;
+   (rows 6-9) logged;
    the two autograd Functions' outputs and gradients, kernels against plain
    versions;
 21. `train_pt --lstm_scan seq` on the flagship pretrain config, 1 epoch
@@ -1755,12 +1756,13 @@ def phase19_attn_train(dev, ls, card):
 
 
 # ---- phases 20-24: the custom-VJP kernel route (`--lstm_scan seq`, rows
-# 6-9: `ops/kernels/lstm_train_kernel.py`, `csrc/lstm_seq.cu`)
+# 6-9: `ops/kernels/lstm_train_kernel.py`, `csrc/lstm_seq.cu`,
+# `csrc/lstm_seq_fwd_mixed.cu`, `csrc/lstm_seq_bwd.cu`)
 
 # (name, T, R, C, directions): the route's recurrences at the flagship
 # training path's shapes (batch 4 x 2.5 s: the intra BLSTM [145, 1252, 32],
 # both directions in one walk, rows 8-9; the inter LSTM [313, 580, 32], rows
-# 6-7) and a ragged R (37 rows: not a multiple of the row tile, 8)
+# 6-7) and a ragged R (37 rows: one row a block, the last rows' tails)
 SEQ_SHAPES = (("intra", 145, 1252, 32, 2), ("inter", 313, 580, 32, 1),
               ("ragged_bi", 13, 37, 32, 2), ("ragged", 13, 37, 32, 1))
 # the mixed instantiations' main path is the campaign at the recipe's batch
@@ -1956,17 +1958,17 @@ def phase20_seq_kernels(dev, lk, ls):
                        for k in fn_got[1]}
             shares = [s for g, w in (*got, (fn_got[0], fn_want[0]))
                       for s in differ_share(g, w)] if mixed else []
-            # the walks' grids: the forwards (rows 6, 8) and row 9
+            # the walks' grids: the forwards (rows 6, 8) and the backwards
+            # (rows 7, 9)
             code, n_sm = ls.DTYPES.index((xdt, wdt)), ls._n_sm(dev)
             sfx = "b" if mixed else "a"
             tiles = ("row %s %d rows a block, %d blocks; "
                      % (("6" if nd == 1 else "8") + sfx,
                         *ls.fwd_row_tiles(r, c, SLAB_H, n_sm, nd, code,
                                           bseq=mixed)))
-            if nd == 2:
-                tiles += ("row 9%s %d rows a block, %d blocks; "
-                          % (sfx, *lk.seq_bwd_row_tiles(r, SLAB_H, code,
-                                                        n_sm)))
+            tiles += ("row %s %d rows a block, %d blocks; "
+                      % (("7" if nd == 1 else "9") + sfx,
+                         *lk.seq_bwd_row_tiles(r, SLAB_H, code, n_sm, nd)))
             log(f"  {name} [T={t_len}, R={r}, C={c}] x{nd} direction(s), "
                 f"{pname}: {tiles}rows {'/'.join(rows)} max-abs (max-abs / "
                 "peak) "
@@ -3134,13 +3136,13 @@ def main():
     # ---- 24. times
     seq_times = phase24_seq_times(dev, lk, card, seq_mod, seq_batch)
     seq_src = "sound_bubble_tpu_torch/csrc/lstm_seq.cu"
-    # rows 6b and 9 have sources of their own
+    # row 6b has a source of its own; rows 7 and 9 are the backward walk
+    bwd_src = "sound_bubble_tpu_torch/csrc/lstm_seq_bwd.cu"
     srcs = {("lstm_seq_fwd", True):
             "sound_bubble_tpu_torch/csrc/lstm_seq_fwd_mixed.cu",
-            ("blstm_seq_bwd", False):
-            "sound_bubble_tpu_torch/csrc/lstm_seq_bwd.cu",
-            ("blstm_seq_bwd", True):
-            "sound_bubble_tpu_torch/csrc/lstm_seq_bwd.cu"}
+            ("lstm_seq_bwd", False): bwd_src, ("lstm_seq_bwd", True): bwd_src,
+            ("blstm_seq_bwd", False): bwd_src,
+            ("blstm_seq_bwd", True): bwd_src}
     seq_tpu = "sound_bubble_tpu/ops/pallas/lstm_train_kernel.py"
     # the Pallas body of each row, and its mixed branch
     seq_lines = {"lstm_seq_fwd": (61, 75), "lstm_seq_bwd": (173, 204),
@@ -3167,14 +3169,17 @@ def main():
         "max_abs_err": seq_errs[name, mixed], **seq_times[name, mixed]}
         for mixed in (False, True) for i, name in enumerate(SEQ_NAMES)]
     # rows 8b and 6b: the walk of csrc/lstm_fwd32.cuh in its mixed mode;
-    # row 9: the backward walk
-    kernels = {"blstm_seq_fwd_mixed": "seq_bfwd_mixed_kernel<64, bf16> / "
+    # rows 7 (nd = 1) and 9 (nd = 2): the backward walk
+    kernels = {"lstm_seq_bwd": "seq_bbwd_kernel<64, float, float>, nd = 1",
+               "lstm_seq_bwd_mixed": "seq_bbwd_kernel<64, bf16, bf16> / "
+               "<64, bf16, float>, nd = 1",
+               "blstm_seq_fwd_mixed": "seq_bfwd_mixed_kernel<64, bf16> / "
                "<64, float> (lstm_fwd32.cuh BSEQ, RND_SEQ)",
                "lstm_seq_fwd_mixed": "seq_fwd_mixed_kernel<64, bf16> / "
                "<64, float> (lstm_fwd32.cuh SEQ, RND_SEQ)",
-               "blstm_seq_bwd": "seq_bbwd_kernel<64, float, float>",
+               "blstm_seq_bwd": "seq_bbwd_kernel<64, float, float>, nd = 2",
                "blstm_seq_bwd_mixed": "seq_bbwd_kernel<64, bf16, bf16> / "
-               "<64, bf16, float>"}
+               "<64, bf16, float>, nd = 2"}
     for e in seq_entries:
         if e["name"] in kernels:
             e["kernel"] = kernels[e["name"]]

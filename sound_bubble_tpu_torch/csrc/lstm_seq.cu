@@ -1,6 +1,6 @@
-// LSTM training recurrences with one timestep per step, forward and
-// backward, one direction or both directions in one walk, in fp32 and in the
-// mixed mode (bf16 activations with bf16 or fp32 weights).
+// The forward LSTM training recurrences of the custom-VJP route, one
+// timestep per step, one direction or both directions in one launch, in fp32
+// and in the mixed mode (bf16 activations with bf16 or fp32 weights).
 //
 // Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
 // lstm_train_kernel.py`, the JAX package's custom-VJP kernel route:
@@ -17,12 +17,9 @@
 //   T-1-n (no flipped copy); y [T, R, 2H] = [y_f | y_b] in original time,
 //   gates [T, R, 8H] gate-major with the direction inside and c [T, R, 2H]
 //   at the walk's step.
-// - `sbt_lstm_seq_bwd` <- `lstm_seq_bwd` (body `_bwd_kernel`): the
-//   backward walk from the saved gates and c: per step the gate gradients
-//   dgates [T, R, 4H] and the carried (dh, dc), from (dhT, dcT) down to
-//   (dh0, dc0). dh = dgates @ W_hh^T.
-// The walk of `_bpt_bwd` (both directions' backward, row 9) is
-// csrc/lstm_seq_bwd.cu. The weight and input gradients (dW_ih, dW_hh, db,
+// Both backwards (rows 7, `lstm_seq_bwd`, and 9, the walk of `_bpt_bwd`)
+// are the backward walk of csrc/lstm_seq_bwd.cu (`sbt_lstm_seq_bwd`,
+// `sbt_blstm_seq_bwd`). The weight and input gradients (dW_ih, dW_hh, db,
 // dx) are large products outside these kernels, as in the JAX package
 // (`_lpt_bwd`, `_bpt_bwd`).
 //
@@ -30,11 +27,10 @@
 // batch 4 x 2.5 s): the fused-direction forward (intra, T = 145,
 // R = 1252, C = 32, H = 64) does 2*T*R*2*(C+H)*4H = 17.8 GFLOP, 0.27 ms at
 // 67 TFLOP/s, and must move ~0.58 GB (x in; y, gates, c out), 0.17 ms at
-// 3.35 TB/s: operations. The single-direction pair at the inter shape
-// (T = 313, R = 580) is half of it; its backward walk does 2*T*R*4H*H =
-// 5.9 GFLOP and must move ~0.47 GB (gates, c, dy in; dgates out): bytes.
-// In practice the recurrence bounds them all: T dependent steps per row
-// tile, each a [rows, K] x [K, 4H] product.
+// 3.35 TB/s: operations. The single-direction forward at the inter shape
+// (T = 313, R = 580) is half of it. In practice the recurrence bounds
+// them: T dependent steps per row tile, each a [rows, K] x [K, 4H]
+// product.
 //
 // The forwards (rows 6a `seq_fwd32_kernel`, 6b `seq_fwd_mixed_kernel` in
 // csrc/lstm_seq_fwd_mixed.cu, 8a `seq_bfwd32_kernel`, 8b
@@ -54,20 +50,6 @@
 // frames latency-bound in a 96-long dot over [x | h] a thread, W re-read
 // from shared memory every frame.
 //
-// The single-direction backward (`seq_bwd_kernel`, rows 7a and 7b) is the
-// first design (simple first; tensor cores, weights in registers and wider
-// row tiles are later work):
-// - One thread block owns a tile of RT = 8 rows and walks all T steps
-//   itself (the template's ND = 2, both directions in one block, is no
-//   longer instantiated); no block ever waits on another. Thread (grp, j)
-//   computes unit j for RPT = 2 rows, so the state of those cells stays in
-//   its registers; the gate gradients the next step needs go through
-//   shared memory, double-buffered: one __syncthreads a step.
-// - W_hh^T in shared memory (64 KB at H = 64); the gates, c, the entering c
-//   and dy stream from global memory, read once each (the entering c is the
-//   previous step's c, or c0).
-// No TF32 and no fast-math: fp32 FMA throughout, expf / tanhf.
-//
 // The mixed mode (`mixed=True` in the Pallas bodies, the instantiations the
 // JAX package's bf16 trunk launches): bf16 values are widened on load and
 // sums are taken in fp32, and values are rounded to bf16 exactly where the
@@ -75,8 +57,7 @@
 // bf16); the gates bf16(gx + bf16(h) W_hh); each sigmoid as the body's
 // `jax.nn.sigmoid` lowers on bf16, 1 / (1 + exp(-v)) with each of the three
 // ops rounded; each tanh and tanh's input c_t; i*g; the output h_t. The
-// carried c stays fp32. The backward rounds the gate gradients to bf16 for
-// the dh chain and for their store. The bound of a mixed launch counts 2
+// carried c stays fp32. The bound of a mixed launch counts 2
 // bytes for each bf16 tensor and its products at the bf16 tensor-core rate
 // (989 TFLOP/s dense), the rate the work could reach.
 #include <cuda_bf16.h>
@@ -96,138 +77,6 @@ int sbt_seq_fwd_mixed(int dtypes, const void* x, const void* w_ih,
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ldf(const bf16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void stf(bf16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-// round to bf16 and back (the mixed mode's rounding points)
-__device__ __forceinline__ float rb(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename XT, typename WT>
-constexpr bool kMixed =
-    std::is_same<XT, bf16>::value || std::is_same<WT, bf16>::value;
-
-template <typename XT, typename WT>
-using GateT = typename std::conditional<kMixed<XT, WT>, bf16, float>::type;
-
-constexpr int G = 4;      // row groups per direction
-constexpr int RPT = 2;    // rows per thread
-constexpr int RT = G * RPT;
-
-template <int ND, typename XT, typename WT>
-__global__ void __launch_bounds__(512) seq_bwd_kernel(
-    const GateT<XT, WT>* __restrict__ gates, const float* __restrict__ cseq,
-    const float* __restrict__ c0, const XT* __restrict__ dy,
-    const WT* __restrict__ w_hh, const float* __restrict__ dhT,
-    const float* __restrict__ dcT, XT* __restrict__ dg,
-    float* __restrict__ dh0, float* __restrict__ dc0, int T, int R, int H) {
-  constexpr bool M = kMixed<XT, WT>;
-  extern __shared__ float sm[];
-  const int H4 = 4 * H, NH = ND * H, NH4 = ND * H4;
-  float* whhT = sm;                       // [ND][4H][H]
-  float* dgs = whhT + ND * H4 * H;        // [2][ND][RT][4H]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int j = tid % H, grp = (tid / H) % G, d = tid / (G * H);
-  const int r0 = blockIdx.x * RT;
-
-  // whhT[dd][col][m] = W_hh of direction dd at (m, col): its diagonal block
-  for (int i = tid; i < ND * H4 * H; i += nt) {
-    const int dd = i / (H4 * H), rem = i - dd * H4 * H;
-    const int col = rem / H, m = rem - col * H;
-    whhT[i] = ldf(w_hh, (size_t)(dd * H + m) * NH4 + dd * H4 + col);
-  }
-  float dh[RPT], dc[RPT];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int r = r0 + grp * RPT + q;
-    dh[q] = ND == 1 && r < R ? dhT[(size_t)r * H + j] : 0.f;
-    dc[q] = ND == 1 && r < R ? dcT[(size_t)r * H + j] : 0.f;
-  }
-  __syncthreads();
-
-  const float* wT = whhT + d * H4 * H;
-  for (int n = 0; n < T; ++n) {
-    const int k = T - 1 - n;           // the walk's step
-    const int t_dy = d ? n : k;        // original time of this step's dy
-    float* dgb = dgs + ((n & 1) * ND + d) * RT * H4;
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const int row = grp * RPT + q, r = r0 + row;
-      float gi = 0.f, gf = 0.f, gg = 0.f, go = 0.f, ct = 0.f, cp = 0.f,
-            dyv = 0.f;
-      if (r < R) {
-        const size_t o = ((size_t)k * R + r) * NH4 + d * H + j;
-        gi = ldf(gates, o); gf = ldf(gates, o + NH);
-        gg = ldf(gates, o + 2 * NH); go = ldf(gates, o + 3 * NH);
-        const size_t oc = ((size_t)k * R + r) * NH + d * H + j;
-        ct = cseq[oc];
-        if (k > 0) cp = cseq[oc - (size_t)R * NH];
-        else if (ND == 1) cp = c0[(size_t)r * H + j];
-        dyv = ldf(dy, ((size_t)t_dy * R + r) * NH + d * H + j);
-      }
-      // the primal took tanh of the gate-dtype cell state
-      const float tc = M ? rb(tanhf(rb(ct))) : tanhf(ct);
-      const float dd_ = dyv + dh[q];
-      const float dO = dd_ * tc;
-      const float dC = dc[q] + dd_ * go * (1.f - tc * tc);
-      const float di = dC * gg * gi * (1.f - gi);
-      const float df = dC * cp * gf * (1.f - gf);
-      const float dgg = dC * gi * (1.f - gg * gg);
-      const float dog = dO * go * (1.f - go);
-      // the dh chain takes the gate gradients in bf16 in the mixed mode
-      dgb[row * H4 + j] = M ? rb(di) : di;
-      dgb[row * H4 + H + j] = M ? rb(df) : df;
-      dgb[row * H4 + 2 * H + j] = M ? rb(dgg) : dgg;
-      dgb[row * H4 + 3 * H + j] = M ? rb(dog) : dog;
-      if (r < R) {
-        const size_t o = ((size_t)k * R + r) * NH4 + d * H4 + j;
-        stf(dg, o, di); stf(dg, o + H, df);
-        stf(dg, o + 2 * H, dgg); stf(dg, o + 3 * H, dog);
-      }
-      dc[q] = dC * gf;
-    }
-    __syncthreads();
-    // dh entering this step = dgates @ W_hh^T, unit j of my rows
-    float acc[RPT];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
-    for (int col = 0; col < H4; ++col) {
-      const float w = wT[col * H + j];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q)
-        acc[q] += dgb[(grp * RPT + q) * H4 + col] * w;
-    }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) dh[q] = acc[q];
-  }
-  if (ND == 1) {
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const int r = r0 + grp * RPT + q;
-      if (r < R) {
-        dh0[(size_t)r * H + j] = dh[q];
-        dc0[(size_t)r * H + j] = dc[q];
-      }
-    }
-  }
-}
-
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-size_t bwd_smem(int H, int nd) {
-  return (size_t)nd * 4 * H * H * 4 + (size_t)2 * nd * RT * 4 * H * 4;
-}
 
 // ---- the fp32 single-direction forward (row 6a): csrc/lstm_fwd32.cuh's
 // walk, K = min(8, T) frames a slab
@@ -331,24 +180,6 @@ int seq_bfwd_mixed(const void* x, const void* w_ih_f, const void* w_ih_b,
       (const WT*)b, (bf16*)y, (bf16*)gates, cseq, T, R, C, rows);
 }
 
-// ---- the single-direction backward (rows 7a, 7b): the first design,
-// instantiated at ND = 1 only (the fused-direction backward, row 9, is the
-// walk of csrc/lstm_seq_bwd.cu)
-
-template <int ND, typename XT, typename WT>
-int seq_bwd(const void* gates, const float* cseq, const float* c0,
-            const void* dy, const void* w_hh, const float* dhT,
-            const float* dcT, void* dg, float* dh0, float* dc0, int T, int R,
-            int H, cudaStream_t st) {
-  const size_t smem = bwd_smem(H, ND);
-  int err = set_smem((const void*)seq_bwd_kernel<ND, XT, WT>, smem);
-  if (err) return err;
-  seq_bwd_kernel<ND, XT, WT><<<(R + RT - 1) / RT, ND * G * H, smem, st>>>(
-      (const GateT<XT, WT>*)gates, cseq, c0, (const XT*)dy, (const WT*)w_hh,
-      dhT, dcT, (XT*)dg, dh0, dc0, T, R, H);
-  return (int)cudaGetLastError();
-}
-
 template <int ND>
 int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
                const void* w_ih_b, const void* w_hh, const void* b,
@@ -382,36 +213,15 @@ int fwd_dtypes(int dtypes, const void* x, const void* w_ih_f,
   }
 }
 
-int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
-               const float* c0, const void* dy, const void* w_hh,
-               const float* dhT, const float* dcT, void* dg, float* dh0,
-               float* dc0, int T, int R, int H, cudaStream_t st) {
-  switch (dtypes) {
-    case 0:
-      return seq_bwd<1, float, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
-                                      dg, dh0, dc0, T, R, H, st);
-    case 1:
-      return seq_bwd<1, bf16, bf16>(gates, cseq, c0, dy, w_hh, dhT, dcT, dg,
-                                    dh0, dc0, T, R, H, st);
-    case 2:
-      return seq_bwd<1, bf16, float>(gates, cseq, c0, dy, w_hh, dhT, dcT,
-                                     dg, dh0, dc0, T, R, H, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
-// 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); y, dy and dgates
-// have the activations' type, the saved gates bf16 in the mixed mode.
-// Forward, nd = 1: w_ih_b is unused; nd = 2: h0, c0 are unused (zero
-// states), and may be null. rows: rows a block of the walk (its shared
-// memory is sbt_lstm_fwd32_smem's, or, mixed, sbt_lstm_fwd_mixed_smem's with
-// bseq = 1; nd = 2 launches a grid of 2 x ceil(R / rows) blocks). The
-// backward here is one direction's (rows 7a, 7b; the fused-direction one is
-// sbt_blstm_seq_bwd, csrc/lstm_seq_bwd.cu).
+// 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py); y has the
+// activations' type, the gates bf16 in the mixed mode. nd = 1: w_ih_b is
+// unused; nd = 2: h0, c0 are unused (zero states), and may be null. rows:
+// rows a block of the walk (its shared memory is sbt_lstm_fwd32_smem's, or,
+// mixed, sbt_lstm_fwd_mixed_smem's with bseq = 1; nd = 2 launches a grid of
+// 2 x ceil(R / rows) blocks).
 
 extern "C" int sbt_lstm_seq_fwd(const void* x, const void* w_ih_f,
                                 const void* w_ih_b, const void* w_hh,
@@ -428,15 +238,4 @@ extern "C" int sbt_lstm_seq_fwd(const void* x, const void* w_ih_f,
     return fwd_dtypes<2>(dtypes, x, w_ih_f, w_ih_b, w_hh, b, h0, c0, y,
                          gates, cseq, T, R, C, H, rows, st);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int sbt_lstm_seq_bwd(const void* gates, const float* cseq,
-                                const float* c0, const void* dy,
-                                const void* w_hh, const float* dhT,
-                                const float* dcT, void* dg, float* dh0,
-                                float* dc0, int T, int R, int H,
-                                int dtypes, void* stream) {
-  cudaGetLastError();
-  return bwd_dtypes(dtypes, gates, cseq, c0, dy, w_hh, dhT, dcT, dg, dh0,
-                    dc0, T, R, H, (cudaStream_t)stream);
 }

@@ -1,46 +1,58 @@
-// The fused-direction backward recurrence of the custom-VJP route (row 9):
-// both directions of a BLSTM walked backwards from zero, in fp32 and in the
-// mixed mode (bf16 activations with bf16 or fp32 weights).
+// The backward recurrences of the custom-VJP route, one walk for both:
+// row 7 (one direction, from (dhT, dcT) down to (dh0, dc0)) and row 9
+// (both directions of a BLSTM from zero), in fp32 and in the mixed mode
+// (bf16 activations with bf16 or fp32 weights).
 //
-// Replaces the walk of `_bpt_bwd` (`sound_bubble_tpu/ops/pallas/
-// lstm_train_kernel.py`, body `_blstm_bwd_kernel`): from the forward's saved
-// post-activation gates [T, R, 8H] (gate-major with the direction inside:
-// gate g of direction d at column g*2H + d*H), its cell states c [T, R, 2H]
-// (direction d at d*H) and dy [T, R, 2H] (original time; the backward
-// direction's dy is read at the mirrored time), per walk step the gate
-// gradients dgates [T, R, 8H], direction-major (d*4H + g*H), and the
-// carried (dh, dc) of each direction from zero. At step n of the walk
-// (k = T - 1 - n): tc = tanh(c[k]); d = dy + dh; dc' = dc + d o (1 - tc^2);
-// di = dc' g i (1 - i), df = dc' c[k - 1] f (1 - f) (c[-1] = 0),
-// dg = dc' i (1 - g^2), do = d tc o (1 - o); dc = dc' f, and dh = dgates
-// W_hh^T on the pack's diagonal block of the direction (w_hh [2H, 8H],
-// direction-major; the zero blocks are never read). The weight and input
+// Replaces the Pallas TPU kernels of `sound_bubble_tpu/ops/pallas/
+// lstm_train_kernel.py`:
+// - nd = 1 <- `lstm_seq_bwd` (body `_bwd_kernel`): from the forward's saved
+//   post-activation gates [T, R, 4H] ([i | f | g | o]), its cell states
+//   c [T, R, H], c0 [R, H] and dy [T, R, H], per step the gate gradients
+//   dgates [T, R, 4H] and the carried (dh, dc), entering from (dhT, dcT);
+//   writes (dh0, dc0) [R, H] fp32 after the last step.
+// - nd = 2 <- the walk of `_bpt_bwd` (body `_blstm_bwd_kernel`): gates
+//   [T, R, 8H] gate-major with the direction inside (gate g of direction d
+//   at column g*2H + d*H), c [T, R, 2H] (direction d at d*H) and dy
+//   [T, R, 2H] (original time; the backward direction's dy is read at the
+//   mirrored time); dgates [T, R, 8H] direction-major (d*4H + g*H); each
+//   direction's (dh, dc) from zero, c[-1] = 0.
+// At step n of the walk (k = T - 1 - n): tc = tanh(c[k]); d = dy + dh;
+// dc' = dc + d o (1 - tc^2); di = dc' g i (1 - i), df = dc' c[k - 1] f (1 - f)
+// (c[-1] = c0 for nd = 1), dg = dc' i (1 - g^2), do = d tc o (1 - o);
+// dc = dc' f, and dh = dgates W_hh^T on the direction's W_hh (nd = 1: w_hh
+// [H, 4H]; nd = 2: the pack's diagonal block, w_hh [2H, 8H]
+// direction-major, the zero blocks never read). The weight and input
 // gradients are products outside, as in the JAX package. The mixed mode
-// rounds where the Pallas body rounds: tc = bf16(tanh(bf16(c))), the gate
+// rounds where the Pallas bodies round: tc = bf16(tanh(bf16(c))), the gate
 // gradients rounded to bf16 for the chain and for their store, dh and dc
-// carried in fp32. The cell's arithmetic is the plain version's
-// (`blstm_seq_bwd_ref`), one rounded operation at a time (`__fmul_rn` etc.,
-// no contraction into FMAs).
+// carried in fp32. The cell's arithmetic is the plain versions'
+// (`lstm_seq_bwd_ref`, `blstm_seq_bwd_ref`), one rounded operation at a
+// time (`__fmul_rn` etc., no contraction into FMAs).
 //
-// What bounds it (H100 SXM, 3.35 TB/s; the flagship's intra BLSTM, H = 64):
-// at [145, 1252] fp32 it moves ~0.93 GB (gates, c, dy in; dgates out),
-// 0.28 ms, against 2*T*R*2*4H*H = 11.9 GFLOP of chain, 0.18 ms at 67
-// TFLOP/s: bytes; in the mixed mode at [145, 2504] ~1.0 GB, 0.31 ms. In
-// practice the recurrence bounds it: T dependent frames a row tile. A
-// `clock64()` split of the first design it replaces (8-row blocks of 512
-// threads, each thread one unit of two rows; both directions' W_hh^T in
-// shared memory, 160 KB: one block an SM; `tools/split_bwd_cycles.py`)
-// found 68.5 % of a frame (12,562 cycles; NVIDIA H100 80GB HBM3 at 700 W,
-// PERF.md §6) in its dh dot, which reads one W^T word and two broadcast dg
-// words from shared memory for every two FMAs.
+// What bounds it (H100 SXM, 3.35 TB/s; H = 64): row 9 at the flagship's
+// intra BLSTM [145, 1252] fp32 moves ~0.93 GB (gates, c, dy in; dgates
+// out), 0.28 ms, against 2*T*R*2*4H*H = 11.9 GFLOP of chain, 0.18 ms at 67
+// TFLOP/s: bytes; in the mixed mode at [145, 2504] ~1.0 GB, 0.31 ms. Row 7
+// at the inter LSTM [313, 580] fp32 ~0.47 GB, 0.14 ms: bytes. In practice
+// the recurrence bounds it: T dependent frames a row tile. A `clock64()`
+// split of the first design it replaces (8-row blocks of 512 threads, each
+// thread one unit of two rows, W_hh^T in shared memory;
+// `tools/split_bwd_cycles.py`) found 68.5 % (row 9) and 59.5 % (row 7) of a
+// frame (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6) in its dh dot, which
+// reads one W^T word and two broadcast dg words from shared memory for
+// every two FMAs.
 //
 // Design (`seq_bbwd_kernel<H, XT, WT>`), the counterpart of the forward walk
-// of csrc/lstm_fwd32.cuh:
+// of csrc/lstm_fwd32.cuh; the direction count and the ends are runtime
+// arguments of the one kernel (a template parameter for the direction count
+// doubled this source's 12 instantiations and its compile time, ~35 → ~59
+// s on the card's host, for a mixed effect on the rows' times; PERF.md §6):
 // - One block of 4H threads a (direction, row tile): blocks [0, tiles) walk
-//   the forward direction, [tiles, 2 tiles) the backward one; rows a block
-//   from the wrapper's `seq_bwd_row_tiles`, the fewest that keep both grid
-//   halves within one wave of the card's SMs (19 rows at R = 1252 and 38 at
-//   R = 2504: 132 blocks). Blocks never wait on each other.
+//   the forward direction, with nd = 2 [tiles, 2 tiles) the backward one;
+//   rows a block from the wrapper's `seq_bwd_row_tiles`, the fewest that
+//   keep the grid within one wave of the card's SMs (row 9: 19 rows at
+//   R = 1252 and 38 at R = 2504, 132 blocks; row 7: 5 at R = 580, 116
+//   blocks, and 9 at R = 1160, 129). Blocks never wait on each other.
 // - The dh chain keeps the direction's W_hh^T in registers, loaded once:
 //   lane (up, kq) of warp w holds units 8w + 2up and 8w + 2up + 1 at the
 //   gate-gradient columns 4 (8p + kq) .. + 3, p < H / 8 (H fp32 values a
@@ -63,14 +75,22 @@
 //   applies the cells of rows g, g + 8 and units 2t, 2t + 1 of each tile.
 // - The frame's gates, c and dy tiles are copied into shared memory by
 //   `cp.async` while the frame before is walked; a c tile serves as c[k] at
-//   one step and as c[k - 1] at the one before (three slots). Rows past R
-//   are zeros and never written; a four-row group past `rows` computes its
-//   padding row on the last real row.
-// Shared memory (`bwd_layout`): 115,488 B at 19 rows fp32; at 38 rows
-// 149,632 B with bf16 weights and 181,120 B with fp32 ones. Everything the
-// kernel reads from device memory after its weights goes by `cp.async.cg`
-// (L2 only), so the smaller L1 that a block over 164 KB leaves should not
-// slow it (not measured).
+//   one step and as c[k - 1] at the one before (three slots; row 7's c0
+//   takes the free slot for k = 0). Rows past R are zeros and never
+//   written; a four-row group past `rows` computes its padding row on the
+//   last real row.
+// - Row 7's ends: dcT fills the dc slots before the first frame; the first
+//   frame's chain reads a zero tile, and its cells take dhT in its place
+//   (mode FIRST); after the last frame one more chain (mode FIN) gives dh0,
+//   which the lane that owns each cell stores, and dc0 is the dc slots.
+//   Both run outside the frame loop, four rows a group (or one mma tile) at
+//   a time, so that the loop's straight-line bodies, row 9's too, hold no
+//   test for them.
+// Shared memory (`bwd_layout`, the same for either direction count):
+// 115,488 B at 19 rows fp32; at 38 rows 149,632 B with bf16 weights and
+// 181,120 B with fp32 ones. Everything the kernel reads from device memory
+// after its weights goes by `cp.async.cg` (L2 only), so the smaller L1 that
+// a block over 164 KB leaves should not slow it (not measured).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -177,9 +197,11 @@ __device__ __forceinline__ float reduce_rows(const float (*s)[2], int kq,
 }
 
 // What a frame reads and writes: its tiles in shared memory (gq gates, cq
-// c[k], cpq c[k - 1] or null at k = 0, yq dy; prev the last frame's dg tile,
-// cur this frame's, of type TT), the dc slots, and dgates from the tile's
-// first row at this step (dgo, at the direction's offset).
+// c[k], cpq c[k - 1], at k = 0 c0's tile or null; yq dy; prev the last
+// frame's dg tile, cur this frame's, of type TT), the dc slots, and dgates
+// from the tile's first row at this step (dgo, at the direction's offset;
+// os: its row stride). Row 7's ends, from the tile's first row: dhin dhT
+// (mode FIRST), dhout dh0 (mode FIN).
 template <typename XT, typename TT>
 struct Frame {
   const XT* gq;
@@ -190,16 +212,27 @@ struct Frame {
   TT* cur;
   float* dcs;
   XT* dgo;
+  int os;
+  const float* dhin;
+  float* dhout;
 };
+
+// What a frame's cells do: MID the walk's frames; FIRST row 7's first
+// frame, whose chain read a zero tile (dh enters as dhT); FIN row 7's chain
+// after its last frame, dh0 in place of the cells.
+enum { MID, FIRST, FIN };
 
 // The cell of (row, unit m) from its dh: the gate gradients into the dg tile
 // and dgates, dc into its slot. Every lane computes (no branch, so the
 // compiler can overlap groups); the owner stores.
-template <int H, bool M, typename XT, typename TT>
+template <int H, bool M, int MODE, typename XT, typename TT>
 __device__ __forceinline__ void cell(float dh, int row, bool own, int m,
                                      int rows, int rt,
                                      const Frame<XT, TT>& f) {
   constexpr int GS = 4 * H + (M ? 16 : 8), CS = H + 8, DS = 4 * H + 8;
+  if constexpr (MODE == FIRST) {
+    if (row < rt) dh = f.dhin[row * H + m];
+  }
   const int sr = min(row, rows - 1);
   const XT* g = f.gq + sr * GS + m;
   const float gi = ldw(g, 0), gf = ldw(g, H), gg = ldw(g, 2 * H),
@@ -231,15 +264,24 @@ __device__ __forceinline__ void cell(float dh, int row, bool own, int m,
     put(o, 3 * H, M ? rb(dO2) : dO2);
   }
   if (own && row < rt) {
-    XT* o = f.dgo + (size_t)row * 8 * H + m;
+    XT* o = f.dgo + (size_t)row * f.os + m;
     put(o, 0, di); put(o, H, df); put(o, 2 * H, dg); put(o, 3 * H, dO2);
   }
 }
 
+// Row 7's dh0 of (row, unit m), after its last frame: stored by the lane
+// that owns the cell.
+template <int H, typename XT, typename TT>
+__device__ __forceinline__ void put_dh0(float dh, int row, bool own, int m,
+                                        int rt, const Frame<XT, TT>& f) {
+  if (own && row < rt) f.dhout[row * H + m] = dh;
+}
+
 // One frame's cells of up to three row groups from row g: NA, NB, NC rows
 // (4, 2 or 1; 0: no group): dh for all of them, then each group's reduce
-// and cells, as one straight-line body.
-template <int H, bool M, typename XT, int NA, int NB, int NC>
+// and cells (MODE), as one straight-line body.
+template <int H, bool M, typename XT, int NA, int NB, int NC,
+          int MODE = MID>
 __device__ __forceinline__ void rows_step(int g, const float4 (&wr)[H / 8][2],
                                           int kq, int m0, int rows, int rt,
                                           const Frame<XT, float>& f) {
@@ -270,11 +312,18 @@ __device__ __forceinline__ void rows_step(int g, const float4 (&wr)[H / 8][2],
     v[1] = reduce_rows<NB>(s + NA, kq, rho[1], ub[1], own[1]);
   if constexpr (NC > 0)
     v[2] = reduce_rows<NC>(s + NA + NB, kq, rho[2], ub[2], own[2]);
-  cell<H, M>(v[0], g + rho[0], own[0], m0 + ub[0], rows, rt, f);
-  if constexpr (NB > 0)
-    cell<H, M>(v[1], g + NA + rho[1], own[1], m0 + ub[1], rows, rt, f);
-  if constexpr (NC > 0)
-    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2], rows, rt, f);
+  if constexpr (MODE == FIN) {
+    static_assert(NB == 0 && NC == 0, "one group at a time");
+    put_dh0<H>(v[0], g + rho[0], own[0], m0 + ub[0], rt, f);
+  } else {
+    cell<H, M, MODE>(v[0], g + rho[0], own[0], m0 + ub[0], rows, rt, f);
+    if constexpr (NB > 0)
+      cell<H, M, MODE>(v[1], g + NA + rho[1], own[1], m0 + ub[1], rows, rt,
+                       f);
+    if constexpr (NC > 0)
+      cell<H, M, MODE>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2],
+                       rows, rt, f);
+  }
 }
 
 // The tensor cores' chain (bf16 x and weights): one frame's cells of NMT
@@ -283,8 +332,8 @@ __device__ __forceinline__ void rows_step(int g, const float4 (&wr)[H / 8][2],
 // 16 gate-gradient columns, each tile's A fragment from the bf16 dg tile
 // (exact: the chain's values are bf16), an accumulator chain a tile; lane
 // (g, t) then holds dh of rows g and g + 8, units 2t and 2t + 1, and applies
-// those four cells.
-template <int H, typename XT, int NMT>
+// those four cells (MODE as rows_step's).
+template <int H, typename XT, int NMT, int MODE = MID>
 __device__ __forceinline__ void mma_step(int mt0,
                                          const unsigned (&bfr)[H / 4][2],
                                          int u0, int rows, int rt,
@@ -307,21 +356,32 @@ __device__ __forceinline__ void mma_step(int mt0,
 #pragma unroll
   for (int m = 0; m < NMT; ++m) {
     const int r = 16 * (mt0 + m) + g, u = u0 + 2 * t;
-    cell<H, true>(d[m][0], r, true, u, rows, rt, f);
-    cell<H, true>(d[m][1], r, true, u + 1, rows, rt, f);
-    cell<H, true>(d[m][2], r + 8, true, u, rows, rt, f);
-    cell<H, true>(d[m][3], r + 8, true, u + 1, rows, rt, f);
+    if constexpr (MODE == FIN) {
+      put_dh0<H>(d[m][0], r, true, u, rt, f);
+      put_dh0<H>(d[m][1], r, true, u + 1, rt, f);
+      put_dh0<H>(d[m][2], r + 8, true, u, rt, f);
+      put_dh0<H>(d[m][3], r + 8, true, u + 1, rt, f);
+    } else {
+      cell<H, true, MODE>(d[m][0], r, true, u, rows, rt, f);
+      cell<H, true, MODE>(d[m][1], r, true, u + 1, rows, rt, f);
+      cell<H, true, MODE>(d[m][2], r + 8, true, u, rows, rt, f);
+      cell<H, true, MODE>(d[m][3], r + 8, true, u + 1, rows, rt, f);
+    }
   }
 }
 
-// Block (d, tile): the walk of direction d over the tile's rows. XT: x's
-// type (dy, dgates and the saved gates: bf16 in the mixed mode), WT: the
-// weights'.
+// Block (d, tile): the walk of direction d of nd over the tile's rows. XT:
+// x's type (dy, dgates and the saved gates: bf16 in the mixed mode), WT:
+// the weights'. Row 7 (nd = 1) passes its ends c0, dhT, dcT, dh0 and dc0;
+// row 9 (nd = 2) passes null for all five.
 template <int H, typename XT, typename WT>
 __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
     const XT* __restrict__ gates, const float* __restrict__ cseq,
     const XT* __restrict__ dy, const WT* __restrict__ w_hh,
-    XT* __restrict__ dgates, int T, int R, int rows) {
+    XT* __restrict__ dgates, const float* __restrict__ c0,
+    const float* __restrict__ dhT, const float* __restrict__ dcT,
+    float* __restrict__ dh0, float* __restrict__ dc0, int T, int R, int nd,
+    int rows) {
   constexpr bool M =
       std::is_same<XT, bf16>::value || std::is_same<WT, bf16>::value;
   static_assert(M == std::is_same<XT, bf16>::value,
@@ -329,7 +389,7 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
   // bf16 x and weights: the chain on the tensor cores, its dg tile in bf16
   constexpr bool TC = std::is_same<WT, bf16>::value;
   using TT = typename std::conditional<TC, bf16, float>::type;
-  constexpr int NT = 4 * H, NH = 2 * H, DS = 4 * H + 8, CS = H + 8;
+  constexpr int NT = 4 * H, DS = 4 * H + 8, CS = H + 8;
   constexpr int GS = 4 * H + (M ? 16 : 8);
   constexpr int EPV = 16 / sizeof(XT);  // elements a 16-byte piece
   constexpr int GV = H / EPV, CV = H / 4;
@@ -342,14 +402,14 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
   float* dcs = reinterpret_cast<float*>(smem + L.dc);    // [rp][CS]
   const int tiles = (R + rows - 1) / rows;
   const int d = blockIdx.x >= tiles, tile = blockIdx.x - d * tiles;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, NH = nd * H;
   const int rp = TC ? (rows + 15) / 16 * 16 : (rows + 3) / 4 * 4;
   const int row0 = tile * rows, rt = min(rows, R - row0);
 
-  // c[kc] of the tile's rows into slot kc % 3
-  auto load_c = [&](int kc) {
-    float* dst = cts + (kc % 3) * rows * CS;
-    const float* src = cseq + ((size_t)kc * R + row0) * NH + d * H;
+  // the tile's rows of c[kc] (src: its first row, row stride NH) into
+  // slot s
+  auto load_c = [&](int s, const float* src) {
+    float* dst = cts + s * rows * CS;
     for (int i = tid; i < rt * CV; i += NT) {
       const int r = i / CV, v = i - r * CV;
       cp_async16(dst + r * CS + 4 * v, src + (size_t)r * NH + 4 * v);
@@ -372,10 +432,13 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
       const int r = i / GV, v = i - r * GV;
       cp_async16(yd + r * CS + EPV * v, ys + (size_t)r * NH + EPV * v);
     }
-    if (k > 0) load_c(k - 1);
+    if (k > 0)
+      load_c((k - 1) % 3, cseq + ((size_t)(k - 1) * R + row0) * NH + d * H);
+    else if (c0)  // row 7: c[-1] = c0, in the slot that c[2] left
+      load_c(2, c0 + (size_t)row0 * H);
     cp_async_commit();
   };
-  load_c(T - 1);
+  load_c((T - 1) % 3, cseq + ((size_t)(T - 1) * R + row0) * NH + d * H);
   load(0);
 
   // zeros: the tiles' rows past R (never copied), the dg tiles (the first
@@ -392,20 +455,31 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
     put(dys, (rows + r) * CS + e, 0.f);
   }
   for (int i = tid; i < 2 * rp * DS; i += NT) put(dgt, i, 0.f);
-  for (int i = tid; i < rp * CS; i += NT) dcs[i] = 0.f;
+  for (int i = tid; i < rp * CS; i += NT) {  // dc: dcT (row 7) or zeros
+    const int r = i / CS, e = i - r * CS;
+    dcs[i] = dcT && r < rt && e < H ? dcT[(size_t)(row0 + r) * H + e] : 0.f;
+  }
 
-  // step n's frame: its tiles, the dg tile it reads and the one it writes
+  // step n's frame: its tiles, the dg tile it reads and the one it writes;
+  // n = T (row 7): the last frame's dg tile, read by the chain for dh0
   auto frame = [&](int n) {
-    const int k = T - 1 - n;
+    const int k = max(T - 1 - n, 0);
+    const float* cp = n < T - 1 ? cts + ((k - 1) % 3) * rows * CS
+                                : (c0 ? cts + 2 * rows * CS : nullptr);
     return Frame<XT, TT>{gts + (n & 1) * rows * GS,
                          cts + (k % 3) * rows * CS,
-                         k > 0 ? cts + ((k - 1) % 3) * rows * CS : nullptr,
+                         cp,
                          dys + (n & 1) * rows * CS,
                          dgt + ((n & 1) ^ 1) * rp * DS,
                          dgt + (n & 1) * rp * DS,
                          dcs,
-                         dgates + ((size_t)k * R + row0) * 8 * H + d * 4 * H};
+                         dgates + ((size_t)k * R + row0) * 4 * NH + d * 4 * H,
+                         4 * NH,
+                         dhT ? dhT + (size_t)row0 * H : nullptr,
+                         dh0 ? dh0 + (size_t)row0 * H : nullptr};
   };
+  // row 7's first frame (the loop's frames start after it)
+  const int n0 = dhT ? 1 : 0;
   const int lane = tid & 31, warp = tid >> 5;
   if constexpr (TC) {
     // lane (g, t) of warp w: W_hh^T's B fragments of the units 8w .. 8w + 7
@@ -414,14 +488,21 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
     unsigned bfr[H / 4][2];
 #pragma unroll
     for (int ks = 0; ks < H / 4; ++ks) {
-      const size_t o = (size_t)(d * H + 8 * warp + g) * 8 * H + d * 4 * H +
-                       16 * ks + 2 * t;
+      const size_t o = (size_t)(d * H + 8 * warp + g) * 4 * NH +
+                       d * 4 * H + 16 * ks + 2 * t;
       bfr[ks][0] = bits(w_hh, o) | bits(w_hh, o + 1) << 16;
       bfr[ks][1] = bits(w_hh, o + 8) | bits(w_hh, o + 9) << 16;
     }
     cp_async_wait_all();
     __syncthreads();
-    for (int n = 0; n < T; ++n) {
+    if (n0) {  // row 7's first frame, a tile at a time
+      if (1 < T) load(1);
+      for (int mt = 0; mt < rp / 16; ++mt)
+        mma_step<H, XT, 1, FIRST>(mt, bfr, 8 * warp, rows, rt, frame(0));
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int n = n0; n < T; ++n) {
       if (n + 1 < T) load(n + 1);
       const Frame<XT, TT> f = frame(n);
       switch (rp / 16) {
@@ -432,6 +513,9 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
       cp_async_wait_all();
       __syncthreads();  // the next frame's tiles are in; this dg tile is done
     }
+    if (dh0)  // row 7: dh0 from the last frame's dg tile, a tile at a time
+      for (int mt = 0; mt < rp / 16; ++mt)
+        mma_step<H, XT, 1, FIN>(mt, bfr, 8 * warp, rows, rt, frame(T));
   } else {
     // the FMA chain's lane (up, kq) of warp w: units m0, m0 + 1
     // (m0 = 8w + 2up), gate-gradient columns 4 (8p + kq) .. + 3
@@ -442,14 +526,21 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const size_t o =
-            (size_t)(d * H + m0 + u) * 8 * H + d * 4 * H + 4 * (8 * p + kq);
+            (size_t)(d * H + m0 + u) * 4 * NH + d * 4 * H + 4 * (8 * p + kq);
         wr[p][u] = make_float4(ldw(w_hh, o), ldw(w_hh, o + 1),
                                ldw(w_hh, o + 2), ldw(w_hh, o + 3));
       }
     cp_async_wait_all();
     __syncthreads();
-
-    for (int n = 0; n < T; ++n) {
+    if (n0) {  // row 7's first frame, 4 rows at a time
+      if (1 < T) load(1);
+      for (int g = 0; g < rows; g += 4)
+        rows_step<H, M, XT, 4, 0, 0, FIRST>(g, wr, kq, m0, rows, rt,
+                                            frame(0));
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int n = n0; n < T; ++n) {
       if (n + 1 < T) load(n + 1);
       const Frame<XT, TT> f = frame(n);
       int g = 0;
@@ -473,54 +564,92 @@ __global__ void __launch_bounds__(4 * H, 1) seq_bbwd_kernel(
       cp_async_wait_all();
       __syncthreads();  // the next frame's tiles are in; this dg tile is done
     }
+    if (dh0)  // row 7: dh0 from the last frame's dg tile, 4 rows at a time
+      for (int g = 0; g < rows; g += 4)
+        rows_step<H, M, XT, 4, 0, 0, FIN>(g, wr, kq, m0, rows, rt,
+                                          frame(T));
   }
+  if (dc0)  // row 7: dc after the last frame
+    for (int i = tid; i < rt * H; i += NT) {
+      const int r = i / H, m = i - r * H;
+      dc0[(size_t)(row0 + r) * H + m] = dcs[r * CS + m];
+    }
 }
 
 template <typename XT, typename WT>
 int bbwd(const void* gates, const float* cseq, const void* dy,
-         const void* w_hh, void* dgates, int T, int R, int H, int rows,
-         cudaStream_t st) {
+         const void* w_hh, void* dgates, const float* c0, const float* dhT,
+         const float* dcT, float* dh0, float* dc0, int T, int R, int H,
+         int nd, int rows, cudaStream_t st) {
   static void (*const ks[4])(const XT*, const float*, const XT*, const WT*,
-                             XT*, int, int, int) = {
+                             XT*, const float*, const float*, const float*,
+                             float*, float*, int, int, int, int) = {
       seq_bbwd_kernel<8, XT, WT>, seq_bbwd_kernel<16, XT, WT>,
       seq_bbwd_kernel<32, XT, WT>, seq_bbwd_kernel<64, XT, WT>};
   return sbt_fwd32::launch_smem(
       ks,
       bwd_smem(H, rows, !std::is_same<XT, float>::value,
                std::is_same<WT, bf16>::value),
-      H, T, R, rows, 2, st, (const XT*)gates, cseq, (const XT*)dy,
-      (const WT*)w_hh, (XT*)dgates, T, R, rows);
+      H, T, R, rows, nd, st, (const XT*)gates, cseq, (const XT*)dy,
+      (const WT*)w_hh, (XT*)dgates, c0, dhT, dcT, dh0, dc0, T, R, nd, rows);
+}
+
+int bwd_dtypes(int dtypes, const void* gates, const float* cseq,
+               const void* dy, const void* w_hh, void* dgates,
+               const float* c0, const float* dhT, const float* dcT,
+               float* dh0, float* dc0, int T, int R, int H, int nd, int rows,
+               cudaStream_t st) {
+  switch (dtypes) {
+    case 0:
+      return bbwd<float, float>(gates, cseq, dy, w_hh, dgates, c0, dhT, dcT,
+                                dh0, dc0, T, R, H, nd, rows, st);
+    case 1:
+      return bbwd<bf16, bf16>(gates, cseq, dy, w_hh, dgates, c0, dhT, dcT,
+                              dh0, dc0, T, R, H, nd, rows, st);
+    case 2:
+      return bbwd<bf16, float>(gates, cseq, dy, w_hh, dgates, c0, dhT, dcT,
+                               dh0, dc0, T, R, H, nd, rows, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sbt_bwd
 
 // dtypes: the (x, weights) pair, 0 = (fp32, fp32), 1 = (bf16, bf16),
 // 2 = (bf16, fp32) (`DTYPES` in ops/kernels/lstm_slab.py): gates, dy and
-// dgates in x's type, c fp32, w_hh the [2H, 8H] pack in the weights'.
-// Launches 2 x ceil(R / rows) blocks of 4H threads; 0 for a shape the
-// kernel does not take (`sbt_blstm_seq_bwd_smem` 0), else a CUDA error code.
+// dgates in x's type, c and the ends fp32, w_hh in the weights'. rows:
+// rows a block; the block's shared memory is `sbt_blstm_seq_bwd_smem`'s for
+// either entry (0 for a shape the kernel does not take: H in 8, 16, 32, 64,
+// 1 <= rows <= 48). Each returns 0 or a CUDA error code.
+
 extern "C" size_t sbt_blstm_seq_bwd_smem(int H, int rows, int dtypes) {
   return sbt_bwd::bwd_smem(H, rows, dtypes != 0, dtypes == 1);
 }
 
+// Row 9: w_hh the [2H, 8H] pack; 2 x ceil(R / rows) blocks of 4H threads.
 extern "C" int sbt_blstm_seq_bwd(const void* gates, const float* cseq,
                                  const void* dy, const void* w_hh,
                                  void* dgates, int T, int R, int H,
                                  int dtypes, int rows, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  cudaStream_t st = (cudaStream_t)stream;
-  using sbt_bwd::bf16;
-  switch (dtypes) {
-    case 0:
-      return sbt_bwd::bbwd<float, float>(gates, cseq, dy, w_hh, dgates, T, R,
-                                         H, rows, st);
-    case 1:
-      return sbt_bwd::bbwd<bf16, bf16>(gates, cseq, dy, w_hh, dgates, T, R,
-                                       H, rows, st);
-    case 2:
-      return sbt_bwd::bbwd<bf16, float>(gates, cseq, dy, w_hh, dgates, T, R,
-                                        H, rows, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return sbt_bwd::bwd_dtypes(dtypes, gates, cseq, dy, w_hh, dgates, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, T, R, H, 2,
+                             rows, (cudaStream_t)stream);
+}
+
+// Row 7: w_hh [H, 4H]; c0, dhT, dcT in and dh0, dc0 out, [R, H] fp32 (c0
+// 16-byte aligned: it is copied in 16-byte pieces); ceil(R / rows) blocks
+// of 4H threads.
+extern "C" int sbt_lstm_seq_bwd(const void* gates, const float* cseq,
+                                const float* c0, const void* dy,
+                                const void* w_hh, const float* dhT,
+                                const float* dcT, void* dgates, float* dh0,
+                                float* dc0, int T, int R, int H, int dtypes,
+                                int rows, void* stream) {
+  cudaGetLastError();
+  if (!c0 || !dhT || !dcT || !dh0 || !dc0) return (int)cudaErrorInvalidValue;
+  return sbt_bwd::bwd_dtypes(dtypes, gates, cseq, dy, w_hh, dgates, c0, dhT,
+                             dcT, dh0, dc0, T, R, H, 1, rows,
+                             (cudaStream_t)stream);
 }

@@ -148,7 +148,7 @@ def load_library() -> ctypes.CDLL:
             lib.sbt_lstm_fwd32_smem.restype = ctypes.c_size_t
             lib.sbt_lstm_seq_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
             lib.sbt_lstm_seq_fwd.restype = i32
-            lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+            lib.sbt_lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
             lib.sbt_lstm_seq_bwd.restype = i32
             lib.sbt_blstm_seq_bwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
             lib.sbt_blstm_seq_bwd.restype = i32

@@ -3,11 +3,12 @@ port of `sound_bubble_tpu/ops/pallas/lstm_train_kernel.py`, the JAX
 package's custom-VJP kernel route (`lstm_pallas_train`,
 `blstm_pallas_train`), in float32 and in the mixed mode.
 
-Four entry points, each launching a hand-written CUDA kernel of
-`sound_bubble_tpu_torch/csrc/lstm_seq.cu` for tensors on the card and
-running its plain PyTorch version (`*_ref`, the same arithmetic and the same
-roundings as the Pallas body) for tensors on the CPU. A CUDA tensor goes to
-the kernel or the call raises.
+Four entry points, each launching a hand-written CUDA kernel
+(`sound_bubble_tpu_torch/csrc/lstm_seq.cu`, `lstm_seq_fwd_mixed.cu`,
+`lstm_seq_bwd.cu`) for tensors on the card and running its plain PyTorch
+version (`*_ref`, the same arithmetic and the same roundings as the Pallas
+body) for tensors on the CPU. A CUDA tensor goes to the kernel or the call
+raises.
 
 - `lstm_seq_fwd` (Pallas `lstm_seq_fwd`): one direction over scan-major
   x [T, R, C] with x@W_ih + b fused into each step; returns y [T, R, H] in
@@ -35,11 +36,14 @@ memory before its walk, W_hh in registers, four rows at a time on the serial
 chain; they take H in 8, 16, 32, 64 and C a multiple of 4 (mixed: of 8, and
 C <= 64 with bf16 weights). Their mixed mode keeps gx in bf16 at 4 frames a
 slab, so that 9 rows a block fit one wave at the inter LSTM's R = 1160 and
-38 at the intra BLSTM's R = 2504. `blstm_seq_bwd` launches the backward walk
-of `csrc/lstm_seq_bwd.cu`: W_hh^T in registers, each direction a grid half
-of `seq_bwd_row_tiles` rows a block (one wave), the next frame's gates, c
-and dy copied into shared memory while a frame is walked; H in 8, 16, 32,
-64. `lstm_seq_bwd` runs the first design (8-row tiles, 4H <= 256).
+38 at the intra BLSTM's R = 2504. Both backwards launch the backward walk
+of `csrc/lstm_seq_bwd.cu`: W_hh^T in registers, rows a block from
+`seq_bwd_row_tiles` (one wave; `blstm_seq_bwd` walks each direction in a
+grid half of its own), the next frame's gates, c and dy copied into shared
+memory while a frame is walked; H in 8, 16, 32, 64 (any other H raises
+ValueError before anything is built or launched: ROADMAP Queue 2 item 11).
+`lstm_seq_bwd` enters from (dhT, dcT), takes c0 as the entering cell state
+of its last step and writes (dh0, dc0).
 
 `lstm_seq` and `blstm_seq` are the `torch.autograd.Function`s, the
 counterparts of `lstm_pallas_train` and `blstm_pallas_train`: their
@@ -69,7 +73,7 @@ from sound_bubble_tpu_torch.ops.kernels.lstm_slab import (
     _check_fwd_dims, _dispatch, _mm, _n_sm, _stream, fwd_row_tiles,
     is_mixed, tanh_q)
 
-SEQ_BWD_ROWS_MAX = 48        # rows of a row-9 block (csrc: ROWS_MAX)
+SEQ_BWD_ROWS_MAX = 48        # rows of a backward block (csrc: ROWS_MAX)
 
 
 def sigmoid_x(v):
@@ -248,14 +252,14 @@ def _dtype_code(xdt, w_hh) -> int:
 
 
 def seq_bwd_smem(hidden: int, rows: int, code: int = 0) -> int:
-    """Shared memory of one row-9 block of `rows` rows (bytes), as
-    csrc/lstm_seq_bwd.cu's `bwd_layout` lays it out for the (x, weights)
-    pair `code` of DTYPES: the gate tiles [2][rows][4H + 8] (mixed: bf16,
-    4H + 16), the c tiles [3][rows][H + 8] float32, the dy tiles
-    [2][rows][H + 8] (x's dtype), the dg tiles [2][rp][4H + 8] float32 and
-    the dc slots [rp][H + 8] float32 (rp: rows rounded up to 4); with bf16
-    weights (code 1, the tensor cores' chain) the dg tiles bf16 and rp rows
-    rounded up to 16."""
+    """Shared memory of one block of `rows` rows of the backward walk (rows
+    7 and 9 alike; bytes), as csrc/lstm_seq_bwd.cu's `bwd_layout` lays it
+    out for the (x, weights) pair `code` of DTYPES: the gate tiles
+    [2][rows][4H + 8] (mixed: bf16, 4H + 16), the c tiles [3][rows][H + 8]
+    float32, the dy tiles [2][rows][H + 8] (x's dtype), the dg tiles
+    [2][rp][4H + 8] float32 and the dc slots [rp][H + 8] float32 (rp: rows
+    rounded up to 4); with bf16 weights (code 1, the tensor cores' chain)
+    the dg tiles bf16 and rp rows rounded up to 16."""
     tc = code == 1
     rp = -(-rows // (16 if tc else 4)) * (16 if tc else 4)
     eb = 2 if code else 4
@@ -266,18 +270,19 @@ def seq_bwd_smem(hidden: int, rows: int, code: int = 0) -> int:
 
 
 def seq_bwd_row_tiles(r: int, hidden: int, code: int = 0,
-                      n_sm: int = N_SM) -> tuple[int, int]:
-    """(rows a block, blocks) of row 9's backward walk for R = r rows, each
-    direction a grid half of ceil(r / rows) blocks: the fewest rows that
-    keep both halves within one wave of n_sm blocks (one block an SM), up to
-    SEQ_BWD_ROWS_MAX, fewer where the block's shared memory would not fit
-    (then the grid takes more waves)."""
-    rows = min(SEQ_BWD_ROWS_MAX, -(-2 * r // n_sm))
-    while rows < SEQ_BWD_ROWS_MAX and 2 * -(-r // rows) > n_sm:
+                      n_sm: int = N_SM, nd: int = 2) -> tuple[int, int]:
+    """(rows a block, blocks) of the backward walk for R = r rows and nd
+    directions (row 7: 1, row 9: 2), each direction a grid part of
+    ceil(r / rows) blocks: the fewest rows that keep the grid within one
+    wave of n_sm blocks (one block an SM), up to SEQ_BWD_ROWS_MAX, fewer
+    where the block's shared memory would not fit (then the grid takes more
+    waves)."""
+    rows = min(SEQ_BWD_ROWS_MAX, -(-nd * r // n_sm))
+    while rows < SEQ_BWD_ROWS_MAX and nd * -(-r // rows) > n_sm:
         rows += 1
     while rows > 1 and seq_bwd_smem(hidden, rows, code) > SMEM_LIMIT_BYTES:
         rows -= 1
-    return rows, 2 * -(-r // rows)
+    return rows, nd * -(-r // rows)
 
 
 def _count(fn, code):
@@ -345,12 +350,10 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
                          "[nd*H, nd*4H]")
     t_len, r, width = c_seq.shape
     hidden = width // nd
-    if nd == 2 and hidden not in FWD32_HIDDEN:
-        raise ValueError(f"H={hidden}: the fused-direction backward takes H "
-                         f"in {', '.join(map(str, FWD32_HIDDEN))}")
-    if nd == 1 and 4 * hidden > 256:
-        raise ValueError(f"H={hidden}: the backward kernel runs 4H threads a "
-                         "row group, at most 256")
+    if hidden not in FWD32_HIDDEN:
+        raise ValueError(f"H={hidden}: the backward walk takes H in "
+                         f"{', '.join(map(str, FWD32_HIDDEN))} (ROADMAP "
+                         "Queue 2 item 11)")
     operands = [("gates", gates, (t_len, r, nd * 4 * hidden), gdt),
                 ("dy", dy, (t_len, r, nd * hidden), out_dtype),
                 ("w_hh", w_hh, (nd * hidden, nd * 4 * hidden), w_hh.dtype)]
@@ -361,12 +364,12 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
         _check(name, t, shape, dev, dt)
     if t_len < 1 or r < 1:
         raise ValueError(f"empty scan: c_seq {tuple(c_seq.shape)}")
-    if nd == 2:
-        # the walk copies its tiles in 16-byte pieces
-        for name, t in (("gates", gates), ("c_seq", c_seq), ("dy", dy)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: not aligned to 16 bytes")
-        rows = seq_bwd_row_tiles(r, hidden, code, _n_sm(dev))[0]
+    # the walk copies its tiles (and row 7's c0) in 16-byte pieces
+    for name, t in (("gates", gates), ("c_seq", c_seq), ("dy", dy),
+                    ("c0", c0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: not aligned to 16 bytes")
+    rows = seq_bwd_row_tiles(r, hidden, code, _n_sm(dev), nd)[0]
     lib = _build.load_library()
     dg = torch.empty((t_len, r, nd * 4 * hidden), dtype=out_dtype,
                      device=dev)
@@ -374,10 +377,6 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
     if nd == 1:
         dh0 = torch.empty((r, hidden), dtype=F32, device=dev)
         dc0 = torch.empty_like(dh0)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         if nd == 2:
             rc = lib.sbt_blstm_seq_bwd(
@@ -386,9 +385,10 @@ def _launch_bwd(fn, nd, gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
                 _stream(dev))
         else:
             rc = lib.sbt_lstm_seq_bwd(
-                gates.data_ptr(), c_seq.data_ptr(), ptr(c0), dy.data_ptr(),
-                w_hh.data_ptr(), ptr(dhT), ptr(dcT), dg.data_ptr(), ptr(dh0),
-                ptr(dc0), t_len, r, hidden, code, _stream(dev))
+                gates.data_ptr(), c_seq.data_ptr(), c0.data_ptr(),
+                dy.data_ptr(), w_hh.data_ptr(), dhT.data_ptr(),
+                dcT.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
+                dc0.data_ptr(), t_len, r, hidden, code, rows, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{rc}")
@@ -424,8 +424,9 @@ def lstm_seq_fwd(w_ih, w_hh, b, x, h0, c0):
 
 
 def lstm_seq_bwd(gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype):
-    """Row 7: the backward walk, kernel or plain version as
-    `lstm_seq_fwd`. Returns (dgates, dh0, dc0)."""
+    """Row 7: the backward walk in one direction, kernel or plain version
+    as `lstm_seq_fwd`. c0, dhT, dcT: [R, H] float32. Returns (dgates, dh0,
+    dc0)."""
     return _dispatch(c_seq, _lstm_bwd_kernel, lstm_seq_bwd_ref,
                      (gates, c_seq, c0, dy, dhT, dcT, w_hh, out_dtype))
 
@@ -450,6 +451,11 @@ for _fn in (lstm_seq_fwd, lstm_seq_bwd, blstm_seq_fwd, blstm_seq_bwd):
 
 # ------------------------------------------------------- autograd -------
 
+def _aligned(t):
+    """t, or a copy of it where its data is off 16-byte alignment."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 class _LstmSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w_ih, w_hh, b, x, h0, c0):
@@ -462,9 +468,11 @@ class _LstmSeq(torch.autograd.Function):
     def backward(ctx, dy, dhT, dcT):
         w_ih, w_hh, x, h0, c0, y, gates, c_seq = ctx.saved_tensors
         hidden = w_hh.shape[0]
+        # the walk copies c0 and dy in 16-byte pieces
+        c0f, dy = (_aligned(t) for t in (c0.float().contiguous(),
+                                         dy.to(x.dtype).contiguous()))
         dgates, dh0, dc0 = lstm_seq_bwd(
-            gates, c_seq, c0.float().contiguous(),
-            dy.to(x.dtype).contiguous(), dhT.float().contiguous(),
+            gates, c_seq, c0f, dy, dhT.float().contiguous(),
             dcT.float().contiguous(), w_hh, x.dtype)
         # the weight and input gradients: large products outside the walk
         h_prev = torch.cat([h0[None].to(y.dtype), y[:-1]], dim=0)
@@ -500,9 +508,8 @@ class _BlstmSeq(torch.autograd.Function):
         w_ih_f, w_ih_b, w_hh, x, y, gates, c_seq = ctx.saved_tensors
         whh_f_dt, b_f_dt, whh_b_dt, b_b_dt = ctx.dtypes
         hidden = w_hh.shape[0] // 2
-        dy = dy.to(x.dtype).contiguous()
-        if dy.data_ptr() % 16:     # the walk copies dy in 16-byte pieces
-            dy = dy.clone()
+        # the walk copies dy in 16-byte pieces
+        dy = _aligned(dy.to(x.dtype).contiguous())
         dgates = blstm_seq_bwd(w_hh, gates, c_seq, dy, x.dtype)
         dgf = dgates[..., :4 * hidden]     # walk step == original time
         dgb = dgates[..., 4 * hidden:]     # walk step == mirrored time

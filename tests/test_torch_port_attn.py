@@ -54,6 +54,7 @@ from sound_bubble_tpu_torch.runtime.streaming import (
 from sound_bubble_tpu_torch.train.module import PLModule as TPLModule
 from sound_bubble_tpu_torch.utils import load_pretrained
 from sound_bubble_tpu_torch.weights import from_jax_params, param_tree
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
@@ -66,19 +67,6 @@ SMALL = dict(stft_chunk_size=32, stft_pad_size=16, num_ch=6, D=8, B=3, H=8,
 VARIANTS = {"plain": dict(conv_lstm=False), "conv": dict(conv_lstm=True,
                                                          lstm_down=4)}
 DIS = np.asarray([[0.0, 1.0, 0.0]], np.float32)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one thread: these tests run many small ops, and a thread
-    pool beside the suite's other busy workers made them several times
-    slower (a flagship-width stream of 25 chunks took minutes instead of
-    seconds)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 
 def _np_tree(tree):
@@ -286,7 +274,6 @@ def test_attn_stack_step_matches_pallas_interpret(variant):
                 np.testing.assert_allclose(
                     g.numpy(), np.asarray(w), atol=TOL, rtol=0,
                     err_msg=f"{fn.__name__} step {k} {name}")
-
 
 
 def test_walk_attn_phases_match_pallas_interpret():

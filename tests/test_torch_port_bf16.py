@@ -51,6 +51,7 @@ from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
 from sound_bubble_tpu_torch.train.module import PLModule
 from sound_bubble_tpu_torch.utils import cast_bf16
 from sound_bubble_tpu_torch.weights import from_jax_params, param_tree
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")

@@ -38,6 +38,7 @@ from sound_bubble_tpu_torch.datagen import voice as tv
 from sound_bubble_tpu_torch.ops import fft_conv as tf
 from sound_bubble_tpu_torch.ops import noise as tn
 from sound_bubble_tpu_torch.utils import load_pretrained
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")

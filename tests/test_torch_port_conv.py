@@ -28,6 +28,7 @@ from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
 from sound_bubble_tpu_torch.runtime.streaming import (
     ModelWrapper, streaming_inference)
 from sound_bubble_tpu_torch.weights import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 STREAM_TOL = 1e-4

@@ -914,61 +914,75 @@ def _close(got, want, name, tol, walk=True):
     terms) also bit-equal at all but SEQ_MIXED_SHARE of its elements."""
     assert got.shape == want.shape and got.dtype == want.dtype, name
     err = _rel(got.float(), want.float())
+    print(f"{name}: max-abs / peak {err:.4e}")     # shown with -rP
     assert err <= tol, (name, err)
     if walk and got.dtype == torch.bfloat16:
         share = float((got.cpu() != want.cpu()).float().mean())
+        print(f"{name}: bf16 elements differing {share:.4%}")
         assert share <= SEQ_MIXED_SHARE, (name, share)
 
 
+@pytest.mark.parametrize("row", ["row6", "row7", "row8", "row9"])
 @pytest.mark.parametrize("pair", list(SEQ_PAIRS))
 @pytest.mark.parametrize("shape", list(SEQ_SHAPES))
-def test_seq_kernels_match_plain(shape, pair):
-    """Rows 6-9 against their plain versions: fp32 within 1e-4 of each
-    output's peak, mixed within 1e-2 (the slab's mixed bar) and bf16
-    outputs bit-equal at all but SEQ_MIXED_SHARE of the elements."""
+def test_seq_kernels_match_plain(shape, pair, row):
+    """Rows 6-9 against their plain versions, a case a row (so that one
+    row's failure hides no other: rows 7 and 9 run on the plain forwards'
+    gates and c): fp32 within 1e-4 of each output's peak, mixed within 1e-2
+    (the slab's mixed bar) and bf16 outputs bit-equal at all but
+    SEQ_MIXED_SHARE of the elements. Only the row's own kernel launches."""
     from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
 
     dev = _card()
     a = _seq_case(SEQ_SHAPES[shape], dev, pair)
     tol = TOL if pair == "fp32" else 1e-2
     code = ls.DTYPES.index(SEQ_PAIRS[pair])
-    if shape == "wide" and pair != "fp32":   # rows 8b's and 6b's one wave
-        assert ls.fwd_row_tiles(2504, 32, 64, 132, 2, code,
-                                bseq=True) == (38, 132)
-        assert ls.fwd_row_tiles(2504, 32, 64, 132, 1, code,
-                                bseq=True) == (19, 132)
-    if shape == "wide":                      # row 9's one wave
-        assert lk.seq_bwd_row_tiles(2504, 64, code, 132) == (38, 132)
+    if shape == "wide":                      # the walks' one wave
+        if row == "row6" and pair != "fp32":
+            assert ls.fwd_row_tiles(2504, 32, 64, 132, 1, code,
+                                    bseq=True) == (19, 132)
+        if row == "row8" and pair != "fp32":
+            assert ls.fwd_row_tiles(2504, 32, 64, 132, 2, code,
+                                    bseq=True) == (38, 132)
+        if row == "row7":
+            assert lk.seq_bwd_row_tiles(2504, 64, code, 132, 1) == (19, 132)
+        if row == "row9":
+            assert lk.seq_bwd_row_tiles(2504, 64, code, 132) == (38, 132)
     before = _seq_counts(lk)
-    fargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
-    got = lk.lstm_seq_fwd(*fargs)
+    if row in ("row6", "row7"):
+        fargs = (a["w_ih"], a["w_hh"], a["b"], a["x"], a["h0"], a["c0"])
+        want = lk.lstm_seq_fwd_ref(*fargs)
+        if row == "row6":
+            got = lk.lstm_seq_fwd(*fargs)
+            names = ("y", "gates", "c")
+        else:
+            bargs = (want[1], want[2], a["c0"], a["dy"], a["dhT"], a["dcT"],
+                     a["w_hh"], a["x"].dtype)
+            got = lk.lstm_seq_bwd(*bargs)
+            want = lk.lstm_seq_bwd_ref(*bargs)
+            names = ("dgates", "dh0", "dc0")
+    else:
+        pack = lk._blstm_pack(
+            {"w_ih": a["w_ih"], "w_hh": a["w_hh"], "b": a["b"]},
+            {"w_ih": a["w_ih_b"], "w_hh": a["w_hh_b"], "b": a["b_b"]})
+        want = lk.blstm_seq_fwd_ref(*pack, a["x"])
+        if row == "row8":
+            got = lk.blstm_seq_fwd(*pack, a["x"])
+            names = ("y", "gates", "c")
+        else:
+            bargs = (pack[2], want[1], want[2], a["dy2"], a["x"].dtype)
+            got = (lk.blstm_seq_bwd(*bargs),)
+            want = (lk.blstm_seq_bwd_ref(*bargs),)
+            names = ("dgates",)
     torch.cuda.synchronize()
-    want = lk.lstm_seq_fwd_ref(*fargs)
-    for g, w, name in zip(got, want, ("y", "gates", "c")):
-        _close(g, w, f"row 6 {name}", tol)
-    bargs = (want[1], want[2], a["c0"], a["dy"], a["dhT"], a["dcT"],
-             a["w_hh"], a["x"].dtype)
-    got = lk.lstm_seq_bwd(*bargs)
-    torch.cuda.synchronize()
-    for g, w, name in zip(got, lk.lstm_seq_bwd_ref(*bargs),
-                          ("dgates", "dh0", "dc0")):
-        _close(g, w, f"row 7 {name}", tol)
-    pack = lk._blstm_pack(
-        {"w_ih": a["w_ih"], "w_hh": a["w_hh"], "b": a["b"]},
-        {"w_ih": a["w_ih_b"], "w_hh": a["w_hh_b"], "b": a["b_b"]})
-    got = lk.blstm_seq_fwd(*pack, a["x"])
-    torch.cuda.synchronize()
-    want = lk.blstm_seq_fwd_ref(*pack, a["x"])
-    for g, w, name in zip(got, want, ("y", "gates", "c")):
-        _close(g, w, f"row 8 {name}", tol)
-    bargs = (pack[2], want[1], want[2], a["dy2"], a["x"].dtype)
-    got = lk.blstm_seq_bwd(*bargs)
-    torch.cuda.synchronize()
-    _close(got, lk.blstm_seq_bwd_ref(*bargs), "row 9 dgates", tol)
+    for g, w, name in zip(got, want, names):
+        _close(g, w, f"{row} {name}", tol)
     k = 1 if pair != "fp32" else 0
     grew = [tuple(n - m for n, m in zip(x, y))
             for x, y in zip(_seq_counts(lk), before)]
-    assert grew == [(1 - k, k)] * 4, grew
+    want_grew = [(0, 0)] * 4
+    want_grew[int(row[-1]) - 6] = (1 - k, k)
+    assert grew == want_grew, grew
 
 
 @pytest.mark.parametrize("pair", list(SEQ_PAIRS))
@@ -1074,10 +1088,13 @@ def test_mixed_forward_layout_and_limits_agree_with_the_library():
 
 
 def test_blstm_bwd_layout_and_limits_agree_with_the_library():
-    """Row 9's shared-memory formula (`seq_bwd_smem`) is the library's for
-    the three pairs, the library refuses an H or a row count it does not
-    take, and the wrapper raises (ValueError, no launch) for an H the walk
-    does not take and for a dy off 16-byte alignment."""
+    """The backward walk's shared-memory formula (`seq_bwd_smem`, rows 7 and
+    9 alike) is the library's for the three pairs; the library refuses an H
+    or a row count it does not take, and row 7's entry a missing end; row
+    7's grid is one wave at the inter LSTM's R = 580 (5 rows a block) and
+    R = 1160 (9); both wrappers raise (ValueError, no launch) for an H the
+    walk does not take and for a dy (row 7: a c0) off 16-byte
+    alignment."""
     from sound_bubble_tpu_torch.ops.kernels import _build
     from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as lk
 
@@ -1090,7 +1107,30 @@ def test_blstm_bwd_layout_and_limits_agree_with_the_library():
                     lk.seq_bwd_smem(h, rows, code)
     for h, rows in ((48, 1), (64, 0), (64, 49)):
         assert lib.sbt_blstm_seq_bwd_smem(h, rows, 1) == 0
+    for code in (0, 1, 2):
+        assert lk.seq_bwd_row_tiles(580, 64, code, 132, 1) == (5, 116)
+        assert lk.seq_bwd_row_tiles(1160, 64, code, 132, 1) == (9, 129)
     before = _seq_counts(lk)
+    # row 7's C entry: a null end is refused before any launch
+    t_len, r, h = 5, 9, 64
+    z = torch.zeros(t_len * r * 4 * h, device=dev)
+    assert lib.sbt_lstm_seq_bwd(z.data_ptr(), z.data_ptr(), None,
+                                z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                                z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                                z.data_ptr(), t_len, r, h, 0, 5, None) != 0
+    a = _seq_case((5, 9, 32, 48), dev, "fp32")
+    with pytest.raises(ValueError, match="H=48"):
+        lk.lstm_seq_bwd(torch.zeros(5, 9, 192, device=dev),
+                        torch.zeros(5, 9, 48, device=dev), a["c0"], a["dy"],
+                        a["dhT"], a["dcT"], a["w_hh"], torch.float32)
+    c0 = torch.zeros(r * h + 1, device=dev)[1:].view(r, h)
+    with pytest.raises(ValueError, match="c0: not aligned"):
+        lk.lstm_seq_bwd(torch.zeros(t_len, r, 4 * h, device=dev),
+                        torch.zeros(t_len, r, h, device=dev), c0,
+                        torch.zeros(t_len, r, h, device=dev),
+                        torch.zeros(r, h, device=dev),
+                        torch.zeros(r, h, device=dev),
+                        torch.zeros(h, 4 * h, device=dev), torch.float32)
     a = _seq_case((5, 9, 32, 48), dev, "bf16")
     with pytest.raises(ValueError, match="H=48"):
         lk.blstm_seq_bwd(torch.zeros(96, 384, device=dev,

@@ -40,6 +40,7 @@ from sound_bubble_tpu_torch.train.checkpoint import (
     load_checkpoint, model_tree, save_checkpoint as save_checkpoint_pt)
 from sound_bubble_tpu_torch.train.module import PLModule
 from sound_bubble_tpu_torch.utils import load_pretrained
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EDGE = os.path.join(REPO, "real_experiments", "orangpi_model_{}.json")

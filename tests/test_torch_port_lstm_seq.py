@@ -47,6 +47,7 @@ from sound_bubble_tpu_torch.ops import rnn as trnn
 from sound_bubble_tpu_torch.ops.kernels import lstm_train_kernel as tk
 from sound_bubble_tpu_torch.ops.kernels.lstm_slab import sigmoid_q
 from sound_bubble_tpu_torch.weights import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")
@@ -460,10 +461,34 @@ def test_blstm_bwd_rows(r):
             tk.SMEM_LIMIT_BYTES >= tk.seq_bwd_smem(64, 38, 0)
 
 
+@pytest.mark.parametrize("r", [37, 580, 1160])
+def test_seq_bwd_rows(r):
+    """Row 7's grid (the backward walk of csrc/lstm_seq_bwd.cu in one
+    direction): ceil(R / rows) blocks in one wave of the H100's 132 SMs, in
+    fp32 and both mixed pairs, on row 9's shared-memory formula; 5 rows a
+    block at the inter LSTM's R = 580 (116 blocks) and 9 at the bf16
+    recipe's R = 1160 (129), where the first design took 73 and 145 blocks
+    of 8 rows."""
+    for code in (0, 1, 2):
+        rows, blocks = tk.seq_bwd_row_tiles(r, 64, code, nd=1)
+        assert blocks == -(-r // rows) <= 132
+        assert rows == -(-r // 132)
+        assert tk.seq_bwd_smem(64, rows, code) <= tk.SMEM_LIMIT_BYTES
+    want = {37: (1, 37), 580: (5, 116), 1160: (9, 129)}[r]
+    assert all(tk.seq_bwd_row_tiles(r, 64, code, 132, 1) == want
+               for code in (0, 1, 2))
+    if r == 580:       # fp32: 4H + 8 gate columns, rows rounded up to 4
+        assert tk.seq_bwd_smem(64, 5, 0) == 36960
+    if r == 1160:      # the tensor cores' chain: rows rounded up to 16
+        assert tk.seq_bwd_smem(64, 9, 1) == 41664
+        assert tk.seq_bwd_smem(64, 9, 2) == 48960
+
+
 def test_seq_wrappers_refuse_before_launch():
-    """Rows 6 and 9's wrappers raise ValueError for an H, a C or an
+    """Rows 6, 7 and 9's wrappers raise ValueError for an H, a C or an
     alignment their kernels do not take before they build or launch
-    anything (here on CPU tensors, which the kernels never see)."""
+    anything (here on CPU tensors, which the kernels never see); row 7's
+    Function copies a misaligned c0 or dy instead (`_aligned`)."""
     def operands(t_len, r, c_in, hidden, xdt, wdt):
         rng = np.random.default_rng(0)
 
@@ -485,7 +510,8 @@ def test_seq_wrappers_refuse_before_launch():
         w_ih, w_hh, b, x, h0, c0 = operands(*shape, bf, wdt)
         with pytest.raises(ValueError, match=match):
             tk._launch_fwd(tk.lstm_seq_fwd, x, (w_ih,), w_hh, b, h0, c0)
-    for hidden, nd, match in ((48, 2, "H=48"), (80, 1, "H=80")):
+    for hidden, nd, match in ((48, 2, "H=48"), (80, 1, "H=80"),
+                              (48, 1, "H=48"), (128, 1, "H=128")):
         t_len, r = 3, 5
         gates = torch.zeros(t_len, r, nd * 4 * hidden)
         c_seq = torch.zeros(t_len, r, nd * hidden)
@@ -504,8 +530,22 @@ def test_seq_wrappers_refuse_before_launch():
                        torch.zeros(t_len, r, 2 * hidden), None, dy, None,
                        None, torch.zeros(2 * hidden, 8 * hidden, dtype=bf),
                        bf)
+    # row 7 also copies c0 in 16-byte pieces: c0 4 bytes past that
+    t_len, r, hidden = 3, 5, 8
+    c0 = torch.zeros(r * hidden + 1)[1:].view(r, hidden)
+    z = torch.zeros(r, hidden)
+    with pytest.raises(ValueError, match="c0: not aligned"):
+        tk._launch_bwd(tk.lstm_seq_bwd, 1,
+                       torch.zeros(t_len, r, 4 * hidden),
+                       torch.zeros(t_len, r, hidden), c0,
+                       torch.zeros(t_len, r, hidden), z, z,
+                       torch.zeros(hidden, 4 * hidden), f32)
     assert [(f.launches, f.mixed_launches) for f in
             (tk.lstm_seq_fwd, tk.lstm_seq_bwd, tk.blstm_seq_bwd)] == before
+    # what the Functions pass instead: an aligned copy, same values
+    got = tk._aligned(c0)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, c0)
+    assert tk._aligned(z) is z
 
 
 def test_bf16_reciprocal_margin():

@@ -21,6 +21,7 @@ import sound_bubble_tpu.ops.rnn as jrnn
 from sound_bubble_tpu.ops.pallas import lstm_train_slab as jslab
 from sound_bubble_tpu_torch.ops import rnn as trnn
 from sound_bubble_tpu_torch.ops.kernels import lstm_slab as tslab
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 C, H, R = 5, 4, 11

@@ -14,6 +14,7 @@ from sound_bubble_tpu.models.tfgridnet.model import make_net
 from sound_bubble_tpu_torch.models.tfgridnet.model import Net, make_config
 from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
 from sound_bubble_tpu_torch.weights import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 SMALL = dict(stft_chunk_size=32, stft_pad_size=16, num_ch=6, D=8, B=3, H=8,

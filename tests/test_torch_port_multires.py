@@ -23,6 +23,7 @@ from sound_bubble_tpu.metrics import metrics as jm
 from sound_bubble_tpu_torch.losses import multires_stft as tl
 from sound_bubble_tpu_torch.metrics import metrics as tm
 from sound_bubble_tpu_torch.utils import import_attr
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 # the finetune configs' loss_params

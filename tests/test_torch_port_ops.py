@@ -14,6 +14,7 @@ from sound_bubble_tpu.ops import stft as jstft
 from sound_bubble_tpu_torch.ops import features as tfeat
 from sound_bubble_tpu_torch.ops import rnn as trnn
 from sound_bubble_tpu_torch.ops import stft as tstft
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 N_FFT, CHUNK = 288, 192          # production STFT: chunk 192 + lookahead 96

@@ -21,6 +21,7 @@ from sound_bubble_tpu import utils as jutils
 from sound_bubble_tpu_torch import utils as tutils
 from sound_bubble_tpu_torch.data.synth import golden_batch
 from sound_bubble_tpu_torch.train.module import PLModule
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")

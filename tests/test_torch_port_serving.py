@@ -53,6 +53,7 @@ from sound_bubble_tpu_torch.weights import from_jax_params
 from src import eval as jax_eval_cli
 from src import eval_syn as jax_eval_syn_cli
 from src import test_samples as jax_test_samples_cli
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 BLSTM_TOL = 1e-5
@@ -62,16 +63,6 @@ SMALL = dict(stft_chunk_size=32, stft_pad_size=16, num_ch=6, D=8, B=3, H=8,
              merge_method="early_cat", conv_lstm=False, dis_type="conv3")
 VARIANTS = {"cond": {}, "conv_lstm": dict(conv_lstm=True, lstm_down=5)}
 DIS = [[0.0, 1.0, 0.0]]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """torch on one thread: beside the suite's other busy workers its
-    thread pool slows these small CPU runs down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _blstm_params(rng, c, h):

@@ -19,6 +19,7 @@ from sound_bubble_tpu.ops.pallas import stack_kernel as jsk
 from sound_bubble_tpu_torch.models.tfgridnet.model import Net, NetConfig
 from sound_bubble_tpu_torch.ops.kernels import stack_kernel as tsk
 from sound_bubble_tpu_torch.weights import param_tree
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 SIZE = dict(stft_chunk_size=16, stft_pad_size=16, D=8, H=8, B=3,

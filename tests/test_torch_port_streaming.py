@@ -26,6 +26,7 @@ from sound_bubble_tpu_torch.runtime.streaming import (
     ModelWrapper, streaming_inference)
 from sound_bubble_tpu_torch.utils import load_pretrained, read_json
 from sound_bubble_tpu_torch.weights import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-4

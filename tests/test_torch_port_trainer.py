@@ -23,6 +23,7 @@ from sound_bubble_tpu_torch.data.dataset import DistanceEmbedDataset
 from sound_bubble_tpu_torch.data.loader import SeedWorkers, make_loader
 from sound_bubble_tpu_torch.data.synth import write_sample_dirs
 from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "syn_experiments", "pretrain_stage.json")

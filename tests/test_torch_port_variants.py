@@ -46,6 +46,7 @@ from sound_bubble_tpu_torch.runtime.streaming import (
 from sound_bubble_tpu_torch.train.checkpoint import load_checkpoint
 from sound_bubble_tpu_torch.utils import load_pretrained
 from sound_bubble_tpu_torch.weights import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
@@ -53,19 +54,6 @@ BASE = dict(stft_chunk_size=32, stft_pad_size=16, num_ch=6, D=8, B=2, H=8,
             L=2, E=2, use_first_ln=True, merge_method="early_cat",
             conv_lstm=False, dis_type="conv3", use_attn=False)
 DIS = np.asarray([[1.0, 0.0, 0.0]], np.float32)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one thread: these tests run many small ops, and a thread
-    pool beside the suite's other busy workers made them several times
-    slower (a flagship-width stream of 25 chunks took minutes instead of
-    seconds)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 
 def _nets(model_params, seed=0):

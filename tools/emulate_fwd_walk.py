@@ -36,14 +36,16 @@ its peak everywhere, the seq forwards' bf16 outputs bit-equal at all but
 one-wave tile), ragged R and T, both directions, C = 32, 24, 16 (and
 C = H = 8).
 
-`--only bwd` runs row 9's backward walk (`csrc/lstm_seq_bwd.cu`) the same
-way against `blstm_seq_bwd_ref` on the plain forward's gates and c, in
-fp32 (within 1e-4 of the peak) and both mixed pairs (the mixed bars), at
-rows a block 1, 19 and 38, tails of 1-3 rows, ragged R, T = 1 and H = 8,
-16, 32, 64 (`BWD_CASES`). `--only seqtest` runs rows 6b and 9 at the exact
-draws of tests/test_torch_port_cuda.py's `test_seq_kernels_match_plain`
-(every shape and pair, rows a block as the wrappers pick them on 132 SMs)
-under the card's bars. These and `--only mixed` take ~1-14 minutes; the
+`--only bwd` runs the backward walk (`csrc/lstm_seq_bwd.cu`) the same way,
+in both of its direction counts: row 9 against `blstm_seq_bwd_ref` on the
+plain forward's gates and c, row 7 against `lstm_seq_bwd_ref` (drawn c0,
+dhT, dcT; dgates, dh0 and dc0), in fp32 (within 1e-4 of the peak) and both
+mixed pairs (the mixed bars), at rows a block 1, 19 and 38, tails of 1-3
+rows, ragged R, T = 1 and H = 8, 16, 32, 64 (`BWD_CASES`). `--only
+seqtest` runs rows 6b, 7 and 9 at the exact draws of
+tests/test_torch_port_cuda.py's `test_seq_kernels_match_plain` (every shape
+and pair, rows a block as the wrappers pick them on 132 SMs) under the
+card's bars. These and `--only mixed` take ~1-14 minutes; the
 test's `wide` shape (R = 2504) takes most of `seqtest`'s. With fp32
 weights a bf16 x times fp32 w product is inexact, so the plain version's
 bf16 roundings follow its fp32 matmul's summation order, which is MKL's
@@ -417,7 +419,7 @@ def build(out):
                                           '#include "cuda_runtime.h"')
     seq = cut(read("lstm_seq.cu"),
               "// ---- the fp32 single-direction forward (row 6a)",
-              "// ---- the single-direction backward (rows 7a, 7b)")
+              "template <int ND>\nint fwd_dtypes(")
     slab = cut(read("lstm_slab.cu"), "// ---- the fp32 forward (row 10a)",
                "// The backward's shared memory at")
     seq6b = once(read("lstm_seq_fwd_mixed.cu"), "#include <cuda_runtime.h>",
@@ -430,9 +432,10 @@ def build(out):
 
 
 def build_bwd(out):
-    """The host copy of row 9's backward walk (csrc/lstm_seq_bwd.cu) in out
-    (after `build`, which writes the walk's header there), built; the
-    library, called through its own C entry points."""
+    """The host copy of the backward walk (rows 7 and 9,
+    csrc/lstm_seq_bwd.cu) in out (after `build`, which writes the walk's
+    header there), built; the library, called through its own C entry
+    points."""
     bwd = once(read("lstm_seq_bwd.cu"), SHARED, HOST_SHARED)
     bwd = bwd.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
     if "asm" in bwd or "<<<" in bwd:
@@ -712,10 +715,27 @@ def bwd_run(libb, pack, gates, c_seq, dy, code, rows):
     return got
 
 
+def seq_bwd_run(libb, w_hh, gates, c_seq, c0, dy, dhT, dcT, code, rows):
+    """Row 7's walk under the emulation: (dgates, dh0, dc0)."""
+    import torch
+
+    t_len, r, h = c_seq.shape
+    got = [torch.full((t_len, r, 4 * h), float("nan")).to(dy.dtype),
+           torch.full((r, h), float("nan")), torch.full((r, h), float("nan"))]
+    if libb.sbt_lstm_seq_bwd(gates.data_ptr(), c_seq.data_ptr(),
+                             c0.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
+                             dhT.data_ptr(), dcT.data_ptr(),
+                             *(t.data_ptr() for t in got), t_len, r, h, code,
+                             rows, None):
+        raise RuntimeError("row 7 refused the case")
+    return got
+
+
 def bwd_cases(libb, lk, check, draw, ptr):
-    """Row 9 (csrc/lstm_seq_bwd.cu) under the emulation against
-    `blstm_seq_bwd_ref` on the plain forward's gates and c, in fp32 and
-    both mixed pairs."""
+    """Rows 9 and 7 (csrc/lstm_seq_bwd.cu) under the emulation against
+    `blstm_seq_bwd_ref` / `lstm_seq_bwd_ref` on the plain forwards' gates
+    and c, in fp32 and both mixed pairs; row 7 from drawn (h0, c0, dhT,
+    dcT)."""
     import numpy as np
     import torch
 
@@ -732,6 +752,14 @@ def bwd_cases(libb, lk, check, draw, ptr):
             want = lk.blstm_seq_bwd_ref(pack[2], gates, c_seq, dy, xdt)
             got = bwd_run(libb, pack, gates, c_seq, dy, code, rows)
             check("bwd", (code, rows, r, t_len, c, h), [got], [want])
+            h0, c0, dhT, dcT = (draw(rng, r, h, scale=0.5) for _ in range(4))
+            _, gates, c_seq = lk.lstm_seq_fwd_ref(*w[:3], x, h0, c0)
+            dy = dy[..., :h].contiguous()
+            want = lk.lstm_seq_bwd_ref(gates, c_seq, c0, dy, dhT, dcT, w[1],
+                                       xdt)
+            got = seq_bwd_run(libb, w[1], gates, c_seq, c0, dy, dhT, dcT,
+                              code, rows)
+            check("bwd7", (code, rows, r, t_len, c, h), got, list(want))
 
 
 def test_draws(shape, seed):
@@ -754,9 +782,10 @@ def test_draws(shape, seed):
 
 
 def seq_test_cases(lib, libb, ls, lk, check, nan, ptr):
-    """Rows 6b and 9 at the exact draws of `test_seq_kernels_match_plain`
+    """Rows 6b, 7 and 9 at the exact draws of `test_seq_kernels_match_plain`
     (every shape and pair; rows a block as the wrappers pick them on 132
-    SMs), under the card's bars."""
+    SMs; row 7 on the plain forward's outputs, as the test), under the
+    card's bars."""
     import torch
 
     for name, shape in TEST_SEQ_SHAPES.items():
@@ -776,6 +805,14 @@ def seq_test_cases(lib, libb, ls, lk, check, nan, ptr):
                                          rows, code):
                     raise RuntimeError("mixed seq refused the case")
                 check("test_row6b", (name, code, rows), got, want)
+            _, gates, c_seq = lk.lstm_seq_fwd_ref(*w, x, a["h0"], a["c0"])
+            dy = a["dy"].to(xdt)
+            want = lk.lstm_seq_bwd_ref(gates, c_seq, a["c0"], dy, a["dhT"],
+                                       a["dcT"], w[1], xdt)
+            rows = lk.seq_bwd_row_tiles(r, h, code, 132, 1)[0]
+            got = seq_bwd_run(libb, w[1], gates, c_seq, a["c0"], dy,
+                              a["dhT"], a["dcT"], code, rows)
+            check("test_row7", (name, code, rows), got, list(want))
             pack = lk._blstm_pack(dict(zip(("w_ih", "w_hh", "b"), w)),
                                   dict(zip(("w_ih", "w_hh", "b"), wb)))
             _, gates, c_seq = lk.blstm_seq_fwd_ref(*pack, x)
@@ -847,8 +884,8 @@ def main(argv=None):
             ok = ok and n_ulp == 0
         else:
             shares = [float((g != w).float().mean()) for g, w in
-                      zip(got[:2], want[:2])]
-            extra = f"share differing (y, gates) {shares}"
+                      zip(got[:2], want[:2]) if w.dtype == torch.bfloat16]
+            extra = f"share differing (y, gates; dgates) {shares}"
             ok = ok and max(shares) <= MIXED_SHARE
         print(kind, case, "max-abs / peak", " ".join(f"{e:.2e}" for e in rel),
               extra, "ok" if ok else "FAILS", flush=True)
@@ -933,6 +970,7 @@ def main(argv=None):
     if "bwd" in only or "seqtest" in only:
         libb = build_bwd(args.out)
         libb.sbt_blstm_seq_bwd.argtypes = [P] * 5 + [I] * 5 + [P]
+        libb.sbt_lstm_seq_bwd.argtypes = [P] * 10 + [I] * 5 + [P]
         if "bwd" in only:
             bwd_cases(libb, lk, check_mixed, draw, ptr)
         if "seqtest" in only:

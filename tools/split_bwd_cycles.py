@@ -1,8 +1,9 @@
 """Split one block's cycles of the custom-VJP route's backward walks by
-phase, on one card: the first design (`seq_bwd_kernel` in
+phase, on one card: the backward walk (`seq_bbwd_kernel`,
+`csrc/lstm_seq_bwd.cu`: row 9 and, where its walk takes a direction count,
+row 7) and, in an older tree, the first design (`seq_bwd_kernel` in
 `sound_bubble_tpu_torch/csrc/lstm_seq.cu`: row 7, and row 9 in a tree
-older than `csrc/lstm_seq_bwd.cu`) and row 9's walk (`seq_bbwd_kernel`,
-`csrc/lstm_seq_bwd.cu`) where the tree has it.
+older than `csrc/lstm_seq_bwd.cu`).
 
     python tools/split_bwd_cycles.py [TREE] [OUT_DIR]
 
@@ -14,8 +15,9 @@ and read back through an extra C entry point a source), builds the copy
 and runs the backward of row 9 in fp32 at the flagship's intra shape
 [145, 1252] and mixed (bf16 x, bf16 and fp32 weights) at the bf16 recipe's
 [145, 2504], and of row 7 in fp32 at the inter shape [313, 580] and mixed
-at [313, 1160]; H = 64. Prints the card's name and power limit, then one
-JSON line a shape: cycles a frame of thread 0's block and their split. The
+(both pairs) at [313, 1160]; H = 64. Prints the card's name and power
+limit, then one JSON line a shape: cycles a frame of thread 0's block and
+their split. The
 first design's phases: the frame's loads, cells and stores; its barrier;
 the dh dot over the gate gradients in shared memory. The walk's: the next
 frame's copies issued; the chain (FMAs, or with bf16 weights mma.sync);
@@ -36,7 +38,7 @@ FIRST = ("loads + cell", "barrier", "dh dot")
 WALK = ("wait + frame barrier", "issue copies", "chain", "reduce", "cell")
 # (row, T, R, (x, weights) pair code of lstm_slab.DTYPES)
 SHAPES = (("9", 145, 1252, 0), ("9", 145, 2504, 1), ("9", 145, 2504, 2),
-          ("7", 313, 580, 0), ("7", 313, 1160, 1))
+          ("7", 313, 580, 0), ("7", 313, 1160, 1), ("7", 313, 1160, 2))
 STAMP = ("#define ST(i, t0) do { if (threadIdx.x == 0) { long long _n = "
          "clock64(); sacc[i] += _n - t0; t0 = _n; } } while (0)\n")
 HEAD = ("static __device__ unsigned long long g_split[16];\n"
@@ -65,7 +67,9 @@ FIRST_EDITS = (
      "  }\n" + TAIL),
 )
 # the same for lstm_seq_bwd.cu's walk (count: how often the text is there;
-# the FMA and the tensor cores' chain each have a frame loop)
+# the FMA and the tensor cores' chain each have a frame loop): the stamps
+# every version of the walk takes, then those of the walk of rows 7 and 9
+# (ROW79_EDITS) or of an older walk of row 9 alone (ROW9_EDITS)
 WALK_EDITS = (
     ("namespace sbt_bwd {\n", "namespace sbt_bwd {\n" + HEAD),
     ("  constexpr int N = NA + NB + NC, DS = 4 * H + 8;\n",
@@ -73,12 +77,6 @@ WALK_EDITS = (
      "  long long t0 = clock64();\n"),
     ("  int rho[3] = {0, 0, 0}, ub[3] = {0, 0, 0};",
      "  ST(2, t0);\n  int rho[3] = {0, 0, 0}, ub[3] = {0, 0, 0};"),
-    ("  cell<H, M>(v[0], g + rho[0]", "  ST(3, t0);\n  cell<H, M>(v[0], "
-     "g + rho[0]"),
-    ("    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2], rows, "
-     "rt, f);\n}",
-     "    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2], rows, "
-     "rt, f);\n  ST(4, t0);\n}"),
     ("  constexpr int DS = 4 * H + 8;\n  const int lane = threadIdx.x & 31, "
      "g = lane >> 2, t = lane & 3;\n",
      "  constexpr int DS = 4 * H + 8;\n  const int lane = threadIdx.x & 31, "
@@ -87,9 +85,6 @@ WALK_EDITS = (
      "    const int r = 16 * (mt0 + m) + g",
      "  }\n  ST(2, t0);\n#pragma unroll\n  for (int m = 0; m < NMT; ++m) {\n"
      "    const int r = 16 * (mt0 + m) + g"),
-    ("    cell<H, true>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n  }\n}",
-     "    cell<H, true>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n  }\n"
-     "  ST(4, t0);\n}"),
     ("  const int row0 = tile * rows, rt = min(rows, R - row0);\n",
      "  const int row0 = tile * rows, rt = min(rows, R - row0);\n" + BEGIN),
     ("      if (n + 1 < T) load(n + 1);\n",
@@ -99,9 +94,33 @@ WALK_EDITS = (
      "tiles are in; this dg tile is done\n",
      "      long long tf = clock64();\n      cp_async_wait_all();\n"
      "      __syncthreads();\n      ST(0, tf);\n", 2),
+)
+ROW79_EDITS = (
+    ("  if constexpr (MODE == FIN) {\n    static_assert",
+     "  ST(3, t0);\n  if constexpr (MODE == FIN) {\n    static_assert"),
+    ("                       rows, rt, f);\n  }\n}\n",
+     "                       rows, rt, f);\n  }\n  ST(4, t0);\n}\n"),
+    ("      cell<H, true, MODE>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n"
+     "    }\n  }\n}",
+     "      cell<H, true, MODE>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n"
+     "    }\n  }\n  ST(4, t0);\n}"),
+    # the block's end: before row 7's dc0 store
+    ("  if (dc0)  // row 7: dc after the last frame\n",
+     TAIL + "  if (dc0)  // row 7: dc after the last frame\n"),
+)
+ROW9_EDITS = (
+    ("  cell<H, M>(v[0], g + rho[0]", "  ST(3, t0);\n  cell<H, M>(v[0], "
+     "g + rho[0]"),
+    ("    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2], rows, "
+     "rt, f);\n}",
+     "    cell<H, M>(v[2], g + NA + NB + rho[2], own[2], m0 + ub[2], rows, "
+     "rt, f);\n  ST(4, t0);\n}"),
+    ("    cell<H, true>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n  }\n}",
+     "    cell<H, true>(d[m][3], r + 8, true, u + 1, rows, rt, f);\n  }\n"
+     "  ST(4, t0);\n}"),
     ("    }\n  }\n}\n\ntemplate <typename XT, typename WT>\nint bbwd(",
-     "    }\n  }\n" + TAIL + "}\n\ntemplate <typename XT, typename WT>\n"
-     "int bbwd("),
+     "    }\n  }\n" + TAIL + "}\n\ntemplate <typename XT, "
+     "typename WT>\nint bbwd("),
 )
 READER = """
 extern "C" int {name}(unsigned long long* out) {{
@@ -129,24 +148,27 @@ def edit(path, edits, reader, ns):
 
 
 def instrument(tree, out_dir):
-    """A stamped copy of the tree's package in out_dir; whether it has
-    row 9's walk."""
+    """A stamped copy of the tree's package in out_dir; the rows ("7",
+    "9") its walk runs."""
     pkg = os.path.join(out_dir, "sound_bubble_tpu_torch")
     shutil.rmtree(pkg, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "sound_bubble_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(pkg, "csrc")
-    # the first design's anonymous namespace is the file's own
-    edit(os.path.join(csrc, "lstm_seq.cu"), FIRST_EDITS, "sbt_split_first",
-         "")
-    walk = os.path.exists(os.path.join(csrc, "lstm_seq_bwd.cu"))
-    if walk:
-        edit(os.path.join(csrc, "lstm_seq_bwd.cu"), WALK_EDITS,
-             "sbt_split_walk", "sbt_bwd")
-    return walk
+    seq = os.path.join(csrc, "lstm_seq.cu")
+    if "seq_bwd_kernel" in open(seq).read():
+        # the first design's anonymous namespace is the file's own
+        edit(seq, FIRST_EDITS, "sbt_split_first", "")
+    walk = os.path.join(csrc, "lstm_seq_bwd.cu")
+    if not os.path.exists(walk):
+        return ""
+    nd = "int nd," in open(walk).read()
+    edit(walk, WALK_EDITS + (ROW79_EDITS if nd else ROW9_EDITS),
+         "sbt_split_walk", "sbt_bwd")
+    return "79" if nd else "9"
 
 
-def child(out_dir, walk):
+def child(out_dir, walk_rows):
     sys.path.insert(0, out_dir)
     import numpy as np
     import torch
@@ -159,8 +181,10 @@ def child(out_dir, walk):
         sys.exit("needs an NVIDIA card")
     dev = torch.device("cuda")
     lib = _build.load_library()
-    readers = {"first": lib.sbt_split_first}
-    if walk:
+    readers = {}
+    if hasattr(lib, "sbt_split_first"):
+        readers["first"] = lib.sbt_split_first
+    if walk_rows:
         readers["walk"] = lib.sbt_split_walk
     for fn in readers.values():
         fn.argtypes = [ctypes.c_void_p]
@@ -178,17 +202,18 @@ def child(out_dir, walk):
                      torch.float32)
         c_seq, dy = draw(t_len, r, nd * h), draw(t_len, r, nd * h, dtype=xdt)
         w_hh = draw(nd * h, nd * 4 * h, lo=-0.125, hi=0.125, dtype=wdt)
+        # row 7's c0, dy, dhT, dcT
+        ends = (draw(r, h), dy, draw(r, h), draw(r, h))
 
         def run():
             with torch.no_grad():
                 if nd == 2:
                     lk.blstm_seq_bwd(w_hh, gates, c_seq, dy, xdt)
                 else:
-                    z = draw(r, h)
-                    lk.lstm_seq_bwd(gates, c_seq, z, dy, z, z, w_hh, xdt)
+                    lk.lstm_seq_bwd(gates, c_seq, *ends, w_hh, xdt)
             torch.cuda.synchronize()
 
-        kind = "walk" if nd == 2 and walk else "first"
+        kind = "walk" if row in walk_rows else "first"
         phases = WALK if kind == "walk" else FIRST
         sums = (ctypes.c_ulonglong * 16)()
         run()
@@ -196,8 +221,12 @@ def child(out_dir, walk):
         run()
         readers[kind](ctypes.cast(sums, ctypes.c_void_p))
         per = [v / sums[8] / t_len for v in sums[:8]]
-        tiles = (lk.seq_bwd_row_tiles(r, h, code, ls._n_sm(dev))
-                 if kind == "walk" else (8, -(-r // 8)))
+        if kind == "first":
+            tiles = (8, -(-r // 8))
+        elif nd == 2:
+            tiles = lk.seq_bwd_row_tiles(r, h, code, ls._n_sm(dev))
+        else:
+            tiles = lk.seq_bwd_row_tiles(r, h, code, ls._n_sm(dev), nd)
         print(json.dumps({
             "row": row + ("a" if not code else "b"), "kernel": kind,
             "pair": [str(xdt), str(wdt)], "shape": [t_len, r, h],
@@ -214,15 +243,15 @@ def main(tree, out_dir):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    walk = instrument(tree, out_dir)
+    walk_rows = instrument(tree, out_dir)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--child", out_dir, str(int(walk))], timeout=600)
+                           "--child", out_dir, walk_rows], timeout=600)
     sys.exit(proc.returncode)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        child(sys.argv[2], sys.argv[3] == "1")
+        child(sys.argv[2], sys.argv[3] if sys.argv[3:] else "")
     else:
         tree = os.path.abspath(sys.argv[1] if sys.argv[1:] else REPO)
         main(tree, os.path.abspath(sys.argv[2] if sys.argv[2:] else

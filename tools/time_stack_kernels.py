@@ -35,10 +35,13 @@ mixed at the recipe's batch 8 ([313, 1160, 32]), the fused-direction
 at the intra BLSTM's ([145, 1252, 32]) and mixed at batch 8
 ([145, 2504, 32]), each forward beside cuDNN's LSTM forward
 (`torch.nn.LSTM`) on the same x, each backward (`*_bwd_ms`) on its
-forward's gates and c; the mixed walks at batch 8 again with fp32 weights
-(`*_fp32w_fwd_ms`, `*_fp32w_bwd_ms`: the (bf16, fp32) pair of `train_pt
---bf16`) and, where the tree's walk has a
-mixed mode, row 8b on the two-wave grid of 19 rows a block
+forward's gates and c (row 7 from drawn (dhT, dcT), and, where the tree's
+row 7 is the backward walk, again at the other row tile that keeps one
+wave: `*_rows8_bwd_ms` fp32 and (bf16, fp32), `*_rows16_bwd_ms` (bf16,
+bf16), against 5 and 9 rows a block); the mixed walks at batch 8 again
+with fp32 weights (`*_fp32w_fwd_ms`, `*_fp32w_bwd_ms`: the (bf16, fp32)
+pair of `train_pt --bf16`) and, where the tree's walk has a mixed mode,
+row 8b on the two-wave grid of 19 rows a block
 (`seq_mixed_intra_rows19_fwd_ms`) beside its one-wave 38; then the
 whole of the fused inference BLSTM `blstm_infer` (row 5), 200 calls after
 10, at chip_smoke.py's four ROW5_SHAPES, beside cuDNN's bidirectional LSTM
@@ -46,17 +49,21 @@ with the same weights, and both again as 20 calls captured in one CUDA
 graph (`*_graph_ms`: the device's time, no host time between calls); and
 `ModelWrapper.feed` of the flagship with every intra BLSTM on row 5: its
 device operations a chunk (torch.profiler) and ms a chunk (host clock,
-100 chunks), with chip_smoke.py's helpers.
+100 chunks), with chip_smoke.py's helpers; last, the seq route's fp32 and
+bf16 recipe train steps as phase 24 times them (`seq_step_*`).
 The weights come from this checkout's `runs/` and, for the LSTMs, from
 seed 0.
 Give each tree twice to see the spread, e.g. parent, change, change,
 parent. Prints the card's name and power limit, then one JSON line a run.
 Needs one NVIDIA card.
 """
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = {"flagship": ("finetune_r5", [[0.0, 0.0, 1.0]]),
@@ -181,6 +188,19 @@ def cudnn_lstm(c, h, nd, dtype, dev, weights=None):
     return lstm
 
 
+def build_seconds(log):
+    """{source or "link": seconds} from a build log (`_build.build_log()`:
+    each command's line, its output, then its seconds in brackets)."""
+    secs = {}
+    for part in log.split("$ ")[1:]:
+        cmd = part.split("\n", 1)[0].split()
+        name = os.path.basename(cmd[-1]) if "-c" in cmd else "link"
+        for ln in part.splitlines():
+            if re.fullmatch(r"\[[0-9.]+ s\]", ln):
+                secs[name] = float(ln[1:-3])
+    return secs
+
+
 def child(tree):
     sys.path.insert(0, REPO)          # chip_smoke.py's helpers
     sys.path.insert(0, os.path.abspath(tree))
@@ -195,11 +215,13 @@ def child(tree):
     torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
     log = _build.build_log().splitlines()
-    # registers of each kernel, and any helper left as a called function
+    # registers of each kernel, and any helper left as a called function;
+    # the build's seconds by source
     out = {"tree": tree,
            "ptxas": [ln.split(":", 1)[1].strip() for ln in log
                      if "Used" in ln or ("Function properties" in ln
-                                         and "_kernel" not in ln)]}
+                                         and "_kernel" not in ln)],
+           "build_s": build_seconds(_build.build_log())}
     time_stack_steps(out, dev)
     chain_errors(out, dev)
 
@@ -228,7 +250,46 @@ def child(tree):
                 lambda: ls.lstm_slab_bwd(*bargs))
 
     time_forwards(out, dev)
+    time_seq_steps(out, dev)
     print(json.dumps(out), flush=True)
+
+
+def time_seq_steps(out, dev):
+    """ms per train step and peak GB on the seq route, chip_smoke.py phase
+    24's two steps: the fp32 step (`PLModule.train_step`, batch 4 x 2.5 s)
+    and the bf16 recipe's (`train_stream.train_step`, batch 8), each from
+    the flagship checkpoint, host clock, 5 steps after one (`seq_step_*`),
+    into out."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from sound_bubble_tpu_torch import train_stream
+    from sound_bubble_tpu_torch.data.synth import golden_batch
+    from sound_bubble_tpu_torch.train.module import PLModule
+
+    with open(cs.TRAIN_CONFIG) as fh:
+        args = {**json.load(fh)["pl_module_args"], "lstm_scan": "seq"}
+    flagship = os.path.join(cs.RUN_DIR, "checkpoints", "best.pt")
+    mod = PLModule(**{**args, "init_ckpt": flagship}, device=dev)
+    out["seq_step_fp32_ms"], out["seq_step_fp32_gb"] = cs.train_step_ms(
+        mod, golden_batch(cs.SEED), dev)
+    del mod
+    b0, b1 = golden_batch(cs.SEED), golden_batch(cs.SEED + 1)
+    mod = cs.bf16_module(args, flagship, dev)
+    model_in = mod._model_inputs({k: np.concatenate([b0[0][k], b1[0][k]])
+                                  for k in ("mixture", "dis_embed")})
+    gt = torch.from_numpy(np.concatenate([b0[1]["target"],
+                                          b1[1]["target"]])).to(dev)
+    train_stream.train_step(mod, model_in, gt, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(5):
+        train_stream.train_step(mod, model_in, gt, True)
+    torch.cuda.synchronize()
+    out["seq_step_bf16_ms"] = (time.perf_counter() - t) / 5 * 1e3
+    out["seq_step_bf16_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
 
 def time_stack_steps(out, dev):
@@ -377,15 +438,34 @@ def time_forwards(out, dev):
         lstm = cudnn_lstm(c, 64, nd, x.dtype, dev)
         dy = draw(t_len, r, nd * 64, dtype=x.dtype)
 
+        dhT, dcT = draw(r, 64), draw(r, 64)     # row 7's entering states
+
         def bwd(args):
             """The row's backward walk (7 or 9) on the forward's gates and
-            c for args."""
+            c for args (row 7: from (dhT, dcT), c0 the forward's)."""
             _, gates, c_seq = fn(*args)
             w_hh = args[1] if nd == 1 else args[2]
             if nd == 1:
-                return lambda: lk.lstm_seq_bwd(gates, c_seq, h0, dy, h0, c0,
-                                               w_hh, x.dtype)
+                return lambda: lk.lstm_seq_bwd(gates, c_seq, c0, dy, dhT,
+                                               dcT, w_hh, x.dtype)
             return lambda: lk.blstm_seq_bwd(w_hh, gates, c_seq, dy, x.dtype)
+
+        def rows_bwd_ms(args, rows):
+            """ms of row 7's walk at `rows` rows a block, where the tree's
+            row 7 is the walk (its grid picked by seq_bwd_row_tiles with a
+            direction count); else None."""
+            pick = lk.seq_bwd_row_tiles
+            if "nd" not in inspect.signature(pick).parameters:
+                return None
+            lk.seq_bwd_row_tiles = lambda r_, h_, code=0, n_sm=132, nd=2: (
+                (rows, -(-r_ // rows)) if nd == 1 else
+                pick(r_, h_, code, n_sm, nd))
+            try:
+                step = bwd(args)
+                step()
+                return events_ms(step, 20)
+            finally:
+                lk.seq_bwd_row_tiles = pick
 
         with torch.no_grad():
             fn(*fargs)
@@ -395,6 +475,9 @@ def time_forwards(out, dev):
             step = bwd(fargs)
             step()
             out[f"seq_{name}_bwd_ms"] = events_ms(step, 20)
+            if nd == 1:    # row 7 at the other tile: 8 rows, 16 mixed
+                alt = 16 if mixed else 8
+                out[f"seq_{name}_rows{alt}_bwd_ms"] = rows_bwd_ms(fargs, alt)
             if mixed:
                 wargs = [a.float() if a is not x else a for a in fargs]
                 fn(*wargs)
@@ -403,6 +486,9 @@ def time_forwards(out, dev):
                 step = bwd(wargs)
                 step()
                 out[f"seq_{name}_fp32w_bwd_ms"] = events_ms(step, 20)
+                if nd == 1:
+                    out[f"seq_{name}_fp32w_rows8_bwd_ms"] = rows_bwd_ms(
+                        wargs, 8)
             if mixed and nd == 2 and hasattr(ls, "FWD_ROWS_MAX_MIXED"):
                 cap = ls.FWD_ROWS_MAX_MIXED
                 ls.FWD_ROWS_MAX_MIXED = 19
