@@ -164,6 +164,27 @@ Phases 25-28 drive the rest of serving on row 5, the fused inference BLSTM
    the slab kernels and of `streaming_inference_scan`; the offline forward
    and the eval CLIs' seconds a golden.
 
+Phases 29-31 drive the data generation (`datagen/`, plain PyTorch and
+numpy: no kernel of the table):
+
+29. `campaign.build_pool(method="device")` (`rirs_on_device`, the image sum
+   in the frequency domain on the card) at the flagship recipe's shapes
+   (sr 24000, rir_len 12000, order U{10..32}, the background-noise slot), cut
+   to 8 scenarios from 3000, against `method="host"` for the same seed:
+   geometry and masks equal, each scenario's RIRs within a relative L2 error
+   of 0.02; seconds a scenario by method, peak memory;
+30. `on_device.make_training_batch` on the card at the recipe's batch (8 x
+   2.5 s, phase 29's pool, formant voices), draws from a seeded generator:
+   against the same call on the CPU to 1e-4 of the peak, the mixture before
+   augmentation on its target SNR to 1e-3 dB; ms a batch;
+31. a 6-speaker formant-voice corpus, then `python -m
+   sound_bubble_tpu_torch.generate_adaptive_dataset` (6 train and 3 test
+   samples of 2.5 s, `--max_order_max` cut to 20) and `make_eval_set --n 3
+   --voice harmonic` (max order cut to 20) as subprocesses at once; `train_pt`
+   at the flagship's width for one epoch on the generated dirs (slab
+   kernels); `eval_syn` with `runs/finetune_r5` on each radius of the eval
+   set: seconds a generated sample, mean SI-SDRi a radius.
+
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
 power limit, and the device line.
@@ -171,6 +192,7 @@ power limit, and the device line.
 import contextlib
 import csv
 import faulthandler
+import io
 import json
 import math
 import os
@@ -2887,6 +2909,312 @@ def phase28_times(dev, rk, cases, net5, slab_net, card, walls):
     return rows["serve1"]
 
 
+# ---- phases 29-31: data generation (`datagen/`): the campaign pool's RIRs
+# and a training batch on the card, and the sample-dir generators end to end
+
+# phase 29's cut of the flagship recipe's pool (3000 scenarios; sr 24000,
+# rir_len 12000, image order U{10..32}, the background-noise slot): 8
+# scenarios. Device RIRs against the host's, each scenario within a
+# relative L2 error of 0.02 (tests/test_campaign.py holds JAX's two methods
+# to the same bar: the host bins each image's delay to 1/8 sample)
+POOL_CUT = 8
+POOL_ORDER_RANGE = (10, 32)
+POOL_RIR_LEN = 12000
+POOL_REL_L2 = 0.02
+# phase 30: the card's batch against the same call on the CPU (float32 FFT
+# convolutions of another library), / peak; the mixture before augmentation
+# on its target SNR (tests/test_on_device_datagen.py's bar)
+BATCH_REL_TOL = 1e-4
+SNR_TOL_DB = 1e-3
+# phase 31: the generators' cuts (--max_order_max 72 and 40 by default)
+GEN_ARGS = ["--n_outputs_train", "6", "--n_outputs_test", "3",
+            "--duration", "2.5", "--n_workers", "1", "--max_order_max", "20"]
+EVAL_SET_ARGS = ["--n", "3", "--duration", "2.5", "--voice", "harmonic",
+                 "--max_order_max", "20"]
+GEN_TIMEOUT_S = 300
+
+
+def phase29_device_pool(dev, card):
+    """`campaign.build_pool(method="device")` on the card at the flagship
+    recipe's shapes, cut to POOL_CUT scenarios, against `method="host"` for
+    the same seed: geometry and masks equal, each scenario's RIRs within
+    POOL_REL_L2. Returns the device pool."""
+    from sound_bubble_tpu_torch.datagen import campaign
+
+    with open(os.path.join(RUN_DIR, "train_stream_args.json")) as fh:
+        recipe = json.load(fh)
+    kw = dict(seed=SEED, sr=24000, rir_len=POOL_RIR_LEN,
+              order_range=POOL_ORDER_RANGE, bg_noise=recipe["bg_noise"] > 0,
+              verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pool, radius = campaign.build_pool(POOL_CUT, method="device", device=dev,
+                                       **kw)
+    device_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    host, host_radius = campaign.build_pool(POOL_CUT, **kw)
+    host_s = time.perf_counter() - t
+    if sorted(pool) != sorted(host) or not np.array_equal(radius,
+                                                          host_radius):
+        fail("device and host pools hold other arrays or radii")
+    for k in pool:
+        if k != "rirs" and not np.array_equal(pool[k], host[k]):
+            fail(f"device and host pools: {k} differs")
+    d, h = pool["rirs"].astype(np.float64), host["rirs"].astype(np.float64)
+    rel = [float(np.linalg.norm(d[i] - h[i]) / np.linalg.norm(d[i]))
+           for i in range(POOL_CUT)]
+    log(f"phase 29 device pool on {card}: build_pool(method='device') at "
+        f"sr 24000, rir_len {POOL_RIR_LEN}, order_range {POOL_ORDER_RANGE}, "
+        f"bg_noise {kw['bg_noise']}, {POOL_CUT} scenarios (cut from 3000), "
+        f"rirs {pool['rirs'].shape}: device {device_s / POOL_CUT:.3f} s a "
+        f"scenario ({device_s:.2f} s, the first call included; peak "
+        f"{peak_gb:.2f} GB, chunk 2048), host {host_s / POOL_CUT:.3f} s a "
+        f"scenario ({host_s:.2f} s); geometry and masks equal; relative L2 "
+        f"device vs host per scenario {['%.2e' % r for r in rel]} (tol "
+        f"{POOL_REL_L2})")
+    if not max(rel) <= POOL_REL_L2:
+        fail(f"device RIRs disagree with the host's: {max(rel)} > "
+             f"{POOL_REL_L2}")
+
+    # the two renderers alone on one scenario at the top order (the device
+    # sums every image slot, padded to the top order's count, either way)
+    from sound_bubble_tpu_torch.datagen.ism import shoebox_images
+
+    n_img = len(shoebox_images([6, 6, 3], [3, 3, 1.5], max(
+        POOL_ORDER_RANGE[1], campaign.BG_ORDER))[0])
+    t = time.perf_counter()
+    sc = campaign.sample_scenario(np.random.default_rng(SEED), 1.0, 2,
+                                  POOL_ORDER_RANGE[1], n_img,
+                                  bg_noise=kw["bg_noise"])
+    geom_s = time.perf_counter() - t
+    args = [sc[k] for k in ("images", "n_refl", "img_mask", "mics", "rho")]
+    trim = sc["delay_trim"] if kw["bg_noise"] else None
+    rir_kw = dict(fs=24000, rir_len=POOL_RIR_LEN)
+    t = time.perf_counter()
+    campaign.rirs_host_fast(*args, delay_trim=trim, **rir_kw)
+    host_rir_s = time.perf_counter() - t
+    dargs = [torch.as_tensor(a, device=dev) for a in args]
+    dtrim = None if trim is None else torch.as_tensor(trim, device=dev)
+
+    def render():
+        campaign.rirs_on_device(*dargs, delay_trim=dtrim, **rir_kw)
+
+    render()
+    device_rir_ms = cuda_ms(render, 3)
+    s_slots, m_mics = pool["rirs"].shape[1:3]
+    terms = s_slots * m_mics * n_img * (POOL_RIR_LEN // 2 + 1)
+    log(f"  one scenario at order {POOL_ORDER_RANGE[1]} ({n_img} image "
+        f"slots, {terms:.3e} phase terms on the card): geometry "
+        f"{geom_s:.3f} s (host), rirs_host_fast {host_rir_s:.3f} s (host, "
+        f"one call), rirs_on_device {device_rir_ms:.2f} ms (CUDA events, 3 "
+        f"calls after one)")
+    return pool
+
+
+def phase30_device_batch(dev, pool, card):
+    """`on_device.make_training_batch` on the card at the recipe's batch
+    (B x 2.5 s, B = the pool's scenarios, every slot of the pool, formant
+    voices), draws from a seeded generator on the card: held against the
+    same call on the CPU, and the mixture before augmentation against its
+    target SNR; ms per batch."""
+    from sound_bubble_tpu_torch.datagen import on_device as od
+    from sound_bubble_tpu_torch.datagen.voice import formant_voices
+
+    with open(os.path.join(RUN_DIR, "train_stream_args.json")) as fh:
+        recipe = json.load(fh)
+    n = int(recipe["clip_seconds"] * 24000)
+    rirs = torch.from_numpy(pool["rirs"]).to(dev)
+    b, s, m, _ = rirs.shape
+    n_near = 1          # slot 0 holds a source in every scenario
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    voices = formant_voices(gen, (b, s), n, 24000, device=dev)
+    lo, hi = recipe["snr_range"]
+    target = lo + (hi - lo) * torch.rand(b, generator=gen, device=dev)
+    draws = od.training_batch_draws(gen, b, s, m, n, device=dev)
+    inputs, targets = od.make_training_batch(voices, rirs, n_near, target,
+                                             draws)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    want_in, want_tg = od.make_training_batch(
+        voices.cpu(), rirs.cpu(), n_near, target.cpu(), cpu(draws))
+    errs = {k: float((got.cpu() - want).abs().max() / want.abs().max())
+            for k, got, want in (("mixture", inputs["mixture"],
+                                  want_in["mixture"]),
+                                 ("target", targets["target"],
+                                  want_tg["target"]))}
+    premix = od.peak_scale(od.render_sources(voices, rirs), draws["peak"])
+    near, far = premix[:, :n_near].sum(1), premix[:, n_near:].sum(1)
+    _, mixture = od.mix_to_target_snr(near, far, target)
+    ref = near[:, 0].double().cpu().numpy()
+    noise = (mixture - near)[:, 0].double().cpu().numpy()
+    achieved = 10 * np.log10(np.sum(ref ** 2, -1) / np.sum(noise ** 2, -1))
+    snr_err = float(np.abs(achieved - target.double().cpu().numpy()).max())
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (inputs["mixture"], targets["target"]))
+
+    def batch():
+        od.make_training_batch(voices, rirs, n_near, target, draws)
+
+    def batch_with_draws():
+        d = od.training_batch_draws(gen, b, s, m, n, device=dev)
+        od.make_training_batch(voices, rirs, n_near, target, d)
+
+    batch()
+    batch_ms = cuda_ms(batch, 10)
+    batch_with_draws()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        batch_with_draws()
+    torch.cuda.synchronize()
+    draws_ms = (time.perf_counter() - t) / 10 * 1e3
+    log(f"phase 30 on-device batch on {card}: make_training_batch, voices "
+        f"{tuple(voices.shape)} (formant_voices), rirs {tuple(rirs.shape)} "
+        f"(phase 29's pool), n_near {n_near}: card vs CPU max-abs / peak "
+        f"{errs} (tol {BATCH_REL_TOL}); mix_to_target_snr's mixture vs its "
+        f"target, worst {snr_err:.2e} dB (tol {SNR_TOL_DB}); "
+        f"{batch_ms:.3f} ms a batch (CUDA events, 10 batches), "
+        f"{draws_ms:.3f} ms with its draws (host clock, 10 batches)")
+    if not (finite and max(errs.values()) <= BATCH_REL_TOL):
+        fail(f"the card's batch disagrees with the CPU's: {errs}")
+    if not snr_err <= SNR_TOL_DB:
+        fail(f"mix_to_target_snr missed its target by {snr_err} dB")
+
+
+def write_corpus(root, dev):
+    """Six speaker dirs of three 2 s formant-voice wavs at 48 kHz and the
+    split json (four speakers train, two test). Returns the split's path."""
+    from sound_bubble_tpu_torch.data.audio_io import write_audio_file
+    from sound_bubble_tpu_torch.datagen.voice import formant_voices
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    voices = formant_voices(gen, (6, 3), 2 * 48000, 48000,
+                            device=dev).cpu().numpy()
+    speakers = [f"p{225 + i}" for i in range(6)]
+    for spk, clips in zip(speakers, voices):
+        os.makedirs(os.path.join(root, spk))
+        for k, clip in enumerate(clips):
+            write_audio_file(os.path.join(root, spk, f"{spk}_{k:03d}.wav"),
+                             0.5 * clip[None], 48000)
+    split = os.path.join(root, "split.json")
+    with open(split, "w") as fh:
+        json.dump({"train": speakers[:4], "test": speakers[4:]}, fh)
+    return split
+
+
+def phase31_generators(dev, ls, card):
+    """The sample-dir generators end to end: a mini-corpus, then
+    `generate_adaptive_dataset` (6 train and 3 test samples) and
+    `make_eval_set` (3 a radius) as subprocesses at once; `train_pt` at the
+    flagship's width for one epoch on the generated dirs (slab kernels);
+    `eval_syn` with the flagship on each radius of the eval set."""
+    from sound_bubble_tpu_torch import eval_syn
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_datagen_")
+    procs = {}
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        split = write_corpus(corpus, dev)
+        data, evals = os.path.join(tmp, "syn_1m"), os.path.join(tmp, "eval")
+        jobs = {"generate_adaptive_dataset": [corpus, data, "--split_path",
+                                              split, *GEN_ARGS],
+                "make_eval_set": ["--out", evals, *EVAL_SET_ARGS]}
+        walls, t0 = {}, time.perf_counter()
+        for job, argv in jobs.items():
+            with open(os.path.join(tmp, job + ".log"), "w") as log_f:
+                procs[job] = subprocess.Popen(
+                    [sys.executable, "-m", f"sound_bubble_tpu_torch.{job}",
+                     *argv], cwd=REPO, stdout=log_f,
+                    stderr=subprocess.STDOUT)
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > GEN_TIMEOUT_S:
+                fail(f"generators still running after {GEN_TIMEOUT_S} s")
+            for job, proc in procs.items():
+                if job not in walls and proc.poll() is not None:
+                    walls[job] = time.perf_counter() - t0
+            time.sleep(0.2)
+        for job, proc in procs.items():
+            if proc.returncode != 0:
+                with open(os.path.join(tmp, job + ".log")) as log_f:
+                    fail(f"{job} exited {proc.returncode}:\n"
+                         f"{log_f.read()[-3000:]}")
+        made = {"generate_adaptive_dataset": [
+                    os.path.join(data, sub, d) for sub in ("train", "test")
+                    for d in sorted(os.listdir(os.path.join(data, sub)))],
+                "make_eval_set": [
+                    os.path.join(evals, f"syn_{r}", "test", d)
+                    for r, _ in RADII for d in sorted(os.listdir(
+                        os.path.join(evals, f"syn_{r}", "test")))]}
+        for job, dirs in made.items():
+            if len(dirs) != 9 or not all(os.path.exists(os.path.join(
+                    d, "metadata.json")) for d in dirs):
+                fail(f"{job} wrote {len(dirs)} sample dirs, expected 9")
+        log(f"phase 31 generators on {card}: generate_adaptive_dataset "
+            f"{' '.join(GEN_ARGS)} on a 6-speaker formant-voice corpus: "
+            f"9 samples in {walls['generate_adaptive_dataset']:.2f} s "
+            f"({walls['generate_adaptive_dataset'] / 9:.3f} s a sample, "
+            f"process start included); make_eval_set "
+            f"{' '.join(EVAL_SET_ARGS)}: 9 samples in "
+            f"{walls['make_eval_set']:.2f} s "
+            f"({walls['make_eval_set'] / 9:.3f} s a sample), both at once")
+
+        # train_pt on the generated dirs (slab kernels)
+        with open(TRAIN_CONFIG) as fh:
+            cfg = json.load(fh)
+        point_at_scenes(cfg, {"train": [os.path.join(data, "train")],
+                              "val": [os.path.join(data, "test")]})
+        cfg["num_workers"] = 2
+        n_scans = 3 * cfg["pl_module_args"]["model_params"]["B"]
+        steps = math.ceil(6 / cfg["batch_size"])
+        val_batches = math.ceil(3 / cfg["eval_batch_size"])
+        run_dir = os.path.join(tmp, "run")
+        _, train_s, fwd_n, bwd_n = run_train_pt(
+            cfg, os.path.join(tmp, "config.json"), run_dir, 1, ls)
+        want = ((steps + val_batches) * n_scans, steps * n_scans)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        losses = [e[k] for e in logged for k in ("train/loss", "val/loss")]
+        log(f"  train_pt on the generated dirs: 1 epoch x {steps} steps + "
+            f"{val_batches} val batch in {train_s:.2f} s; slab launches fwd "
+            f"{fwd_n}, bwd {bwd_n} (expected {want[0]}, {want[1]}); losses "
+            f"(train, val) {losses}")
+        if (fwd_n, bwd_n) != want:
+            fail(f"slab launches {(fwd_n, bwd_n)}, expected {want}")
+        if len(logged) != 1 or not np.isfinite(losses).all():
+            fail(f"run log on the generated dirs: {logged}")
+
+        # eval_syn with the flagship on the fresh eval set
+        means, t = {}, time.perf_counter()
+        for radius, threshold in RADII:
+            out = os.path.join(tmp, f"eval_out_{radius}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                eval_syn.main(eval_syn.parser().parse_args(
+                    [os.path.join(evals, f"syn_{radius}", "test"), RUN_DIR,
+                     out, "--distance_threshold", str(threshold)]))
+            rows = read_results(os.path.join(out, "results.csv"))
+            vals = [float(r["sisdri"]) for r in rows.values()
+                    if r.get("sisdri")]
+            if len(rows) != 3 or not vals or not np.isfinite(vals).all():
+                fail(f"eval_syn on the {radius} eval set: {rows}")
+            means[radius] = float(np.mean(vals))
+        eval_s = time.perf_counter() - t
+        log(f"  eval_syn ({os.path.relpath(RUN_DIR, REPO)}) on the fresh "
+            f"eval set, 3 samples a radius, in {eval_s:.2f} s: mean SI-SDRi "
+            + ", ".join(f"{r} {v:+.3f} dB" for r, v in means.items()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3160,6 +3488,15 @@ def main():
 
     # ---- 28. times
     row5_times = phase28_times(dev, rk, cases5, net5, net, card, walls)
+
+    # ---- 29. the campaign pool's RIRs on the card (rirs_on_device)
+    pool = phase29_device_pool(dev, card)
+
+    # ---- 30. a training batch assembled on the card (on_device)
+    phase30_device_batch(dev, pool, card)
+
+    # ---- 31. the sample-dir generators, training and eval on their output
+    phase31_generators(dev, ls, card)
 
     seq_entries = [{
         "name": name + ("_mixed" if mixed else ""), "route": "cuda",

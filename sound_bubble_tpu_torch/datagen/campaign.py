@@ -1,28 +1,31 @@
 """On-device training campaign data (port of
-`sound_bubble_tpu/datagen/campaign.py`): a pool of room acoustics built once
-on the host, and training batches synthesized on the device from it.
+`sound_bubble_tpu/datagen/campaign.py`): a pool of room acoustics built once,
+and training batches synthesized on the device from it.
 
 1. `build_pool`: scenario geometry on the host (rooms, head-array poses,
    bubble-constrained speaker placement, the reference distributions of
-   `datagen/generate.py`), every image-source RIR rendered on the host by
-   `rirs_host_fast` (numpy; the same arrays as the JAX package's for the same
-   seed);
+   `datagen/generate.py`), then every image-source RIR rendered by
+   `method`: "host", `rirs_host_fast` (numpy bincount + FFT; the same arrays
+   as the JAX package's for the same seed), or "device", `rirs_on_device`
+   (the image sum evaluated in the frequency domain, H[f] = sum_i a_i
+   e^{-j w tau_i}, chunked over images, on a torch device: the exact
+   band-limited form of the windowed-sinc RIR of `ism.compute_rir`). Either
+   way the pool is numpy float32;
 2. `make_batch`: (scenario indices, draws) -> a training batch on the
    device: speech-like sources, RIR convolution by `fft_conv`, per-source
    peak scaling U(0.5, 0.9), the exact-SNR far scaling (reference quadratic
    with near_error=0), optional far-field background noise, clip renorm.
 
-The randomness of a batch is split from its synthesis: `make_batch_draws`
+The randomness of a batch is split from its synthesis: `batch_draws`
 takes every random number from an explicit `torch.Generator`, and
 `make_batch` is a deterministic function of the pool, the indices and those
 draws (likewise `speechlike_draws` / `speechlike_synth`), so the same draws
-can be handed to the synthesis from elsewhere. The JAX package's
-`rirs_on_device` (the pool's RIRs rendered on the TPU) is not ported: the
-campaign trainer builds its pool on the host.
+can be handed to the synthesis from elsewhere.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -31,11 +34,12 @@ from sound_bubble_tpu_torch.datagen.generate import (
     MIC_HEIGHT, get_random_mic_positions_headphone,
     get_random_speaker_positions_dis_uniform,
 )
-from sound_bubble_tpu_torch.datagen.ism import FDL, shoebox_images
+from sound_bubble_tpu_torch.datagen.ism import FDL, irfft_real, shoebox_images
 from sound_bubble_tpu_torch.datagen.voice import (
     default_sil_hi, formant_draws, formant_synth)
 from sound_bubble_tpu_torch.ops.fft_conv import fft_conv
 from sound_bubble_tpu_torch.ops.noise import colored_noise, colored_noise_draws
+from sound_bubble_tpu_torch.utils import resolve_device
 
 S_MAX = 4          # source slots per scenario (<=2 in-bubble + <=2 outside)
 RADII = (1.0, 1.5, 2.0)
@@ -135,6 +139,65 @@ def _sinc_window_response(rir_len: int, oversample: int = 16) -> np.ndarray:
     return resp.astype(np.float32)
 
 
+def rirs_on_device(images, n_refl, img_mask, mics, rho, *, fs: int,
+                   rir_len: int, chunk: int = 2048, c: float = 343.0,
+                   delay_trim=None) -> torch.Tensor:
+    """Image-source RIRs in the frequency domain, chunked over images, on the
+    device of `images` (float32).
+
+    images [S, N, 3], n_refl/img_mask [S, N], mics [M, 3], rho a 0-d tensor,
+    delay_trim [S] or None -> rirs [S, M, rir_len].
+    H[m, f] = sum_i a_i exp(-j 2 pi f tau_i) with a_i = rho^n_i / (4 pi d_i);
+    images whose delay would wrap past rir_len are masked out, and with
+    `delay_trim` each slot's delays are shortened by its trim (samples) and
+    images that land before 0 are dropped. Each chunk holds [S, M, chunk,
+    rir_len // 2 + 1] phases: 1.47 GB in float32 at S=5, M=6, chunk 2048,
+    rir_len 12000. The arithmetic follows the JAX package's
+    `rirs_on_device` op for op (d, tau, amp, then the phase tau * omega), and
+    cos / sin are PyTorch's, with full range reduction: at rir_len 12000
+    the phase reaches ~3.7e4 rad, where one float32 ulp is ~4e-3 rad.
+    """
+    dev = images.device
+    S, N, _ = images.shape
+    M = mics.shape[0]
+    nf = rir_len // 2 + 1
+    freqs = torch.arange(nf, dtype=torch.float32, device=dev) * (
+        2 * math.pi * fs / rir_len)
+    # d and tau are rounded alike on every device (a delay one ulp off moves
+    # its image by ~2e-4 sample at rir_len 8192): the divisors are tensors
+    # (PyTorch on the card multiplies by the reciprocal of a Python number,
+    # on the CPU it divides), and the root is taken in float64 and rounded
+    # once (PyTorch's float32 root on the card is not correctly rounded)
+    c_t, fs_t = (torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in (c, fs))
+    re = torch.zeros((S, M, nf), dtype=torch.float32, device=dev)
+    im = torch.zeros_like(re)
+    for i in range(0, N, chunk):
+        nr, mk = n_refl[:, i:i + chunk], img_mask[:, i:i + chunk]
+        diff = images[:, None, i:i + chunk] - mics[None, :, None]
+        sq = diff * diff
+        d = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double())
+        d = d.float()
+        d = torch.clamp(d, min=1e-3)                  # [S, M, chunk]
+        tau = d / c_t
+        amp = (rho ** nr)[:, None] / (4 * math.pi * d) * mk[:, None]
+        zero = torch.zeros_like(amp)
+        if delay_trim is not None:
+            tau = tau - delay_trim[:, None, None] / fs_t
+            amp = torch.where(tau >= 0, amp, zero)
+        amp = torch.where(tau * fs < rir_len - FDL, amp, zero)[..., None]
+        phase = tau[..., None] * freqs                # [S, M, chunk, F]
+        term = torch.cos(phase)
+        term *= amp
+        re += torch.sum(term, dim=2)
+        torch.sin(phase, out=term)
+        term *= amp
+        im -= torch.sum(term, dim=2)
+        del phase, term
+    w = torch.as_tensor(_sinc_window_response(rir_len), device=dev)
+    return irfft_real(re * w, im * w, rir_len)
+
+
 def rirs_host_fast(images, n_refl, img_mask, mics, rho, *, fs: int,
                    rir_len: int, oversample: int = 8,
                    c: float = 343.0, delay_trim=None) -> np.ndarray:
@@ -184,12 +247,19 @@ def rirs_host_fast(images, n_refl, img_mask, mics, rho, *, fs: int,
 
 def build_pool(n_scenarios: int, *, seed: int = 0, sr: int = 24000,
                rir_len: int = 12000, order_range=(10, 32), radii=RADII,
-               verbose: bool = True, bg_noise: bool = False):
-    """Build the campaign pool on the host (numpy, float32): rirs
-    [P, S, 6, rir_len], active/near_mask [P, S], dis_embed [P, 3]
-    (+ noise_mask [P, S] with `bg_noise`), and the radius of each scenario
-    [P]; S = S_MAX, or S_MAX + 1 with `bg_noise` (the last slot is the
-    far-field background-noise RIR)."""
+               method: str = "host", device="cuda", verbose: bool = True,
+               bg_noise: bool = False):
+    """Build the campaign pool (numpy, float32): rirs [P, S, 6, rir_len],
+    active/near_mask [P, S], dis_embed [P, 3] (+ noise_mask [P, S] with
+    `bg_noise`), and the radius of each scenario [P]; S = S_MAX, or
+    S_MAX + 1 with `bg_noise` (the last slot is the far-field
+    background-noise RIR). The geometry is drawn on the host; the RIRs are
+    rendered by `method`: "host" (`rirs_host_fast`) or "device"
+    (`rirs_on_device` on `device`, then copied back)."""
+    if method not in ("host", "device"):
+        raise ValueError(f"method must be 'host' or 'device': {method!r}")
+    if method == "device":
+        device = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_img_max = len(shoebox_images([6, 6, 3], [3, 3, 1.5],
                                    max(order_range[1], BG_ORDER))[0])
@@ -200,10 +270,19 @@ def build_pool(n_scenarios: int, *, seed: int = 0, sr: int = 24000,
         order = int(rng.integers(order_range[0], order_range[1] + 1))
         sc = sample_scenario(rng, r, n_in, order, n_img_max,
                              bg_noise=bg_noise)
-        rirs.append(rirs_host_fast(
-            sc["images"], sc["n_refl"], sc["img_mask"], sc["mics"],
-            sc["rho"], fs=sr, rir_len=rir_len,
-            delay_trim=sc["delay_trim"] if bg_noise else None))
+        trim = sc["delay_trim"] if bg_noise else None
+        if method == "host":
+            rirs.append(rirs_host_fast(
+                sc["images"], sc["n_refl"], sc["img_mask"], sc["mics"],
+                sc["rho"], fs=sr, rir_len=rir_len, delay_trim=trim))
+        else:
+            def t(a):
+                return torch.as_tensor(a, device=device)
+
+            rirs.append(rirs_on_device(
+                t(sc["images"]), t(sc["n_refl"]), t(sc["img_mask"]),
+                t(sc["mics"]), t(sc["rho"]), fs=sr, rir_len=rir_len,
+                delay_trim=None if trim is None else t(trim)).cpu().numpy())
         active.append(sc["active"])
         near.append(sc["near_mask"])
         noise.append(sc["noise_mask"])

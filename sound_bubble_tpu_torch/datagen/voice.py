@@ -1,5 +1,6 @@
 """Formant-filtered glottal-pulse voices, batched (port of
-`sound_bubble_tpu/datagen/voice.py:formant_voices`).
+`sound_bubble_tpu/datagen/voice.py:formant_voices` and
+`formant_speechlike`).
 
 Klatt-style parallel-formant synthesis, as the JAX package builds its
 campaign sources: a syllable track (voiced / unvoiced / plosive-onset /
@@ -12,7 +13,8 @@ leading silence, noise floor and peak normalization.
 
 The randomness is split from the synthesis: `formant_draws` takes every
 random number from an explicit `torch.Generator`, `formant_synth` is a
-deterministic function of those draws, and `formant_voices` chains the two.
+deterministic function of those draws, and `formant_voices` chains the two
+(`formant_speechlike`: one voice as numpy, for the host generators).
 Every voice is computed at once along a leading batch axis (the JAX package
 vmaps one voice).
 """
@@ -104,10 +106,14 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
 
 
 def formant_synth(d: dict, n: int, sr: int, pause_p=None,
-                  f0_base=None) -> torch.Tensor:
+                  f0_base=None, phase_dtype=torch.float32) -> torch.Tensor:
     """[m, n] voices from the draws of `formant_draws`. pause_p [m] is the
     pause-syllable probability (default 0.20); f0_base [m] a talker F0 in Hz
-    (<= 0 or None: the drawn one)."""
+    (<= 0 or None: the drawn one). phase_dtype: the type of the glottal
+    phase's running sum. A pulse falls where that sum wraps, so in float32
+    its sample follows the sum's order (the JAX package's, sequential, on
+    the CPU; a parallel scan on the card moves pulses of most 2.5 s voices
+    by a sample); in float64 it does not."""
     hop, win, n_syl, nf = shapes(n, sr)
     dev = d["dur"].device
     m = d["dur"].shape[0]
@@ -163,7 +169,7 @@ def formant_synth(d: dict, n: int, sr: int, pause_p=None,
     f0_n = f0_n * (1.0 + 0.03 * interp(st, ft, jitter))
     amp_n = interp(st, ft, amp_f)
     voiced_n = interp(st, ft, voiced_f)
-    phase = torch.cumsum(f0_n, -1) / sr
+    phase = torch.cumsum(f0_n.to(phase_dtype), -1) / sr
     fr = phase - torch.floor(phase)
     step = torch.diff(fr, prepend=torch.zeros_like(fr[:, :1]))
     pulse = (step < 0).to(f32) * torch.sqrt(sr / torch.clamp(f0_n, min=1.0))
@@ -222,3 +228,20 @@ def formant_voices(gen: torch.Generator, batch_shape, n: int, sr: int,
     d = formant_draws(gen, m, n, sr, flat(sil_hi), device)
     return formant_synth(d, n, sr, flat(pause_p), flat(f0_base)).reshape(
         bs + (n,))
+
+
+def formant_speechlike(rng: np.random.Generator, n: int, sr: int,
+                       device="cuda") -> np.ndarray:
+    """One formant voice [n] (float64) for the host eval-set generators (the
+    JAX package's `formant_speechlike`). Takes one `rng.integers(0,
+    2**31 - 1)`, as the JAX function does, so the caller's stream after it is
+    the same; the draws come from a CPU `torch.Generator` seeded with that
+    value and the synthesis runs on `device`, so the voice does not depend
+    on the device beyond float32 rounding (the glottal phase is summed in
+    float64). It is not the JAX function's waveform: jax.random's stream is
+    not torch's."""
+    seed = int(rng.integers(0, 2 ** 31 - 1))
+    d = formant_draws(torch.Generator().manual_seed(seed), 1, n, sr)
+    d = {k: v.to(device) for k, v in d.items()}
+    y = formant_synth(d, n, sr, phase_dtype=torch.float64)
+    return y[0].cpu().numpy().astype(np.float64)

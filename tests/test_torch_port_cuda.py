@@ -1499,3 +1499,88 @@ def test_walk_graph_replay_is_bit_equal(row):
         torch.cuda.synchronize()
     for got, want in zip(outs, eager):
         assert torch.equal(got, want)
+
+
+# ---- data generation (`datagen/`): plain PyTorch on the card against the
+# same calls on the CPU
+
+def test_rirs_on_device_card_matches_cpu():
+    """`campaign.rirs_on_device` on the card against the same call on the
+    CPU (tests/test_campaign.py's room, order 10, a second slot with a delay
+    trim): float32 image sums in another order, cos / sin of another
+    library, to 1e-4 of each slot's peak."""
+    from sound_bubble_tpu_torch.datagen import campaign
+    from sound_bubble_tpu_torch.datagen.ism import shoebox_images
+
+    dev = _card()
+    per = [shoebox_images([5.0, 4.0, 3.0], src, 10)
+           for src in ([2.0, 1.5, 1.4], [3.5, 2.5, 1.2])]
+    n = max(len(im) for im, _ in per)
+    images = torch.zeros(2, n, 3)
+    n_refl, mask = torch.zeros(2, n), torch.zeros(2, n)
+    for s, (im, nr) in enumerate(per):
+        images[s, :len(im)] = torch.from_numpy(im).float()
+        n_refl[s, :len(im)] = torch.from_numpy(nr).float()
+        mask[s, :len(im)] = 1.0
+    mics = torch.tensor([[1.0, 2.0, 1.5], [1.2, 2.1, 1.5]])
+    args = (images, n_refl, mask, mics, torch.tensor(np.float32(0.6 ** .5)))
+    kw = dict(fs=24000, rir_len=8192, chunk=512)
+    want = campaign.rirs_on_device(*args, delay_trim=torch.tensor(
+        [0.0, 300.0]), **kw)
+    got = campaign.rirs_on_device(
+        *(a.to(dev) for a in args),
+        delay_trim=torch.tensor([0.0, 300.0], device=dev), **kw).cpu()
+    rel = ((got - want).abs().amax(dim=(1, 2))
+           / want.abs().amax(dim=(1, 2)))
+    assert float(rel.max()) <= TOL, rel
+
+
+def test_make_training_batch_card_matches_cpu():
+    """`on_device.make_training_batch` on the card against the same call on
+    the CPU with the same draws (made on the card, channel drop included):
+    float32 FFT convolutions of another library, to 1e-4 of the peak."""
+    from sound_bubble_tpu_torch.datagen import on_device as od
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    voices = torch.randn((2, 3, 4000), generator=gen, device=dev)
+    rirs = 0.1 * torch.randn((2, 3, 6, 512), generator=gen, device=dev)
+    target = torch.tensor([0.0, -3.0], device=dev)
+    draws = od.training_batch_draws(gen, 2, 3, 6, 4000, p_drop=0.5,
+                                    device=dev)
+    got = od.make_training_batch(voices, rirs, 1, target, draws)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    want = od.make_training_batch(voices.cpu(), rirs.cpu(), 1, target.cpu(),
+                                  cpu(draws))
+    for g, w in zip(got, want):
+        (key, a), = g.items()
+        b = w[key]
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= TOL, key
+
+
+def test_formant_speechlike_is_device_independent():
+    """`voice.formant_speechlike` on the card and on the CPU from the same
+    generator: one integer taken from it either way, the draws from a CPU
+    generator, so the same voice up to float32 rounding."""
+    from sound_bubble_tpu_torch.datagen.voice import formant_speechlike
+
+    dev = _card()
+    n, sr = 60000, 24000
+    worst = 0.0
+    for seed in range(8):
+        rngs = np.random.default_rng(seed), np.random.default_rng(seed)
+        got = formant_speechlike(rngs[0], n, sr, device=dev)
+        want = formant_speechlike(rngs[1], n, sr, device="cpu")
+        assert rngs[0].integers(0, 2 ** 31) == rngs[1].integers(0, 2 ** 31)
+        assert got.dtype == np.float64 and got.shape == (n,)
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        print(f"seed {seed}: relative L2 {rel:.3e}, max-abs / peak "
+              f"{np.abs(got - want).max() / np.abs(want).max():.3e}")
+        worst = max(worst, rel)
+    assert worst <= TOL

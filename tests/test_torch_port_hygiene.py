@@ -1,6 +1,7 @@
-"""Port hygiene: the port and chip_smoke.py import nothing of JAX; the
-flagship checkpoint loads with optax, flax and jax blocked; entry points
-never fall back to the CPU on their own; nothing builds at import."""
+"""Port hygiene: the port and chip_smoke.py import nothing of JAX, and
+neither tqdm nor pandas (the card machine has neither); the flagship
+checkpoint loads with optax, flax and jax blocked; entry points never fall
+back to the CPU on their own; nothing builds at import."""
 import ast
 import io
 import os
@@ -23,7 +24,8 @@ from sound_bubble_tpu_torch.utils import load_pretrained
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "sound_bubble_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sound_bubble_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sound_bubble_tpu", "tqdm",
+             "pandas"}
 BLOCK = ("import sys\n"
          "for m in ('jax', 'jaxlib', 'flax', 'optax', 'sound_bubble_tpu'):\n"
          "    sys.modules[m] = None\n")
@@ -57,6 +59,12 @@ def test_port_sources_exist():
     assert "sound_bubble_tpu_torch/ops/kernels/lstm_kernel.py" in names
     assert "sound_bubble_tpu_torch/eval_syn.py" in names
     assert "sound_bubble_tpu_torch/eval.py" in names
+    for mod in ("datagen/ism.py", "datagen/mixing.py", "datagen/generate.py",
+                "datagen/on_device.py", "datagen/campaign.py",
+                "datagen/voice.py", "ops/noise.py",
+                "generate_adaptive_dataset.py", "make_eval_set.py",
+                "pregen_pool.py"):
+        assert f"sound_bubble_tpu_torch/{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -157,6 +165,21 @@ def test_default_device_without_card_raises(entry, no_card, tmp_path):
                 str(tmp_path / "out")]))
         else:
             load_pretrained(run_dir)
+
+
+def test_datagen_default_device_without_card_raises(no_card, tmp_path):
+    from sound_bubble_tpu_torch import make_eval_set
+    from sound_bubble_tpu_torch.datagen import campaign
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        campaign.build_pool(1, sr=8000, rir_len=1000, order_range=(2, 3),
+                            method="device", verbose=False)
+    args = make_eval_set.parser().parse_args(["--out", str(tmp_path / "e"),
+                                              "--n", "1"])
+    assert args.device == "cuda" and args.voice == "formant"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_set.main(args)
+    assert not (tmp_path / "e").exists()
 
 
 def test_trainer_default_device_without_card_raises(no_card):
