@@ -9,14 +9,18 @@ model (`real_experiments/orangpi_model_*.json`: conv_lstm, unconditioned,
 F=145, D=24, B=3, H=64, lstm_down=5, phases 9-12):
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the CUDA kernels, with nvcc's -Xptxas -v report;
+2. build: the CUDA kernels, with nvcc's -Xptxas -v report, compiled anew
+   whatever library is there (`load_library(rebuild=True)`); the later
+   processes of the run (phase 27's CLIs among them) load that library
+   without building, as its key matches;
 3. kernel vs plain: `gridnet_stack_step` (row 1: `stack_walk_kernel<64,
    false, false>`, one cluster of 8 blocks a call) against
    `gridnet_stack_step_ref`
    on the card, 5 chained steps with the flagship's packed weights and
    FiLM;
 4. serving: the 9 goldens of `test_samples/` streamed chunk by chunk through
-   `FusedStreamer`; SI-SDRi and decay per sample held against the JAX
+   `FusedStreamer` (its `feed` replays one captured CUDA graph of the step
+   a chunk, as in phases 10 and 17); SI-SDRi and decay per sample held against the JAX
    package's fp32 numbers on the same audio
    (`runs/goldens_test_samples_jax.json`), per-radius means printed, and
    `runs/goldens_baseline.json` (the reference's own golden set, other
@@ -184,6 +188,20 @@ numpy: no kernel of the table):
    at the flagship's width for one epoch on the generated dirs (slab
    kernels); `eval_syn` with `runs/finetune_r5` on each radius of the eval
    set: seconds a generated sample, mean SI-SDRi a radius.
+
+Phase 32 drives the streaming step as one captured CUDA graph
+(`runtime/fast_path.py`: `fused_scan_stream`, the JAX package's
+whole-signal harness, and the graphed `FusedStreamer.feed`):
+
+32. the 9 goldens through `fused_scan_stream` on the flagship (row 1), per
+   sample against `runs/goldens_test_samples_jax.json` (0.01 dB); the first
+   20 chunks of `syn_1m/00002` through the flagship, the Orange Pi edge net
+   (row 2), both attention nets (rows 3 and 4, the ring slot advanced on
+   the device) and their per-block route: `fused_scan_stream` and the
+   graphed `feed` bit-equal to the eager step (`_step_impl`) in a loop, and
+   one launch a chunk (B on the per-block route); ms a chunk on the host
+   clock of the eager step, the graphed `feed` and a whole
+   `fused_scan_stream` call, in turns, for each of the six.
 
 Exits non-zero on any failed check, and when no card or no package is found.
 The last three lines are the JSON record of the kernels, the card's name and
@@ -1457,7 +1475,8 @@ def phase12_edge_times(dev, streamer, mod, batch, card, ls):
     log(f"phase 12 edge times on {card}: conv kernel {kernel_ms:.4f} ms "
         f"(CUDA events, 200 launches; {kernel_graph_ms:.4f} ms a call as 20 "
         f"calls in one CUDA graph); plain version {plain_ms:.3f} ms (3 "
-        f"calls); FusedStreamer.feed {chunk_ms:.4f} ms per 8 ms chunk (host "
+        f"calls); FusedStreamer.feed (graphed) {chunk_ms:.4f} ms per 8 ms "
+        f"chunk (host "
         f"clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
         f"library_ms: none (no single PyTorch call computes the stack "
         f"step); edge train step {step_ms:.2f} ms (finetune, batch 4 x "
@@ -1509,8 +1528,9 @@ def phase16_attn_kernels(dev, nets):
             for step in range(W + 5):
                 x = draw(F, D)
                 xk, hk, ck, kk, vk = sk.gridnet_stack_step_attn(
-                    packed, pa, x, hk, ck, kk, vk, step % W, cfg.L, fw, fb,
-                    eps=cfg.eps)
+                    packed, pa, x, hk, ck, kk, vk,
+                    torch.tensor([step % W], dtype=torch.int32, device=dev),
+                    cfg.L, fw, fb, eps=cfg.eps)
                 xr, hr, cr, kr, vr = sk.gridnet_stack_step_attn_ref(
                     packed, pa, x, hr, cr, kr, vr, step % W, cfg.L, fw, fb,
                     eps=cfg.eps)
@@ -1678,13 +1698,13 @@ def phase18_attn_times(dev, served, card):
         kr = draw(B, cfg.L * cfg.E, W, F)
         vr = draw(B, D, W, F)
         fw, fb = streamer.film if streamer.film is not None else (None, None)
-        pos = [0]
+        # the kernel's work does not depend on the slot's value
+        pos = torch.zeros((1,), dtype=torch.int32, device=dev)
         with torch.no_grad():
             def kernel():
                 sk.gridnet_stack_step_attn(
                     streamer.packed, streamer.packed_attn, x, h0, c0, kr, vr,
-                    pos[0], cfg.L, fw, fb, eps=cfg.eps, checked=True)
-                pos[0] = (pos[0] + 1) % W
+                    pos, cfg.L, fw, fb, eps=cfg.eps, checked=True)
 
             def plain_step():
                 sk.gridnet_stack_step_attn_ref(
@@ -1709,9 +1729,10 @@ def phase18_attn_times(dev, served, card):
             f"{kernel_ms:.4f} ms (CUDA events, 200 launches; "
             f"{graph:.4f} ms a call as 20 calls in one CUDA graph); plain "
             f"version "
-            f"{plain_ms:.3f} ms (3 calls); FusedStreamer.feed {chunk_ms:.4f} "
-            f"ms per 8 ms chunk in-kernel (250 chunks), {block_ms:.4f} ms "
-            f"per-block route (100 chunks; host clock); bound "
+            f"{plain_ms:.3f} ms (3 calls); FusedStreamer.feed (graphed) "
+            f"{chunk_ms:.4f} ms per 8 ms chunk in-kernel (250 chunks), "
+            f"{block_ms:.4f} ms per-block route (100 chunks; host clock, "
+            f"a window copied in from the host a chunk); bound "
             f"{bound_ms:.6f} ms ({bound_by}); library_ms: none (no single "
             f"PyTorch call computes the stack step)")
         rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2687,7 +2708,12 @@ def phase27_eval_clis():
     the Orange Pi seeded run, as subprocesses at once, SB_PALLAS_BLSTM=1:
     row 5 launched in each (the CLI's last line), per-sample SI-SDRi and
     decay within 0.01 dB of the JAX package's, STOI and PESQ within
-    EVAL_PERCEPTUAL_TOL. Returns {job: wall seconds}."""
+    EVAL_PERCEPTUAL_TOL; the CLIs load phase 2's library (its file is the
+    same after them: no process built one). Returns {job: wall seconds}."""
+    from sound_bubble_tpu_torch.ops.kernels import _build
+
+    lib = _build.load_library()._name
+    built = os.stat(lib).st_ino
     with open(JAX_BASELINE) as fh:
         jax_base = json.load(fh)
     with open(EVAL_GOLDENS) as fh:
@@ -2757,9 +2783,14 @@ def phase27_eval_clis():
                         failures.append(f"{job} {name} {col} {got[col]} vs "
                                         f"JAX {w} (tol {tol})")
             log(f"phase 27 {job}: {len(rows)} samples in {walls[job]:.1f} s "
-                f"wall (process start and kernel build included); {last}; "
+                f"wall (process start and library load included); {last}; "
                 f"worst |port - JAX| {worst['dB']:.2e} dB, STOI "
                 f"{worst['stoi']:.2e}, PESQ {worst['pesq']:.2e}")
+        reused = os.path.exists(lib) and os.stat(lib).st_ino == built
+        log(f"phase 27: the CLIs loaded phase 2's library {lib}, none "
+            f"built one: {reused}")
+        if not reused:
+            failures.append(f"a CLI built the kernel library anew ({lib})")
         if failures:
             fail("eval CLIs: " + "; ".join(failures))
     finally:
@@ -3214,6 +3245,201 @@ def phase31_generators(dev, ls, card):
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
+# ---- phase 32: the graphed streaming step (`runtime/fast_path.py`):
+# `fused_scan_stream` (JAX's whole-signal harness) and `FusedStreamer.feed`,
+# one captured CUDA graph of the step replayed a chunk
+
+# chunks of phase 32's ms-a-chunk runs on a seeded signal a net: the eager
+# step and the graphed feed, and a whole fused_scan_stream call (as many
+# chunks as the 9 goldens have); the first chunks of syn_1m/00002 held bit
+# for bit on rows 2-4 and the per-block route
+STEP_TIME_CHUNKS = 500
+SCAN_TIME_CHUNKS = 2250
+SCAN_HEAD_CHUNKS = 20
+
+
+def golden_windows(cfg, mixture, dev):
+    """(windows [n, 1, M, chunk + pad] on dev, mod) of one mixture [M, N],
+    padded and cut as `evaluation.run_testcase` cuts them."""
+    from sound_bubble_tpu_torch.ops.stft import mod_pad
+
+    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
+    x, mod = mod_pad(torch.from_numpy(np.asarray(mixture, np.float32))[None],
+                     chunk, (cfg.stft_back_pad, pad))
+    x = x.to(dev)
+    n = (x.shape[-1] - pad) // chunk
+    return torch.stack([x[..., k * chunk:k * chunk + chunk + pad]
+                        for k in range(n)]), mod
+
+
+def eager_stream(fs, windows):
+    """The eager step (`_step_impl`, no graph) of a fresh state over the
+    windows."""
+    state, outs = fs._make_state(), []
+    with torch.no_grad():
+        for w in windows:
+            out, state = fs._step_impl(w, state, fs.film)
+            outs.append(out)
+    return torch.cat(outs, dim=-1)
+
+
+def stack_counts(sk):
+    names = ("launches", "conv_launches", "attn_launches",
+             "conv_attn_launches")
+    return {n: getattr(sk.gridnet_stack_step, n) for n in names}
+
+
+def phase32_fused_scan(dev, net, edge_net, attn_nets, card):
+    """The 9 goldens through `fused_scan_stream` on the flagship (row 1)
+    against the JAX numbers; the first chunks of syn_1m/00002 through the
+    Orange Pi edge net (row 2), both attention nets (rows 3 and 4) and their
+    per-block route: `fused_scan_stream` and the graphed `feed` bit-equal to
+    the eager step; ms a chunk of the three, host clock, in turns. Returns
+    {row: launches of its kernel in the fused_scan_stream runs}."""
+    from sound_bubble_tpu_torch.evaluation import load_testcase, one_hot
+    from sound_bubble_tpu_torch.metrics.metrics import (
+        Metrics, compute_decay)
+    from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
+    from sound_bubble_tpu_torch.runtime.fast_path import (
+        FusedStreamer, fused_scan_stream)
+
+    with open(JAX_BASELINE) as fh:
+        jax_base = json.load(fh)
+    si_sdr_i = Metrics("si_sdr_i")
+    cfg = net.cfg
+    failures, n_chunks, scan_s = [], 0, 0.0
+    for c in stack_counts(sk):
+        setattr(sk.gridnet_stack_step, c, 0)
+    for radius, threshold in RADII:
+        rdir = os.path.join(GOLDENS, f"syn_{radius}")
+        for name in sorted(os.listdir(rdir)):
+            _, mixture, gt, tgt, _ = load_testcase(
+                os.path.join(rdir, name), 24000, threshold)
+            windows, mod = golden_windows(cfg, mixture, dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = fused_scan_stream(net, windows, one_hot(threshold),
+                                  device=dev)
+            torch.cuda.synchronize()
+            scan_s += time.perf_counter() - t
+            n_chunks += len(windows)
+            out = y[0, :, :y.shape[-1] - mod].cpu().numpy()
+            if out.shape != (cfg.num_src, mixture.shape[-1]) or \
+                    not np.isfinite(out).all():
+                fail(f"fused_scan_stream {radius}/{name}: output "
+                     f"{out.shape}, finite {np.isfinite(out).all()}")
+            if tgt:
+                key, v = "sisdri", float(si_sdr_i(est=out, gt=gt,
+                                                   mix=mixture[0:1]))
+            else:
+                key, v = "decay", float(compute_decay(est=out,
+                                                      mix=mixture[0:1]))
+            want = jax_base["samples"][f"{radius}/{name}"][key]
+            log(f"  fused_scan_stream {radius}/{name}: {key} {v:+.5f} dB "
+                f"(JAX {want:+.5f})")
+            if not abs(v - want) <= PARITY_TOL_DB:
+                failures.append(f"{radius}/{name} {key} {v:.5f} vs JAX "
+                                f"{want:.5f}")
+    counts = stack_counts(sk)
+    log(f"phase 32 fused_scan_stream, flagship (row 1): 9 goldens, "
+        f"{n_chunks} chunks in {scan_s:.3f} s on {card} "
+        f"({scan_s / n_chunks * 1e3:.4f} ms a chunk, host clock, the "
+        f"streamer's set-up and capture included); stack kernel launches "
+        f"{counts}")
+    if failures:
+        fail(f"fused_scan_stream goldens (tol {PARITY_TOL_DB} dB): "
+             + "; ".join(failures))
+    if counts != {c: n_chunks if c == "launches" else 0 for c in counts}:
+        fail(f"fused_scan_stream launched {counts} for {n_chunks} chunks")
+    scan_launches = {1: n_chunks}
+
+    # rows 2-4 and the per-block route: the graph against the eager step
+    _, mixture, _, _, _ = load_testcase(
+        os.path.join(GOLDENS, "syn_1m", "00002"), 24000, 1.0)
+    routes = [("flagship", 1, net, True), ("edge", 2, edge_net, True),
+              ("attn flagship", 3, attn_nets["flagship"], True),
+              ("attn orangpi", 4, attn_nets["orangpi"], True),
+              ("attn flagship per-block", 1, attn_nets["flagship"], False),
+              ("attn orangpi per-block", 2, attn_nets["orangpi"], False)]
+    rng = np.random.default_rng(SEED + 32)
+    for name, row, rnet, in_kernel in routes:
+        rcfg = rnet.cfg
+        dis = one_hot(1.0)
+        windows, _ = golden_windows(rcfg, mixture, dev)
+        windows = windows[:SCAN_HEAD_CHUNKS]
+        counter = ("conv_" if rcfg.conv_lstm else "") + (
+            "attn_launches" if row in (3, 4) else "launches")
+        per_chunk = 1 if in_kernel else rcfg.B
+        eager = eager_stream(FusedStreamer(rnet, dis, device=dev,
+                                           attn_in_kernel=in_kernel), windows)
+        before = stack_counts(sk)[counter]
+        scan = fused_scan_stream(rnet, windows, dis, device=dev,
+                                 attn_in_kernel=in_kernel)
+        torch.cuda.synchronize()
+        grew = stack_counts(sk)[counter] - before
+        fs = FusedStreamer(rnet, dis, device=dev, attn_in_kernel=in_kernel)
+        with torch.no_grad():
+            fed = torch.cat([fs.feed(w) for w in windows], dim=-1)
+        same = (torch.equal(scan, eager), torch.equal(fed, eager))
+        log(f"  {name} (row {row}{'' if in_kernel else ' a block'}), "
+            f"first {len(windows)} chunks of syn_1m/00002: "
+            f"fused_scan_stream bit-equal to the eager step {same[0]}, "
+            f"graphed feed {same[1]}; {counter} +{grew}")
+        if not all(same):
+            fail(f"{name}: the graphed step differs from the eager step: "
+                 f"max-abs {float((scan - eager).abs().max()):.3e} (scan), "
+                 f"{float((fed - eager).abs().max()):.3e} (feed)")
+        if grew != per_chunk * len(windows):
+            fail(f"{name}: fused_scan_stream launched {counter} {grew} "
+                 f"times for {len(windows)} chunks")
+        if in_kernel and row > 1:
+            scan_launches[row] = grew
+
+        # ms a chunk in turns: eager, feed, scan, scan, feed, eager
+        x = torch.from_numpy(rng.standard_normal(
+            (1, rcfg.num_ch, rcfg.stft_back_pad + rcfg.stft_pad_size
+             + rcfg.stft_chunk_size * SCAN_TIME_CHUNKS)).astype(
+                 np.float32)).to(dev)
+        chunk = rcfg.stft_chunk_size
+        windows = torch.stack([x[..., k * chunk:k * chunk + rcfg.n_fft]
+                               for k in range(SCAN_TIME_CHUNKS)])
+        steps = windows[:STEP_TIME_CHUNKS]
+        fs.reset()
+        with torch.no_grad():
+            fs.feed(windows[0])
+
+        def run_eager():
+            eager_stream(fs, steps)
+
+        def run_feed():
+            with torch.no_grad():
+                for w in steps:
+                    fs.feed(w)
+
+        def run_scan():
+            fused_scan_stream(rnet, windows, dis, device=dev,
+                              attn_in_kernel=in_kernel)
+
+        runs = {"eager": (run_eager, STEP_TIME_CHUNKS),
+                "feed": (run_feed, STEP_TIME_CHUNKS),
+                "scan": (run_scan, SCAN_TIME_CHUNKS)}
+        times = {k: [] for k in runs}
+        for kind in ("eager", "feed", "scan", "scan", "feed", "eager"):
+            fn, n = runs[kind]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) / n * 1e3)
+        log(f"phase 32 times, {name}, on {card}, ms a chunk (host clock, "
+            f"in turns): " + ", ".join(
+                f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in times.items())
+            + f" (eager: `_step_impl`, no graph, {STEP_TIME_CHUNKS} chunks;"
+            f" feed: the graphed FusedStreamer.feed on device windows, "
+            f"{STEP_TIME_CHUNKS} chunks; scan: one fused_scan_stream call "
+            f"over {SCAN_TIME_CHUNKS} chunks, set-up and capture included)")
+    return scan_launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3246,9 +3472,10 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} card(s)")
 
-    # ---- 2. build
+    # ---- 2. build (always: every run compiles the sources; later
+    # processes of this run, phase 27's CLIs among them, reuse the library)
     t = time.perf_counter()
-    _build.load_library()
+    _build.load_library(rebuild=True)
     log(f"phase 2 build: {time.perf_counter() - t:.2f} s\n{_build.build_log()}")
 
     # ---- 3. kernel vs plain, full width, flagship weights, 1 m FiLM
@@ -3390,7 +3617,8 @@ def main():
     log(f"phase 5 times on {card}: stack kernel {kernel_ms:.4f} ms "
         f"(CUDA events, 200 launches; {kernel_graph_ms:.4f} ms a call as 20 "
         f"calls in one CUDA graph); plain version {plain_ms:.3f} ms "
-        f"(3 calls); FusedStreamer.feed {chunk_ms:.4f} ms per 8 ms chunk "
+        f"(3 calls); FusedStreamer.feed (graphed) {chunk_ms:.4f} ms per 8 "
+        f"ms chunk "
         f"(host clock, 250 chunks); bound {bound_ms:.6f} ms ({bound_by}); "
         f"library_ms: none (no single PyTorch call computes the stack step)")
 
@@ -3498,6 +3726,10 @@ def main():
     # ---- 31. the sample-dir generators, training and eval on their output
     phase31_generators(dev, ls, card)
 
+    # ---- 32. fused_scan_stream and the graphed FusedStreamer.feed (the
+    # main path of rows 1-4 as one captured CUDA graph of the step)
+    scan_launches = phase32_fused_scan(dev, net, edge_net, attn_nets, card)
+
     seq_entries = [{
         "name": name + ("_mixed" if mixed else ""), "route": "cuda",
         "source": srcs.get((name, mixed), seq_src),
@@ -3527,13 +3759,15 @@ def main():
         "name": "gridnet_stack_step", "route": "cuda",
         "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:243",
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+        "launches": launches, "scan_launches": scan_launches[1],
+        "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "gridnet_stack_step_conv", "route": "cuda",
         "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:393",
-        "launches": conv_launches, "max_abs_err": conv_err,
+        "launches": conv_launches, "scan_launches": scan_launches[2],
+        "max_abs_err": conv_err,
         **conv_times}, {
         "name": "lstm_slab_fwd", "route": "cuda", "source": slab_src,
         "replaces": f"{slab_tpu}:94", "launches": fwd_n,
@@ -3553,11 +3787,13 @@ def main():
         "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:354",
         "launches": served["flagship"][2],
+        "scan_launches": scan_launches[3],
         "max_abs_err": attn_errs["flagship"], **attn_times["flagship"]}, {
         "name": "gridnet_stack_step_conv_attn", "route": "cuda",
         "source": "sound_bubble_tpu_torch/csrc/stack_walk.cu",
         "replaces": "sound_bubble_tpu/ops/pallas/stack_kernel.py:491",
         "launches": served["orangpi"][2],
+        "scan_launches": scan_launches[4],
         "max_abs_err": attn_errs["orangpi"], **attn_times["orangpi"]},
         *seq_entries, {
         "name": "blstm_infer", "route": "cuda",

@@ -95,7 +95,10 @@
 //      1e-5: the model's attention LayerNorms take flax's default, not
 //      cfg.eps); writes its k, v to slot `pos` of the rings (in place,
 //      k_ring [B, L*E, W, F], v_ring [B, D, W, F], its rows only); its
-//      partial scores over its rows for every (head, slot) -> the scratch;
+//      partial scores over its rows for every (head, slot) -> the scratch.
+//      pos is read from the device (an int32 the caller advances there, so
+//      that a captured step replays with the slot of its turn) and taken
+//      modulo W into [0, W): no value of it writes outside the rings;
 //   3. [barrier] the scores summed over the blocks and scaled by
 //      1/sqrt(F*E) (the model's dk is the flattened F*E row), the softmax
 //      over the W slots with no mask (slots not written yet hold zeros and
@@ -135,7 +138,8 @@ constexpr float kAttnEps = 1e-5f;  // the attention LayerNorms' eps
 // pack does not have; s = 1 there. z, y, hr, pst and psc are the scratch
 // (`scratch_floats`): z [k, D] the walk's input, y [k, 2H] its output (k =
 // F / s), hr [B, F, 4H] = h0 W_hh2, pst [kCTAs][3L+1][2] the blocks'
-// partial moments, psc [kCTAs][L][W] their partial scores.
+// partial moments, psc [kCTAs][L][W] their partial scores. pos: the ring
+// slot, one int32 on the device.
 struct Args {
   const float *x, *film_w, *film_b, *i_ln, *wih_f, *wih_b, *whh, *b8,
       *proj_w, *proj_b, *t_ln, *wih2, *whh2, *b2, *proj2_w, *proj2_b,
@@ -144,7 +148,8 @@ struct Args {
       *v_a, *v_ln, *o_w, *o_b, *o_a, *o_ln;
   float *x_out, *h0_out, *c0_out, *k_ring, *v_ring;
   float *z, *y, *hr, *pst, *psc;
-  int n_blocks, F, D, s, use_film, heads, e_dim, W, pos, walk_smem;
+  const int* pos;
+  int n_blocks, F, D, s, use_film, heads, e_dim, W, walk_smem;
   float eps;
 };
 
@@ -641,10 +646,11 @@ __global__ void __launch_bounds__(4 * H, 1) stack_walk_kernel(const Args a) {
         qkv[i] = (qkv[i] - m[0]) * m[1] * g[0] + g[n * w];
       }
       __syncthreads();
+      const int slot = (__ldg(a.pos) % W + W) % W;
       for (int i = tid; i < (LE + D) * n; i += nt) {
         const int c = i / n, r = i - c * n;
-        float* dst = c < LE ? a.k_ring + (((size_t)b * LE + c) * W + a.pos) * F
-                            : a.v_ring + (((size_t)b * D + c - LE) * W + a.pos)
+        float* dst = c < LE ? a.k_ring + (((size_t)b * LE + c) * W + slot) * F
+                            : a.v_ring + (((size_t)b * D + c - LE) * W + slot)
                                   * F;
         dst[f0 + r] = qkv[r * QS + LE + c];
       }
@@ -859,8 +865,7 @@ int launch(Args a, int hidden, int scratch_given, float* scratch,
       scratch_floats(a.n_blocks, a.F, a.D, hidden, a.s, a.heads, a.W);
   if (!k || !smem || a.n_blocks < 1 || (size_t)scratch_given < need ||
       (conv && (!a.down_cat || !a.down_b || !a.dn_a)) ||
-      (attn && (a.D % a.heads || a.e_dim < 1 || a.W < 1 || a.pos < 0 ||
-                a.pos >= a.W)))
+      (attn && (a.D % a.heads || a.e_dim < 1 || a.W < 1 || !a.pos)))
     return (int)cudaErrorInvalidValue;
   if (!conv) a.s = 1;
   const int n_frames = a.F / a.s;
@@ -954,18 +959,18 @@ extern "C" int sbt_stack_walk(SBT_STACK_PARAMS, const float* h0,
 }
 
 // The attention step's operands (those of `pack_attn_params`, then the
-// rings, updated in place at slot `pos`) after the stack's; heads L, e_dim
-// E, window W and pos after the dims.
+// rings, updated in place at slot pos mod W, and pos, one int32 on the
+// device) after the stack's; heads L, e_dim E and window W after the dims.
 extern "C" int sbt_stack_walk_attn(
     SBT_STACK_PARAMS, const float* q_w, const float* q_b, const float* q_a,
     const float* q_ln, const float* k_w, const float* k_b, const float* k_a,
     const float* k_ln, const float* v_w, const float* v_b, const float* v_a,
     const float* v_ln, const float* o_w, const float* o_b, const float* o_a,
-    const float* o_ln, float* k_ring, float* v_ring, const float* h0,
-    const float* c0, float* x_out, float* h0_out, float* c0_out,
-    float* scratch, int n_blocks, int f_len, int d, int hidden,
-    int lstm_down, int heads, int e_dim, int window, int pos, int use_film,
-    int scratch_given, float eps, void* stream) {
+    const float* o_ln, float* k_ring, float* v_ring, const int* pos,
+    const float* h0, const float* c0, float* x_out, float* h0_out,
+    float* c0_out, float* scratch, int n_blocks, int f_len, int d,
+    int hidden, int lstm_down, int heads, int e_dim, int window,
+    int use_film, int scratch_given, float eps, void* stream) {
   if (heads < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   SBT_STACK_ARGS;
@@ -973,11 +978,11 @@ extern "C" int sbt_stack_walk_attn(
   a.k_w = k_w, a.k_b = k_b, a.k_a = k_a, a.k_ln = k_ln;
   a.v_w = v_w, a.v_b = v_b, a.v_a = v_a, a.v_ln = v_ln;
   a.o_w = o_w, a.o_b = o_b, a.o_a = o_a, a.o_ln = o_ln;
-  a.k_ring = k_ring, a.v_ring = v_ring;
+  a.k_ring = k_ring, a.v_ring = v_ring, a.pos = pos;
   a.h0 = h0, a.c0 = c0, a.x_out = x_out, a.h0_out = h0_out;
   a.c0_out = c0_out;
   a.n_blocks = n_blocks, a.F = f_len, a.D = d, a.s = lstm_down;
-  a.heads = heads, a.e_dim = e_dim, a.W = window, a.pos = pos;
+  a.heads = heads, a.e_dim = e_dim, a.W = window;
   a.use_film = use_film, a.eps = eps;
   return launch(a, hidden, scratch_given, scratch, stream);
 }

@@ -422,7 +422,9 @@ def local_attention(q, k_full, v_full, window):
     T <= W: one [T, T+W-1] score matrix with a band mask; T > W: queries in
     blocks of W (T padded up), block n attending the 2W-wide slab
     k_full[nW : nW+2W] with the band mask of each row. Masked scores are
-    -1e9, as in JAX. Returns [B, h, T, dv]."""
+    -1e9, as in JAX: a Python number, not a tensor made from one, which
+    would copy from the host and so break a CUDA graph's capture of the
+    streaming step. Returns [B, h, T, dv]."""
     B, h, T, dk = q.shape
     W = window
     scale = 1.0 / math.sqrt(dk)
@@ -431,7 +433,7 @@ def local_attention(q, k_full, v_full, window):
         j = torch.arange(k_full.shape[2], device=q.device)[None, :]
         t = torch.arange(T, device=q.device)[:, None]
         mask = (j >= t) & (j <= t + W - 1)
-        scores = torch.where(mask, scores, scores.new_tensor(-1e9))
+        scores = torch.where(mask, scores, -1e9)
         return torch.einsum("bhtj,bhjd->bhtd", scores.softmax(dim=-1),
                             v_full)
     nb = -(-T // W)
@@ -448,7 +450,7 @@ def local_attention(q, k_full, v_full, window):
     r = torch.arange(W, device=q.device)[:, None]
     j = torch.arange(2 * W, device=q.device)[None, :]
     mask = (j >= r) & (j <= r + W - 1)                  # W keys per row
-    scores = torch.where(mask, scores, scores.new_tensor(-1e9))
+    scores = torch.where(mask, scores, -1e9)
     out = torch.einsum("bhnrj,bhnjd->bhnrd", scores.softmax(dim=-1), v_slab)
     return out.reshape(B, h, nb * W, -1)[:, :, :T]
 

@@ -3,14 +3,21 @@ with a C interface, loaded with `ctypes`.
 
 No PyTorch headers and no `torch.utils.cpp_extension`: each source of
 `sound_bubble_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` process, all
-started together, and one more `nvcc` links the objects; that takes seconds,
-leaves no lock file behind and cannot wait on one. The library goes to
-`sound_bubble_tpu_torch/_build/libsbt_kernels.so` (listed in `.gitignore`). It
-is built at first use, once per process, and never at import.
+started together, and one more `nvcc` links the objects; that leaves no lock
+file behind and cannot wait on one. The library goes to
+`sound_bubble_tpu_torch/_build/libsbt_kernels.<key>.so` (listed in
+`.gitignore`), where the key (`library_key`) hashes every source and header
+under `csrc/`, the compile and link flags and `nvcc --version`. It is loaded
+at first use in a process, never at import: a process finds the library of
+its key and loads it as it is, without running nvcc (`build_log()` then says
+"reused <key>"); any change to a source, a flag or the compiler gives
+another key, and so a build. `load_library(rebuild=True)` compiles anew
+whatever is there.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -21,8 +28,10 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-LIB_NAME = "libsbt_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                 "-Xcompiler", "-fPIC", "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -76,29 +85,44 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
             for i, (cmd, proc, out) in enumerate(zip(cmds, procs, outs))]
 
 
-def build() -> tuple[Path, str]:
-    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME, one nvcc a source in
-    parallel, then link. Returns (path, compiler output incl. the
-    -Xptxas -v register/shared-memory/spill lines)."""
+def library_key(nvcc: str) -> str:
+    """What the library is built from, hashed: the name and bytes of every
+    `*.cu` and `*.cuh` under csrc/, the compile and link flags, and the
+    output of `nvcc --version`."""
+    h = hashlib.sha256()
+    for f in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(f"{f.name}\0".encode() + f.read_bytes() + b"\0")
+    h.update(repr((COMPILE_FLAGS, LINK_FLAGS)).encode())
+    h.update(subprocess.run([nvcc, "--version"], capture_output=True,
+                            text=True, check=True, timeout=60).stdout.encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(key: str) -> Path:
+    return BUILD_DIR / f"libsbt_kernels.{key}.so"
+
+
+def build(nvcc: str, key: str) -> tuple[Path, str]:
+    """Compile csrc/*.cu into `library_path(key)`, one nvcc a source in
+    parallel, then link; remove the libraries of other keys. Returns (path,
+    compiler output incl. the -Xptxas -v register/shared-memory/spill
+    lines)."""
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / LIB_NAME
-    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    out, tag = library_path(key), f"{os.getpid()}.tmp"
     # build beside the target and rename, so another process never loads a
     # half-written library
     objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
-    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
-    compile_cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-                     "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(src)]
+    tmp = BUILD_DIR / f".{out.name}.{tag}"
+    compile_cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
                     for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
     logs = []
     try:
         steps = [compile_cmds,
-                 [[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                   *map(str, objs)]]]
+                 [[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]]]
         for cmds in steps:
             results = _run_all(cmds)
             logs += [f"$ {' '.join(cmd)}\n{text}[nvcc rc={rc}]"
@@ -109,25 +133,36 @@ def build() -> tuple[Path, str]:
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
+    for old in BUILD_DIR.glob("libsbt_kernels*.so"):
+        if old != out:
+            old.unlink(missing_ok=True)
     log = "\n".join(logs) + (f"\n[{len(sources)} sources compiled in "
                              f"parallel and linked in "
                              f"{time.perf_counter() - t0:.2f} s]")
     return out, log
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (first call in this process) and load the kernel library."""
+def load_library(rebuild: bool = False) -> ctypes.CDLL:
+    """The kernel library, loaded at the first call in this process: the
+    library of this checkout's key if one is built, else (or with
+    `rebuild`) a new build."""
     global _lib, _build_log
     with _lock:
         if _lib is None:
-            path, _build_log = build()
+            nvcc = find_nvcc()
+            key = library_key(nvcc)
+            path = library_path(key)
+            if rebuild or not path.exists():
+                path, _build_log = build(nvcc, key)
+            else:
+                _build_log = f"reused {key}: {path}"
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sbt_stack_walk.argtypes = (
                 [ptr] * 25 + [i32] * 7 + [ctypes.c_float, ptr])
             lib.sbt_stack_walk.restype = i32
             lib.sbt_stack_walk_attn.argtypes = (
-                [ptr] * 43 + [i32] * 11 + [ctypes.c_float, ptr])
+                [ptr] * 44 + [i32] * 10 + [ctypes.c_float, ptr])
             lib.sbt_stack_walk_attn.restype = i32
             for fn in (lib.sbt_stack_walk_smem, lib.sbt_stack_walk_scratch):
                 fn.argtypes = [i32] * 7
@@ -159,5 +194,6 @@ def load_library() -> ctypes.CDLL:
 
 
 def build_log() -> str:
-    """The compiler output of this process's build ('' before it)."""
+    """The compiler output of this process's build, "reused <key>: <path>"
+    where it loaded a library built before ('' before either)."""
     return _build_log

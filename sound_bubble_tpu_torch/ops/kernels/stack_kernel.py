@@ -316,9 +316,10 @@ def gridnet_stack_step_attn_ref(packed, packed_attn, x, h0, c0, k_ring,
                                 eps: float = 1e-5):
     """Plain PyTorch version of the attention stack step: each block's
     intra and inter parts as in `gridnet_stack_step_ref`, then
-    `_attn_step`. Writes slot `pos` of k_ring / v_ring in place and returns
-    (x_out, h0', c0', k_ring, v_ring)."""
-    return _stack_ref(packed, (packed_attn, k_ring, v_ring, int(pos), heads),
+    `_attn_step`. Writes slot pos mod W of k_ring / v_ring in place, as
+    the kernel does, and returns (x_out, h0', c0', k_ring, v_ring)."""
+    return _stack_ref(packed, (packed_attn, k_ring, v_ring,
+                               int(pos) % k_ring.shape[2], heads),
                       x, h0, c0, film_w, film_b, eps)
 
 
@@ -498,7 +499,7 @@ def walk_phases_ref(packed, x, h0, c0, film_w=None, film_b=None,
     """The stack kernel's phases in plain PyTorch, in its launch order: the
     same function as `gridnet_stack_step_ref` (attn None) or
     `gridnet_stack_step_attn_ref` (attn = (packed_attn, k_ring, v_ring, pos,
-    heads); the rings' slot pos written in place) and the same returns,
+    heads); the rings' slot pos mod W written in place) and the same returns,
     computed block by block as the kernel's blocks do: each direction's walk
     on its pack columns, the rows' phases tile by tile (`conv_walk_tiles`),
     every reduction over the frame a partial a tile and a combine. Rows 1/3
@@ -529,8 +530,8 @@ def walk_phases_ref(packed, x, h0, c0, film_w=None, film_b=None,
         cs.append(torch.cat([r[2] for r in rows]))
         if attn is not None:
             pa, k_ring, v_ring, pos, heads = attn
-            xs = _phase_attn(pa, b, xs, rows_of, int(pos), k_ring, v_ring,
-                             heads)
+            xs = _phase_attn(pa, b, xs, rows_of, int(pos) % k_ring.shape[2],
+                             k_ring, v_ring, heads)
         if b + 1 < n_blocks:
             if film_w is not None:
                 xs = [r * film_w[b, f0:f0 + n] + film_b[b, f0:f0 + n]
@@ -645,6 +646,18 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_pos(pos, device):
+    if not isinstance(pos, torch.Tensor):
+        raise TypeError(f"pos: expected an int32 tensor of shape [1], got "
+                        f"{type(pos).__name__}")
+    if pos.device != device:
+        raise ValueError(f"pos: on {pos.device}, expected {device}")
+    if pos.dtype != torch.int32:
+        raise TypeError(f"pos: dtype {pos.dtype}, expected torch.int32")
+    if tuple(pos.shape) != (1,):
+        raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (1,)")
+
+
 def _operands(packed):
     """(the pack's weight operands in the C entry points' order, None for a
     null pointer; their shapes by name; s or None)."""
@@ -732,7 +745,7 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
     n_blocks, d, hidden4 = packed["wih2"].shape
     hidden = hidden4 // 4
     f_len = x.shape[0]
-    heads = e_dim = window = pos = 0
+    heads = e_dim = window = 0
     if attn is not None:
         packed_attn, k_ring, v_ring, pos, heads = attn
         if heads < 1 or d % heads or k_ring.dim() != 4 or \
@@ -741,8 +754,6 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
                              "k_ring's L*E planes")
         e_dim = k_ring.shape[1] // heads
         window = k_ring.shape[2]
-        if not 0 <= pos < window:
-            raise ValueError(f"pos={pos}: outside the ring's {window} slots")
     plan = walk_plan(f_len, d, hidden, n_blocks,
                      None if attn is None else (heads, e_dim, window), s)
     _check("x", x, (f_len, d), dev)
@@ -781,8 +792,8 @@ def _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn=None):
     if attn is not None:
         entry, counter = "sbt_stack_walk_attn", "attn_launches"
         attn_ptrs = (*[packed_attn[k].data_ptr() for k in _ATTN],
-                     k_ring.data_ptr(), v_ring.data_ptr())
-        attn_dims = (heads, e_dim, window, pos)
+                     k_ring.data_ptr(), v_ring.data_ptr(), pos.data_ptr())
+        attn_dims = (heads, e_dim, window)
     if s is not None:
         counter = "conv_" + counter
     with torch.cuda.device(dev):
@@ -835,9 +846,14 @@ def gridnet_stack_step_attn(packed, packed_attn, x, h0, c0, k_ring, v_ring,
     x, h0, c0, film_w, film_b as for `gridnet_stack_step`; packed_attn from
     `pack_attn_params`; k_ring [B, L*E, W, F] / v_ring [B, D, W, F]: the
     K/V rings as per-(head, channel) planes over W slots; pos: the slot this
-    frame's k, v go to (an int; the caller advances it as (pos + 1) % W);
-    heads: cfg.L. The rings are updated IN PLACE (slot pos of every plane)
-    and returned: (x_out, h0', c0', k_ring, v_ring).
+    frame's k, v go to, an int32 tensor of shape [1] on x's device (JAX's
+    SMEM operand; the caller advances it there as (pos + 1) % W, so a
+    captured step replays with the slot of its turn); heads: cfg.L. The
+    rings are updated IN PLACE and returned: (x_out, h0', c0', k_ring,
+    v_ring). The slot written is pos mod W, in [0, W) for any pos: the
+    kernel reads pos when it runs and takes it modulo W before it writes
+    (no host check of its value, which would need a sync), and the plain
+    version does the same.
 
     CUDA tensors launch `stack_walk_kernel<H, true, false>`, one cluster a
     call (`gridnet_stack_step.attn_launches`), or `stack_walk_kernel<H,
@@ -846,7 +862,8 @@ def gridnet_stack_step_attn(packed, packed_attn, x, h0, c0, k_ring, v_ring,
     tensors run `gridnet_stack_step_attn_ref`. `checked=True` skips the
     weight checks for packs that already passed `check_packed` on this
     device."""
-    attn = (packed_attn, k_ring, v_ring, int(pos), int(heads))
+    _check_pos(pos, x.device)
+    attn = (packed_attn, k_ring, v_ring, pos, int(heads))
     if x.device.type == "cuda":
         return _launch(packed, x, h0, c0, film_w, film_b, eps, checked, attn)
     if x.device.type == "cpu":

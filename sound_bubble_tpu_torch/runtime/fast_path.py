@@ -1,5 +1,6 @@
 """Single-stream low-latency streaming through the whole-stack kernel
-(port of `sound_bubble_tpu/runtime/fast_path.py:FusedStreamer`).
+(port of `sound_bubble_tpu/runtime/fast_path.py`: `FusedStreamer` and
+`fused_scan_stream`).
 
 `ModelWrapper` (runtime/streaming.py) runs the model's own forward, whose
 block stack is ~B*(F+1) small LSTM cell steps (B*(F//s+1) for conv_lstm).
@@ -20,7 +21,8 @@ the constructor's `attn_in_kernel`:
   of `gridnet_stack_step_attn` a chunk. The K/V rings are per-(head,
   channel) planes over W slots, `state["k_ring"]` [B, L*E, W, F] and
   `state["v_ring"]` [B, D, W, F], written in place at slot
-  `state["attn_pos"]`, which advances as (pos + 1) % W. JAX gates this
+  `state["attn_pos"]`, an int32 [1] tensor on the device (as in JAX's
+  state) that the step advances there as (pos + 1) % W. JAX gates this
   route on `attn_ring_bytes` < 10 MB, a limit of the TPU's VMEM, where its
   kernel keeps the rings. On the H100 the rings stay in global memory and
   the gate does not carry over: 13.9 MB at the flagship width and 5.57 MB
@@ -32,20 +34,56 @@ the constructor's `attn_in_kernel`:
   `GridNetBlock.attend`). This is JAX's route at the flagship width; the
   port keeps it so that the two routes check each other on the card.
 
+On the card the step is one CUDA graph, the counterpart of JAX's one jitted
+dispatch a chunk: the first `feed` runs the step eagerly on a side stream
+(the warm-up: it builds the kernels and fills the allocator) and then
+captures it once, on a static window and the state's own tensors, with the
+step's next state copied into them in place. Every later `feed` copies its
+window in, replays the graph and returns a clone of the static output. So
+the state stays in place on the device: `reset()` zeroes it there and
+`set_dis_embed()` writes the new FiLM affines into the captured tensors. A
+window of another shape captures anew. A capture that fails raises; nothing
+falls back to the eager step on the card. All three routes capture (rows 1
+and 2; rows 3 and 4 with the ring slot read from the device; the per-block
+route, whose attention shifts its K/V buffers with `torch.cat`), the
+look-back decode too. On the CPU, which runs only when asked, `feed` runs
+the eager step (`_step_impl`) on the plain stack step. A graph runs no
+Python when it replays, so the launch counters (`ops/kernels`) read what
+the graph's launches would have counted run eagerly: the capture's count is
+taken back and added once a replay.
+
+`fused_scan_stream` is JAX's whole-signal harness (one `lax.scan`
+dispatch): on the card one streamer's graph, captured at the first window
+and replayed for each other one into an output allocated once, with no host
+sync between chunks.
+
 Float32 only: a net with the bf16 trunk raises NotImplementedError (bf16
 serving, ROADMAP Queue 2 item 3) rather than being served in another
 precision than its own.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sound_bubble_tpu_torch.models.tfgridnet.model import init_state
+from sound_bubble_tpu_torch.ops import kernels
 from sound_bubble_tpu_torch.ops.kernels.stack_kernel import (
     check_packed, gridnet_stack_step, gridnet_stack_step_attn,
     pack_attn_params, pack_stack_params)
+from sound_bubble_tpu_torch.runtime.streaming import _copy_state
 from sound_bubble_tpu_torch.utils import resolve_device, to_tensor
 from sound_bubble_tpu_torch.weights import param_tree
+
+
+class _Captured(NamedTuple):
+    """A captured step: its graph, static window and static output, and
+    the launches of one replay (`kernels.capture_launches`)."""
+    graph: object
+    window: torch.Tensor
+    out: torch.Tensor
+    launches: dict
 
 
 class FusedStreamer:
@@ -56,7 +94,8 @@ class FusedStreamer:
     operands (checked once, here) and `film` the FiLM affines, on `device`.
     The inter-LSTM state is kept in the kernel's layout, `state["h0"]` /
     `state["c0"]` [B, F, H], in place of the model's per-block
-    `gridnet_bufs`."""
+    `gridnet_bufs`. On the card `feed` replays one captured graph of the
+    step (module docstring)."""
 
     def __init__(self, net, dis_embed=None, device="cuda",
                  attn_in_kernel: bool = True):
@@ -85,6 +124,7 @@ class FusedStreamer:
                                  self.packed.items()} for i in range(cfg.B)]
         self.film = self._precompute_film(dis_embed)
         self.internal_state = None
+        self._captured = None
 
     @torch.no_grad()
     def _precompute_film(self, dis_embed):
@@ -101,10 +141,19 @@ class FusedStreamer:
                 torch.stack([b[0] for _, b in affines]).contiguous())
 
     def set_dis_embed(self, dis_embed):
-        self.film = self._precompute_film(dis_embed)
+        """New FiLM affines, copied into the tensors a captured step
+        reads."""
+        film = self._precompute_film(dis_embed)
+        if self.film is None:
+            self.film = film
+        else:
+            for dst, src in zip(self.film, film):
+                dst.copy_(src)
 
     def reset(self):
-        self.internal_state = None
+        """Zero the state in place, so that a captured step stays valid."""
+        if self.internal_state is not None:
+            _copy_state(self.internal_state, self._make_state())
 
     def _make_state(self):
         cfg = self.cfg
@@ -118,7 +167,8 @@ class FusedStreamer:
                                           device=self.device)
             state["v_ring"] = torch.zeros((cfg.B, cfg.D, W, F),
                                           device=self.device)
-            state["attn_pos"] = 0
+            state["attn_pos"] = torch.zeros((1,), dtype=torch.int32,
+                                            device=self.device)
         elif cfg.use_attn:
             state["attn"] = [{k: bufs[f"buf{i}"][k] for k in
                               ("K_buf", "V_buf")} for i in range(cfg.B)]
@@ -167,11 +217,67 @@ class FusedStreamer:
         x = self._stack(h[0, 0].contiguous(), state, next_state, film)
         return net.decode(x[None, None], spec, state, next_state), next_state
 
-    @torch.no_grad()
-    def feed(self, window):
-        window = to_tensor(window, self.device)
+    def _advance(self, window):
+        """One step on the state (made at the first); its output. On the
+        card that is the graph's static output, which the next step
+        overwrites."""
         if self.internal_state is None:
             self.internal_state = self._make_state()
-        out, self.internal_state = self._step_impl(
-            window, self.internal_state, self.film)
+        if self.device.type != "cuda":
+            out, self.internal_state = self._step_impl(
+                window, self.internal_state, self.film)
+            return out
+        cap = self._captured
+        if cap is None or cap.window.shape != window.shape:
+            return self._capture(window)
+        cap.window.copy_(window)
+        cap.graph.replay()
+        kernels.add_launches(cap.launches)
+        return cap.out
+
+    def _capture(self, window):
+        """The step on `window`, run eagerly on a side stream (the warm-up;
+        its launches count), then captured for the next windows of its
+        shape. Returns the eager step's output."""
+        state, film = self.internal_state, self.film
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out, next_state = self._step_impl(window, state, film)
+            _copy_state(state, next_state)
+        main.wait_stream(side)
+        out.record_stream(main)
+        static = window.clone()
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out, next_state = self._step_impl(static, state, film)
+            _copy_state(state, next_state)
+        self._captured = _Captured(graph, static, static_out,
+                                   kernels.capture_launches(before))
         return out
+
+    @torch.no_grad()
+    def feed(self, window):
+        out = self._advance(to_tensor(window, self.device))
+        return out.clone() if self.device.type == "cuda" else out
+
+
+@torch.no_grad()
+def fused_scan_stream(net, windows, dis_embed=None, device="cuda",
+                      attn_in_kernel: bool = True):
+    """Whole-signal fused streaming (JAX `fused_scan_stream`, the
+    single-stream measurement harness): windows [n_chunks, 1, M,
+    back+chunk+pad] chained through one `FusedStreamer`'s step -> [1,
+    num_src, n_chunks*chunk]. The net carries its weights. On the card the
+    step is captured at the first window and replayed for each other one
+    into the output, allocated once, with no host sync between chunks; on
+    the CPU the eager step runs in a loop."""
+    fs = FusedStreamer(net, dis_embed, device, attn_in_kernel)
+    windows = to_tensor(windows, fs.device)
+    chunk = fs.cfg.stft_chunk_size
+    out = windows.new_empty((1, fs.cfg.num_src, windows.shape[0] * chunk))
+    for i, window in enumerate(windows):
+        out[..., i * chunk:(i + 1) * chunk] = fs._advance(window)
+    return out

@@ -85,9 +85,11 @@ def streaming_inference(mdl: ModelWrapper, x, chunk_size: int,
 
 
 def _copy_state(dst, src):
-    """Copy the nested state dict src into dst's tensors, in place."""
-    for key, value in src.items():
-        if isinstance(value, dict):
+    """Copy the nested state src (dicts and lists of tensors) into dst's
+    tensors, in place."""
+    for key, value in (src.items() if isinstance(src, dict)
+                       else enumerate(src)):
+        if isinstance(value, (dict, list)):
             _copy_state(dst[key], value)
         else:
             dst[key].copy_(value)

@@ -266,7 +266,8 @@ def test_attn_stack_step_matches_pallas_interpret(variant):
         jx, *jstate = jstep(jnp.asarray(x), *jstate,
                             jnp.asarray([k % W], jnp.int32))
         for fn, st in states.items():
-            tx, *st[:] = fn(pk_t, pa_t, torch.from_numpy(x), *st, k % W,
+            tx, *st[:] = fn(pk_t, pa_t, torch.from_numpy(x), *st,
+                            torch.tensor([k % W], dtype=torch.int32),
                             cfg.L, torch.from_numpy(fw),
                             torch.from_numpy(fb), eps=cfg.eps)
             for name, g, w in zip(("x", "h0", "c0", "k_ring", "v_ring"),
@@ -346,7 +347,9 @@ def test_fused_streamer_attn_matches_jax(variant, in_kernel, rng):
     assert (tsk.gridnet_stack_step.attn_launches,
             tsk.gridnet_stack_step.conv_attn_launches) == before
     if in_kernel:
-        assert fs.internal_state["attn_pos"] == n % cfg.local_atten_len
+        pos = fs.internal_state["attn_pos"]
+        assert pos.dtype == torch.int32 and pos.shape == (1,)
+        assert int(pos) == n % cfg.local_atten_len
     assert got.shape == want.shape == (1, 1, chunk * n)
     np.testing.assert_allclose(got, want, atol=STREAM_TOL, rtol=0)
 

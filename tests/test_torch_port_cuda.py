@@ -283,8 +283,9 @@ def _walk_step(row, dev):
     W = cfg.local_atten_len
     kr = draw(B, cfg.L * cfg.E, W, F)
     vr = draw(B, D, W, F)
+    pos = torch.tensor([3], dtype=torch.int32, device=dev)
     return (lambda: sk.gridnet_stack_step_attn(
-        packed, pa, x, h0, c0, kr, vr, 3, cfg.L, fw, fb,
+        packed, pa, x, h0, c0, kr, vr, pos, cfg.L, fw, fb,
         eps=cfg.eps)), counter
 
 
@@ -382,8 +383,9 @@ def test_attn_kernels_match_plain(size):
     for step in range(W + 5):
         x = draw(F, D)
         xk, hk, ck, kk, vk = sk.gridnet_stack_step_attn(
-            packed, pa, x, hk, ck, kk, vk, step % W, cfg.L, fw, fb,
-            eps=cfg.eps)
+            packed, pa, x, hk, ck, kk, vk,
+            torch.tensor([step % W], dtype=torch.int32, device=dev), cfg.L,
+            fw, fb, eps=cfg.eps)
         torch.cuda.synchronize()
         xr, hr, cr, kr, vr = sk.gridnet_stack_step_attn_ref(
             packed, pa, x, hr, cr, kr, vr, step % W, cfg.L, fw, fb,
@@ -417,7 +419,9 @@ def test_conv_attn_chain_matches_phases():
         for step in range(W + 5):
             x = draw(F, D)
             xk, *got = sk.gridnet_stack_step_attn(
-                packed, pa, x, *got, step % W, cfg.L, fw, fb, eps=cfg.eps)
+                packed, pa, x, *got,
+                torch.tensor([step % W], dtype=torch.int32, device=dev),
+                cfg.L, fw, fb, eps=cfg.eps)
             torch.cuda.synchronize()
             xr, *want = sk.conv_walk_phases_ref(
                 packed, x, want[0], want[1], fw, fb, eps=cfg.eps,
@@ -442,91 +446,60 @@ def test_attn_kernel_rejects_bad_operands():
     h0 = torch.zeros((B, F, H), device=dev)
     kr = torch.zeros((B, cfg.L * cfg.E, W, F), device=dev)
     vr = torch.zeros((B, D, W, F), device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="k_ring: on cpu"):
-        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr.cpu(), vr, 0,
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr.cpu(), vr, pos,
                                    cfg.L)
     with pytest.raises(ValueError, match="v_ring: shape"):
-        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr[:, 1:], 0,
+        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr[:, 1:], pos,
                                    cfg.L)
-    with pytest.raises(ValueError, match="pos=5"):
-        sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr, W, cfg.L)
+    # the slot: an int32 [1] tensor on the card, its value read there
+    for bad, err, match in ((0, TypeError, "pos: expected"),
+                            (pos.cpu(), ValueError, "pos: on cpu"),
+                            (pos.long(), TypeError, "pos: dtype"),
+                            (pos.expand(2), ValueError, "pos: shape")):
+        with pytest.raises(err, match=match):
+            sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, kr, vr, bad,
+                                       cfg.L)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         sk.gridnet_stack_step_attn(packed, {**pa, "o_w": pa["o_w"].bfloat16()},
-                                   x, h0, h0, kr, vr, 0, cfg.L)
+                                   x, h0, h0, kr, vr, pos, cfg.L)
     with pytest.raises(ValueError, match="shared memory"):
         # [L, W] scores of 4-byte floats alone: 2 x 40000 x 4 B = 320 KB
         big = torch.zeros((B, cfg.L * cfg.E, 40000, F), device=dev)
         sk.gridnet_stack_step_attn(packed, pa, x, h0, h0, big,
                                    torch.zeros((B, D, 40000, F), device=dev),
-                                   0, cfg.L)
+                                   pos, cfg.L)
 
 
-def test_fused_streamer_attn_routes_agree_on_card():
-    """A seeded attention net at the flagship width (B cut to 2, W to 6),
-    FusedStreamer on the card: the in-kernel route against the per-block
-    route (row-1 kernel a block, attention in PyTorch), 8 chunks (pos
-    wraps), 1e-4 of the output's peak; one attention launch a chunk on the
-    first route, B launches of the plain stack kernel a chunk on the
-    second."""
-    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
-
+def test_attn_kernel_takes_the_slot_modulo_w():
+    """No value of pos writes outside the rings: the kernel writes slot pos
+    mod W, as the plain version does; pos = W + 3 and pos = -2 give what
+    pos = 3 and pos = W - 2 give, bit for bit."""
     dev = _card()
-    cfg = NetConfig(use_attn=True, local_atten_len=6, **{
-        **ATTN_SIZES["flagship"], "B": 2})
-    net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(1)
-    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
-    x = rng.standard_normal((1, 6, chunk * 8 + pad)).astype(np.float32)
-    outs = {}
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False      # full fp32 convolutions
-    try:
-        for in_kernel in (True, False):
-            fs = FusedStreamer(net, device=dev, attn_in_kernel=in_kernel)
-            before = (sk.gridnet_stack_step.attn_launches,
-                      sk.gridnet_stack_step.launches)
-            outs[in_kernel] = torch.cat(
-                [fs.feed(x[..., k * chunk:k * chunk + chunk + pad]).cpu()
-                 for k in range(8)], dim=-1)
-            grew = (sk.gridnet_stack_step.attn_launches - before[0],
-                    sk.gridnet_stack_step.launches - before[1])
-            assert grew == ((8, 0) if in_kernel else (0, 8 * cfg.B))
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    want, got = outs[False], outs[True]
-    assert float((got - want).abs().max() / want.abs().max()) <= TOL
+    cfg, packed, pa, draw = _walk_case(dict(ATTN_SIZES["small"]), dev,
+                                       use_attn=True)
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+    x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    kr, vr = draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F)
 
+    def step(p):
+        k, v = kr.clone(), vr.clone()
+        out = sk.gridnet_stack_step_attn(
+            packed, pa, x, h0, c0, k, v,
+            torch.tensor([p], dtype=torch.int32, device=dev), cfg.L,
+            eps=cfg.eps)
+        return [t.clone() for t in out]
 
-def test_fused_streamer_on_card_matches_cpu():
-    """The flagship, FusedStreamer on the card (one kernel launch per chunk)
-    against FusedStreamer on the CPU (plain version), 4 chunks, 1e-4
-    relative to the output's peak."""
-    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
-    from sound_bubble_tpu_torch.utils import load_pretrained
-
-    dev = _card()
-    run_dir = str(REPO / "runs" / "finetune_r5")
-    rng = np.random.default_rng(1)
-    cfg = load_pretrained(run_dir, device="cpu").cfg
-    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
-    x = rng.standard_normal((1, 6, chunk * 4 + pad)).astype(np.float32) * 0.1
-    outs = {}
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False      # full fp32 convolutions
-    try:
-        for device in ("cpu", dev):
-            fs = FusedStreamer(load_pretrained(run_dir, device=device),
-                               device=device)
-            before = sk.gridnet_stack_step.launches
-            outs[str(device)] = torch.cat(
-                [fs.feed(x[..., k * chunk:k * chunk + chunk + pad]).cpu()
-                 for k in range(4)], dim=-1)
-            if device is dev:
-                assert sk.gridnet_stack_step.launches == before + 4
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    want, got = outs["cpu"], outs[str(dev)]
-    assert float((got - want).abs().max() / want.abs().max()) <= TOL
+    for p, same in ((W + 3, 3), (-2, W - 2)):
+        got, want = step(p), step(same)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (p, same)
+        ref = sk.gridnet_stack_step_attn_ref(
+            packed, pa, x, h0, c0, kr.clone(), vr.clone(), p, cfg.L,
+            eps=cfg.eps)
+        for g, w in zip(got, ref):
+            assert float((g - w).abs().max()) <= TOL, p
 
 
 # (T, R, C, H): ragged T (K = 8 does not divide it) and R (not a multiple of
@@ -1410,13 +1383,12 @@ def test_streaming_scan_graph_matches_loop(dir_fuse):
 # fresh process, and the graph test comes after every profiler session.
 
 PROFILE_WALK = """
-import json, pathlib, sys
+import json, sys
 sys.path[:0] = [{repo!r}, {tests!r}]
 import torch
 from torch.profiler import ProfilerActivity, profile
 from sound_bubble_tpu_torch.ops.kernels import _build
 from sound_bubble_tpu_torch.ops.kernels import stack_kernel as sk
-_build.build = lambda: (pathlib.Path({lib!r}), "")  # the built library
 import test_torch_port_cuda as t
 dev = torch.device("cuda")
 steps = [t._walk_step(row, dev) for row in (1, 3, 2, 4)]
@@ -1432,6 +1404,7 @@ with torch.no_grad():
                 step()
         torch.cuda.synchronize()
 print(json.dumps({{
+    "build_log": _build.build_log(),
     "launches": {{c: getattr(sk.gridnet_stack_step, c) - n
                   for c, n in before.items()}},
     "names": [e.name for e in prof.events()
@@ -1443,7 +1416,8 @@ print(json.dumps({{
 def walk_profile():
     """torch.profiler's device kernel records of 5 calls of each of rows 1,
     3, 2 and 4 (`_walk_step`), in one session of a fresh process that loads
-    the library this process built; and the launch counts there."""
+    the library this process built, without running nvcc (the same key);
+    and the launch counts there."""
     import json
     import subprocess
     import sys
@@ -1452,12 +1426,13 @@ def walk_profile():
 
     _card()
     lib = _build.load_library()._name
-    code = PROFILE_WALK.format(repo=str(REPO), tests=str(REPO / "tests"),
-                               lib=lib)
+    code = PROFILE_WALK.format(repo=str(REPO), tests=str(REPO / "tests"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=600, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["build_log"] == f"reused {lib.split('.')[-2]}: {lib}"
+    return out
 
 
 @pytest.mark.parametrize("row", list(WALK_ROWS))
@@ -1499,6 +1474,214 @@ def test_walk_graph_replay_is_bit_equal(row):
         torch.cuda.synchronize()
     for got, want in zip(outs, eager):
         assert torch.equal(got, want)
+
+
+# ---- the graphed streaming step (`runtime/fast_path.py`): after the
+# profiler sessions above, since FusedStreamer.feed captures a CUDA graph
+
+def test_fused_streamer_attn_routes_agree_on_card():
+    """A seeded attention net at the flagship width (B cut to 2, W to 6),
+    FusedStreamer on the card: the in-kernel route against the per-block
+    route (row-1 kernel a block, attention in PyTorch), 8 chunks (pos
+    wraps), 1e-4 of the output's peak; one attention launch a chunk on the
+    first route, B launches of the plain stack kernel a chunk on the
+    second."""
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+
+    dev = _card()
+    cfg = NetConfig(use_attn=True, local_atten_len=6, **{
+        **ATTN_SIZES["flagship"], "B": 2})
+    net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
+    x = rng.standard_normal((1, 6, chunk * 8 + pad)).astype(np.float32)
+    outs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # full fp32 convolutions
+    try:
+        for in_kernel in (True, False):
+            fs = FusedStreamer(net, device=dev, attn_in_kernel=in_kernel)
+            before = (sk.gridnet_stack_step.attn_launches,
+                      sk.gridnet_stack_step.launches)
+            outs[in_kernel] = torch.cat(
+                [fs.feed(x[..., k * chunk:k * chunk + chunk + pad]).cpu()
+                 for k in range(8)], dim=-1)
+            grew = (sk.gridnet_stack_step.attn_launches - before[0],
+                    sk.gridnet_stack_step.launches - before[1])
+            assert grew == ((8, 0) if in_kernel else (0, 8 * cfg.B))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want, got = outs[False], outs[True]
+    assert float((got - want).abs().max() / want.abs().max()) <= TOL
+
+
+def test_fused_streamer_on_card_matches_cpu():
+    """The flagship, FusedStreamer on the card (one kernel launch per chunk)
+    against FusedStreamer on the CPU (plain version), 4 chunks, 1e-4
+    relative to the output's peak."""
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+    from sound_bubble_tpu_torch.utils import load_pretrained
+
+    dev = _card()
+    run_dir = str(REPO / "runs" / "finetune_r5")
+    rng = np.random.default_rng(1)
+    cfg = load_pretrained(run_dir, device="cpu").cfg
+    chunk, pad = cfg.stft_chunk_size, cfg.stft_pad_size
+    x = rng.standard_normal((1, 6, chunk * 4 + pad)).astype(np.float32) * 0.1
+    outs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # full fp32 convolutions
+    try:
+        for device in ("cpu", dev):
+            fs = FusedStreamer(load_pretrained(run_dir, device=device),
+                               device=device)
+            before = sk.gridnet_stack_step.launches
+            outs[str(device)] = torch.cat(
+                [fs.feed(x[..., k * chunk:k * chunk + chunk + pad]).cpu()
+                 for k in range(4)], dim=-1)
+            if device is dev:
+                assert sk.gridnet_stack_step.launches == before + 4
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want, got = outs["cpu"], outs[str(dev)]
+    assert float((got - want).abs().max() / want.abs().max()) <= TOL
+
+
+# the routes of FusedStreamer's step: rows 1-4 at the widths of their nets
+# (the flagship's, the Orange Pi's unconditioned, their attention nets with
+# W cut to 7), the per-block route (the flagship's width, B cut to 2), and
+# the look-back decode on row 1 at a small width
+STREAM_ROUTES = {
+    "row1": (dict(SIZES["full"]), True),
+    "row2": (dict(CONV_SIZES["orangepi"], conv_lstm=True,
+                  conditional=False), True),
+    "row3": (dict(SIZES["full"], use_attn=True, L=4, E=2,
+                  local_atten_len=7), True),
+    "row4": (dict(CONV_SIZES["orangepi"], conv_lstm=True, conditional=False,
+                  use_attn=True, L=4, E=2, local_atten_len=7), True),
+    "per_block": (dict(SIZES["full"], B=2, use_attn=True, L=4, E=2,
+                       local_atten_len=7), False),
+    "lookback": (dict(SIZES["small"], stft_back_pad=16), True)}
+
+
+def _eager_stream(net, windows, dis, in_kernel):
+    """A fresh streamer's eager step (`_step_impl`) over the windows."""
+    from sound_bubble_tpu_torch.runtime.fast_path import FusedStreamer
+
+    fs = FusedStreamer(net, dis, device=windows.device,
+                       attn_in_kernel=in_kernel)
+    state, outs = fs._make_state(), []
+    with torch.no_grad():
+        for w in windows:
+            out, state = fs._step_impl(w, state, fs.film)
+            outs.append(out)
+    return torch.cat(outs, dim=-1)
+
+
+@pytest.mark.parametrize("route", list(STREAM_ROUTES))
+def test_graphed_streamer_matches_the_eager_step(route):
+    """FusedStreamer.feed (one captured graph of the step, replayed) and
+    fused_scan_stream against the eager step in a loop, bit for bit, over
+    W + 5 chunks on the attention nets (the ring wraps through the slot on
+    the device) and 8 elsewhere; the launches counted as if the graph's ran
+    eagerly (one a chunk, B a chunk on the per-block route) and the slot
+    advanced on the device; then feed after set_dis_embed() and reset()
+    against a fresh eager streamer with the new embedding."""
+    from sound_bubble_tpu_torch.ops import kernels
+    from sound_bubble_tpu_torch.runtime.fast_path import (
+        FusedStreamer, fused_scan_stream)
+
+    dev = _card()
+    widths, in_kernel = STREAM_ROUTES[route]
+    cfg = NetConfig(**{"conv_lstm": False, **widths})
+    net = Net(cfg).init_weights(torch.Generator().manual_seed(0))
+    n = cfg.local_atten_len + 5 if cfg.use_attn else 8
+    chunk = cfg.stft_chunk_size
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_ch, cfg.stft_back_pad + chunk * n + cfg.stft_pad_size))
+        .astype(np.float32)).to(dev)
+    windows = torch.stack([x[..., k * chunk:k * chunk + cfg.n_fft]
+                           for k in range(n)])
+    dis, dis2 = [[0.0, 1.0, 0.0]], [[1.0, 0.0, 0.0]]
+    want = _eager_stream(net, windows, dis, in_kernel)
+
+    fs = FusedStreamer(net, dis, device=dev, attn_in_kernel=in_kernel)
+    before = kernels.launch_counts()
+    got = torch.cat([fs.feed(w) for w in windows], dim=-1)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in kernels.launch_counts().items()
+            if v != before[k]}
+    counter = "gridnet_stack_step." + ("conv_" if cfg.conv_lstm else "") + (
+        "attn_launches" if cfg.use_attn and in_kernel else "launches")
+    assert grew == {counter: n * (1 if in_kernel else cfg.B)}
+    assert torch.equal(got, want)
+    if cfg.use_attn and in_kernel:
+        pos = fs.internal_state["attn_pos"]
+        assert pos.dtype == torch.int32 and pos.shape == (1,)
+        assert pos.device.type == "cuda"
+        assert int(pos) == n % cfg.local_atten_len
+
+    before = kernels.launch_counts()[counter]
+    scan = fused_scan_stream(net, windows, dis, device=dev,
+                             attn_in_kernel=in_kernel)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[counter] - before == grew[counter]
+    assert torch.equal(scan, want)
+
+    if cfg.conditional:
+        fs.set_dis_embed(dis2)
+        want = _eager_stream(net, windows, dis2, in_kernel)
+    fs.reset()
+    again = torch.cat([fs.feed(w) for w in windows], dim=-1)
+    assert torch.equal(again, want)
+
+
+@pytest.mark.parametrize("row", [3, 4])
+def test_walk_graph_replays_advance_the_ring_slot(row):
+    """Rows 3 and 4 captured with the slot's advance on the device,
+    `(pos + 1) % W` in place, and replayed W + 2 times from pos = 0: replay
+    k writes slot k mod W of the rings and no other, and gives what the
+    eager call k gave, bit for bit."""
+    dev = _card()
+    cfg, packed, pa, draw = _walk_case(WALK_ROWS[row], dev, use_attn=True)
+    F, D, H, B, W = cfg.n_freqs, cfg.D, cfg.H, cfg.B, cfg.local_atten_len
+    x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
+    fw, fb = draw(B - 1, F, D), draw(B - 1, F, D)
+    rings = (draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F))
+
+    def fresh():
+        return (*[r.clone() for r in rings],
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+
+    def step(kr, vr, pos):
+        out = sk.gridnet_stack_step_attn(packed, pa, x, h0, c0, kr, vr, pos,
+                                         cfg.L, fw, fb, eps=cfg.eps)
+        pos.add_(1).remainder_(W)
+        return out
+
+    with torch.no_grad():
+        state = fresh()
+        eager = [[t.clone() for t in step(*state)] for _ in range(W + 2)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(*fresh())
+        torch.cuda.current_stream().wait_stream(side)
+        state = fresh()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = step(*state)
+        for k in range(W + 2):
+            prev = [r.clone() for r in state[:2]]
+            graph.replay()
+            torch.cuda.synchronize()
+            for got, want in zip(outs, eager[k]):
+                assert torch.equal(got, want), k
+            for ring, old in zip(state[:2], prev):
+                slots = (ring != old).any(dim=3).any(dim=1).any(dim=0)
+                assert torch.nonzero(slots).flatten().tolist() == [k % W]
+            assert int(state[2]) == (k + 1) % W
 
 
 # ---- data generation (`datagen/`): plain PyTorch on the card against the

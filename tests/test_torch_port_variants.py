@@ -215,4 +215,6 @@ def test_train_pt_on_attn_config(net, tmp_path):
                                k * cfgf.stft_chunk_size + cfgf.n_fft])
                      for k in range(3)], dim=-1)
     assert out.shape == (1, 1, 3 * cfgf.stft_chunk_size)
-    assert torch.isfinite(out).all() and fs.internal_state["attn_pos"] == 3
+    pos = fs.internal_state["attn_pos"]
+    assert torch.isfinite(out).all()
+    assert pos.dtype == torch.int32 and pos.shape == (1,) and int(pos) == 3

@@ -3,8 +3,9 @@ library, kernel by kernel.
 
     python tools/diff_sass.py LIB_A LIB_B
 
-Each LIB is a built `libsbt_kernels.so`, e.g. a tree's
-`sound_bubble_tpu_torch/_build/libsbt_kernels.so` after a run that built it
+Each LIB is a built kernel library, e.g. a tree's
+`sound_bubble_tpu_torch/_build/libsbt_kernels.<key>.so` after a run that
+built it (older trees: `libsbt_kernels.so`)
 (`tools/time_stack_kernels.py` builds each tree it is given). Runs the CUDA
 toolkit's `cuobjdump -sass` on both, splits each listing by function, drops
 the address and encoding comments, and prints one JSON line: the functions

@@ -486,7 +486,8 @@ def build_stack(out):
 # (name, NetConfig widths, use_film, steps) of rows 1-4's kernel: F = 17,
 # 9 (blocks 5-7 own no row), 21 at H = 16, 145 (the flagship's widths,
 # depth cut to 2), one block (the per-block route); with attention, chained
-# past W so that pos wraps; conv_lstm (rows 2 and 4): F = 25 at s = 4 (a
+# past W so that the slot wraps (pos = step - W, read from memory: negative,
+# then in range; the kernel takes it modulo W); conv_lstm (rows 2 and 4): F = 25 at s = 4 (a
 # row past the last frame, blocks 6-7 own no frame), 145 at s = 5 (the
 # Orange Pi and Raspberry Pi widths, depth cut to 2: seven blocks of four
 # frames and one of one), 21 at s = 5 and H = 16 (one frame a block, the
@@ -537,7 +538,7 @@ def stack_cases(lib, check, ptr):
 
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sbt_stack_walk.argtypes = [P] * 25 + [I] * 7 + [ctypes.c_float, P]
-    lib.sbt_stack_walk_attn.argtypes = ([P] * 43 + [I] * 11
+    lib.sbt_stack_walk_attn.argtypes = ([P] * 44 + [I] * 10
                                         + [ctypes.c_float, P])
     lib.sbt_stack_walk_smem.argtypes = [I] * 7
     lib.sbt_stack_walk_smem.restype = ctypes.c_size_t
@@ -597,11 +598,11 @@ def stack_cases(lib, check, ptr):
                                                  cfg.eps)
                 got = outs
             else:
-                pos = step % W
+                pos = torch.tensor([step - W], dtype=torch.int32)
                 rc = lib.sbt_stack_walk_attn(
                     *head, *[ptr(pa[k]) for k in sk._ATTN],
-                    *map(ptr, rings), *tail, *dims, cfg.L, cfg.E, W, pos,
-                    int(use_film), plan["scratch"], cfg.eps, None)
+                    *map(ptr, rings), ptr(pos), *tail, *dims, cfg.L, cfg.E,
+                    W, int(use_film), plan["scratch"], cfg.eps, None)
                 want = sk.gridnet_stack_step_attn_ref(
                     packed, pa, x, hr, cr, *rings_ref, pos, cfg.L, fw, fb,
                     cfg.eps)

@@ -157,9 +157,11 @@ def child(out_dir):
                 cfg, tree).items()}
             kr, vr = draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F)
 
+            pos = torch.tensor([3], dtype=torch.int32, device=dev)
+
             def call():
-                sk.gridnet_stack_step_attn(packed, pa, x, h0, c0, kr, vr, 3,
-                                           cfg.L, fw, fb, eps=cfg.eps,
+                sk.gridnet_stack_step_attn(packed, pa, x, h0, c0, kr, vr,
+                                           pos, cfg.L, fw, fb, eps=cfg.eps,
                                            checked=True)
         else:
             def call():

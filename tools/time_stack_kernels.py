@@ -12,10 +12,16 @@ ones, and as 20 calls captured in one CUDA graph (`*_graph_ms`): at the
 flagship width (`runs/finetune_r5`, 1 m FiLM) and, where the package has
 the conv_lstm branch, at the Orange Pi width (`runs/edge_orangpi_seeded`);
 `gridnet_stack_step_attn` the same way at the attention nets' widths
-(`runs/attn_flagship_seeded`: row 3; `runs/attn_orangpi_seeded`: row 4),
-pos advancing a call; `FusedStreamer.feed` of each of these four nets, ms
-a chunk on the host clock (chip_smoke.py's `feed_ms`, 100 chunks) and as
-20 chunks captured in one CUDA graph (None where the capture fails); the
+(`runs/attn_flagship_seeded`: row 3; `runs/attn_orangpi_seeded`: row 4)
+at a fixed slot, whose value the kernel's work does not depend on (an
+int32 tensor on the device where the tree's wrapper takes that form, a
+host int in older trees); `FusedStreamer.feed`
+of each of these four nets, ms a chunk on the host clock (chip_smoke.py's
+`feed_ms`, 100 chunks) and its device time (`*_feed_graph_ms`): where the
+tree's feed replays a captured graph of its step (it cannot be captured
+again inside another), that graph's replays with the window's copy, 200
+back to back (CUDA events); in older trees 20 chunks captured in one CUDA
+graph (None where the capture fails); the
 worst max-abs error of rows 1-4 against their plain versions over chained
 steps (`*_chain_err`: rows 1 and 2 at the flagship's and the Orange Pi's
 widths, 5 steps; rows 3 and 4 at the attention nets', W + 5 = 105 steps,
@@ -320,14 +326,15 @@ def time_stack_steps(out, dev):
         x, h0, c0 = draw(F, D), draw(B, F, H) * 0.5, draw(B, F, H) * 0.5
         fw, fb = fs.film if fs.film is not None else (None, None)
         if cfg.use_attn:
-            W, pos = cfg.local_atten_len, [0]
+            W = cfg.local_atten_len
             kr, vr = draw(B, cfg.L * cfg.E, W, F), draw(B, D, W, F)
+            pos = (torch.zeros((1,), dtype=torch.int32, device=dev)
+                   if hasattr(sk, "_check_pos") else 0)
 
             def step():
                 sk.gridnet_stack_step_attn(
-                    fs.packed, fs.packed_attn, x, h0, c0, kr, vr, pos[0],
+                    fs.packed, fs.packed_attn, x, h0, c0, kr, vr, pos,
                     cfg.L, fw, fb, eps=cfg.eps, checked=True)
-                pos[0] = (pos[0] + 1) % W
         else:
             def step():
                 sk.gridnet_stack_step(fs.packed, x, h0, c0, fw, fb,
@@ -340,7 +347,20 @@ def time_stack_steps(out, dev):
         out[f"{name}_feed_ms"] = feed_ms(fs, 100, rng)
         win = draw(1, cfg.num_ch, cfg.n_fft)
         fs.reset()
-        out[f"{name}_feed_graph_ms"] = graph_ms(lambda: fs.feed(win), 20)
+        if hasattr(fs, "_captured"):
+            fs.feed(win)
+            cap = fs._captured
+
+            def replay():
+                cap.window.copy_(win)
+                cap.graph.replay()
+
+            for _ in range(10):
+                replay()
+            out[f"{name}_feed_graph_ms"] = events_ms(replay, 200)
+        else:
+            out[f"{name}_feed_graph_ms"] = graph_ms(lambda: fs.feed(win),
+                                                    20)
 
 
 def chain_errors(out, dev):
@@ -394,8 +414,12 @@ def chain_errors(out, dev):
             for step in range(W + 5 if attn else 5):
                 x = draw(F, D)
                 if attn:
+                    slot = step % W
+                    if hasattr(sk, "_check_pos"):
+                        slot = torch.tensor([slot], dtype=torch.int32,
+                                            device=dev)
                     xk, *got = sk.gridnet_stack_step_attn(
-                        packed, pa, x, *got, step % W, cfg.L, fw, fb,
+                        packed, pa, x, *got, slot, cfg.L, fw, fb,
                         eps=cfg.eps)
                     xr, *want = sk.gridnet_stack_step_attn_ref(
                         packed, pa, x, *want, step % W, cfg.L, fw, fb,
